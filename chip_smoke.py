@@ -1,0 +1,572 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
+
+Runs the port's main path — the paper's ZF keyed stream routed onto 128
+workers by each of the six grouping schemes, through the session API on
+the fused engine, with the device window store — and checks it:
+
+1. builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, started together);
+2. drives the main path once per scheme with every kernel launch counter
+   at 0 beforehand, and fails if any kernel of the path never launched;
+3. holds each fused run against the port's batched host engine on the same
+   stream (SG/FG/PKG exact; DC/WC/FISH within the DESIGN.md §6 bands) and
+   every merged window against ``direct_aggregate``;
+4. re-runs FISH and WC with the same seed and requires bit-identical
+   reports;
+5. calls every kernel's wrapper on the inputs the main path gave it,
+   holds the result against the plain PyTorch version, and times both.
+
+Usage: ``python3 chip_smoke.py [--tuples N] [--seed S]`` from the root of
+a checkout (the stream length is the only cut allowed).  Needs one card;
+exits non-zero with no result without one or outside a checkout.  The
+last stdout line is ``{"ok": true, "device": {...}}``; the line before it
+names the card and its power limit, and a ``{"kernels": [...]}`` line
+before that carries each kernel's launches, error and times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+N_TUPLES = 524_288   # per scheme
+FEED = 16_384        # tuples per session.feed
+WORKERS = 128        # the paper's largest cluster
+NUM_KEYS = 100_000   # ZF key universe (paper §6.1)
+WINDOW = 65_536      # tumbling window (= pane) of the device store
+RATE = 10_000.0      # tuples/s
+SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
+EXACT = ("sg", "fg", "pkg")
+F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
+FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
+HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
+F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
+
+REPO = Path(__file__).resolve().parent
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        "nvidia-smi: " + out.stderr.strip())
+
+
+# ---------------------------------------------------------------------------
+# capture: the first main-path call of each kernel wrapper, per scheme
+# ---------------------------------------------------------------------------
+
+
+class Capture:
+    """Wraps the kernel wrappers the fused path calls and keeps a clone of
+    the inputs of one representative call each (cloned *before* the call,
+    since the kernels update their state in place).  The wrapped function
+    is the real wrapper, so launch counting is untouched."""
+
+    def __init__(self):
+        self.calls = {}
+        self.scheme = None
+
+    def _clone(self, x):
+        import torch
+
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def wrap(self, name, fn, want):
+        def call(*args, **kwargs):
+            key = (name, self.scheme)
+            if key not in self.calls and want(args, kwargs):
+                self.calls[key] = (tuple(self._clone(a) for a in args),
+                                   {k: self._clone(v)
+                                    for k, v in kwargs.items()})
+            return fn(*args, **kwargs)
+        return call
+
+
+def install_capture(cap: Capture):
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import ops
+
+    ff.ring_rows = cap.wrap("ring_rows", ff.ring_rows,
+                            lambda a, k: a[4] == FEED)
+    ff.tracker_update = cap.wrap("tracker_update", ff.tracker_update,
+                                 lambda a, k: a[3] == FEED)
+    ff.route_fifo = cap.wrap("route_fifo", ff.route_fifo,
+                             lambda a, k: a[1] == FEED)
+    ff.pane_update = cap.wrap("pane_update", ff.pane_update,
+                              lambda a, k: a[2] == FEED and not k["reset"])
+    # the store's probe: keep the first call that carries a real pane
+    # flush (a per-worker store of one window)
+    ops.store_probe = cap.wrap("store_probe", ops.store_probe,
+                               lambda a, k: a[1].shape[0] >= 64)
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
+
+
+def topology(scheme, T):
+    op = T.WindowOp(agg="sum", value="payload", size=WINDOW,
+                    backend="device")
+    return T.Topology(
+        name=f"zf-{scheme}",
+        stages=(T.Stage("agg", WORKERS, operator=op),),
+        edges=(T.Edge("source", "agg", T.config_for(scheme)),))
+
+
+def batches(keys, values, T):
+    ts = __import__("numpy").arange(keys.shape[0], dtype="float64") / RATE
+    return [T.RecordBatch(keys[lo:lo + FEED], ts[lo:lo + FEED],
+                          values[lo:lo + FEED])
+            for lo in range(0, keys.shape[0], FEED)]
+
+
+def run_session(mode, scheme, feeds, device, T, torch):
+    eng = T.SimulatorEngine(mode=mode, device=device)
+    sess = eng.open(topology(scheme, T), arrival_rate=RATE)
+    walls = []
+    t0 = time.perf_counter()
+    for b in feeds:
+        f0 = time.perf_counter()
+        sess.feed(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - f0)
+    rep = sess.close()
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0, walls
+
+
+def check_exact_or_banded(scheme, rf, rb):
+    ef, eb = rf.edges[0], rb.edges[0]
+    if ef.n_tuples != eb.n_tuples:
+        return f"n_tuples {ef.n_tuples} != {eb.n_tuples}"
+    if scheme in EXACT:
+        if ef.memory_overhead != eb.memory_overhead:
+            return f"memory_overhead {ef.memory_overhead} != {eb.memory_overhead}"
+        if ef.imbalance != eb.imbalance:
+            return f"imbalance {ef.imbalance} != {eb.imbalance}"
+        for k in ("latency_avg", "latency_p99", "execution_time"):
+            a, b = getattr(ef, k), getattr(eb, k)
+            if abs(a - b) > F32_REL * abs(b):
+                return f"{k} {a} vs {b} beyond rel {F32_REL}"
+        if rf.state["agg"]["merged"] != rb.state["agg"]["merged"]:
+            return "merged windows differ from the batched engine"
+    else:  # DESIGN.md §6 bands (tests/test_fused_engine.py:114-119)
+        if abs(ef.execution_time - eb.execution_time) > 0.05 * eb.execution_time:
+            return f"execution_time {ef.execution_time} vs {eb.execution_time}"
+        if abs(ef.throughput - eb.throughput) > 0.05 * eb.throughput:
+            return f"throughput {ef.throughput} vs {eb.throughput}"
+        if abs(ef.memory_overhead - eb.memory_overhead) > 0.25 * eb.memory_overhead:
+            return f"memory_overhead {ef.memory_overhead} vs {eb.memory_overhead}"
+        if ef.imbalance > eb.imbalance + 0.05:
+            return f"imbalance {ef.imbalance} vs {eb.imbalance}"
+        if ef.latency_p99 > max(eb.latency_p99 * 10.0, 0.05):
+            return f"latency_p99 {ef.latency_p99} vs {eb.latency_p99}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain
+# ---------------------------------------------------------------------------
+
+
+def clone_call(call):
+    import torch
+
+    args, kwargs = call
+    c = (lambda x: x.clone() if isinstance(x, torch.Tensor) else x)
+    return tuple(c(a) for a in args), {k: c(v) for k, v in kwargs.items()}
+
+
+def compare(outs_k, outs_p, names):
+    """Max |kernel - plain| over every output; ints must be exact."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in zip(names, outs_k, outs_p):
+        if a is None:
+            continue
+        a = a.to("cpu")
+        b = b.to(a.device)
+        if a.shape != b.shape:
+            fail(f"{name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
+        if a.dtype.is_floating_point:
+            d = (a.double() - b.double()).abs()
+            err = float(d.max()) if d.numel() else 0.0
+            tol = FLOAT_TOL * max(float(b.double().abs().max()), 1.0) \
+                if b.numel() else 0.0
+            if err > tol:
+                fail(f"{name}: max |err| {err} beyond {tol}")
+        else:
+            err = float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+            if err != 0.0:
+                fail(f"{name}: integer outputs differ (max |err| {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def time_cuda(fn, reps, torch):
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def time_host(fn, reps, torch):
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def kernel_checks(cap, torch, np, launches):
+    """Kernel vs plain on the captured main-path inputs, plus times and
+    bounds.  Returns the ``kernels`` JSON rows."""
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import store_probe as sp
+
+    rows = []
+    src_ff = "src/repro_torch/csrc/feed_fused.cu"
+
+    def row(name, source, replaces, err, ms, plain_ms, bytes_, ops,
+            library_ms=None):
+        bound_b = bytes_ / HBM_BPS * 1e3
+        bound_o = ops / F32_OPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_b, bound_o),
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "library_ms": library_ms})
+
+    # -- store_probe --------------------------------------------------------
+    call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
+    (tbl, ks, vs), _ = call
+    vk = sp.store_probe(tbl, ks, vs, validate=True)
+    vp = sp.store_probe_plain(tbl, ks, vs)
+    err = compare(vk, vp, ("vsum", "csum", "matched"))
+    ms = time_cuda(lambda: sp.store_probe(tbl, ks, vs), 50, torch)
+    pms = time_host(lambda: sp.store_probe_plain(tbl, ks, vs), 5, torch)
+    k_, n_ = tbl.shape[0], ks.shape[0]
+    row("store_probe", "src/repro_torch/csrc/store_probe.cu",
+        "src/repro/kernels/store_probe.py:56", err, ms, pms,
+        4 * k_ + 8 * n_ + 8 * k_ + n_, n_ * max(k_, 2).bit_length())
+    log(f"store_probe   K={k_} N={n_}: kernel {ms:.4f} ms, plain {pms:.4f} "
+        f"ms, max|err| {err}")
+
+    # -- the segment kernels, every scheme's captured segment ----------------
+    seg = {}
+    for (name, scheme), call in sorted(cap.calls.items(),
+                                       key=lambda kv: str(kv[0])):
+        if name == "store_probe":
+            continue
+        seg.setdefault(name, {})[scheme] = call
+    for scheme in SCHEMES:
+        if "route_fifo" not in seg or scheme not in seg["route_fifo"]:
+            fail(f"no captured route_fifo call for {scheme}")
+
+    # ring_rows (FISH: the widest rows)
+    args, kw = seg["ring_rows"]["fish"]
+    pts, cands, hashes, keys, m, width, n_pad = args
+    rk = ff.ring_rows(*args)
+    rp = ff.ring_rows_plain(*args)
+    err = compare((rk,), (rp,), ("rows",))
+    for s in ("fg", "pkg", "dc", "wc"):
+        a2, _ = seg["ring_rows"][s]
+        err = max(err, compare((ff.ring_rows(*a2),), (ff.ring_rows_plain(*a2),),
+                               (f"rows[{s}]",)))
+    ms = time_cuda(lambda: ff.ring_rows(*args), 50, torch)
+    pms = time_host(lambda: ff.ring_rows_plain(*args), 5, torch)
+    rows_touched = min(pts.shape[0], m)
+    row("ring_rows", src_ff, "src/repro/kernels/feed_fused.py:217", err, ms,
+        pms, 4 * pts.shape[0] + 4 * rows_touched * width + 8 * m
+        + 4 * n_pad * width, m * 2 * pts.shape[0].bit_length())
+    log(f"ring_rows     n_pad={n_pad} width={width} R={pts.shape[0]}: "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, max|err| {err}")
+
+    # tracker (count + fold), FISH; DC and WC checked too
+    def run_tracker(fn, call):
+        (trk, cnt, keys, m), kw = clone_call(call)
+        psum, pmax = fn(trk, cnt, keys, m, **kw)
+        return psum, pmax, trk, cnt, kw["snap"]
+    err = 0.0
+    for s in ("dc", "wc", "fish"):
+        call = seg["tracker_update"][s]
+        err = max(err, compare(
+            run_tracker(ff.tracker_update, call),
+            run_tracker(lambda *a, **k: ff.tracker_update_plain(
+                *a, k["g0"], k["epoch"], k["pre"], k["ne"], k["alpha"],
+                k["snap"]), call),
+            (f"psum[{s}]", f"pmax[{s}]", f"trk[{s}]", f"cnt[{s}]",
+             f"snap[{s}]")))
+    (trk, cnt, keys, m), kw = clone_call(seg["tracker_update"]["fish"])
+    cnt_k = cnt.clone()
+    ms_both = time_cuda(lambda: ff.tracker_update(trk, cnt_k, keys, m, **kw),
+                        50, torch)
+    pms = time_host(lambda: ff.tracker_update_plain(
+        trk, cnt, keys, m, kw["g0"], kw["epoch"], kw["pre"], kw["ne"],
+        kw["alpha"], kw["snap"]), 3, torch)
+    kcap1 = trk.shape[0]
+    ne = kw["ne"]
+    # the count pass alone, through its C entry; the fold is the rest
+    lib = ff._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def count_only():
+        lib.tracker_count(keys.data_ptr(), m, kcap1, kw["g0"], kw["epoch"],
+                          cnt_k.data_ptr(), stream)
+    ms_count = time_cuda(count_only, 50, torch)
+    cnt_k.zero_()
+    ms_fold = max(ms_both - ms_count, 0.0)
+    uniq = int(torch.unique(keys[:m]).shape[0])
+    # library yardstick: the same int scatter as one index_add_ (one epoch)
+    ones = torch.ones(m, dtype=torch.int32, device=keys.device)
+    lib_ms = time_cuda(lambda: cnt_k[0].index_add_(0, keys[:m].long(), ones),
+                       50, torch)
+    cnt_k.zero_()
+    nb = -(-kcap1 // 256)
+    row("tracker_count", src_ff, "src/repro/kernels/feed_fused.py:251", err,
+        ms_count, pms, 4 * m + 8 * uniq, m, lib_ms)
+    row("tracker_fold", src_ff, "src/repro/kernels/feed_fused.py:251", err,
+        ms_fold, pms, 8 * kcap1 + 8 * uniq + 4 * ne * kcap1 + 8 * ne * nb,
+        kcap1 * 2 * ne + 2 * ne * kcap1)
+    log(f"tracker       kcap1={kcap1} epochs={ne} m={m}: count {ms_count:.4f}"
+        f" ms + fold {ms_fold:.4f} ms, plain (both) {pms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms, max|err| {err}")
+
+    # route_fifo, every scheme
+    def run_route(fn, call):
+        args, kw = clone_call(call)
+        workers, fin = fn(*args, **kw)
+        m = args[1]
+        outs = [workers[:m], fin[:m], kw["busy"], kw["counts"]]
+        for k in ("m_k", "ebl", "eas"):
+            outs.append(kw.get(k))
+        return outs
+    err = 0.0
+    route_ms = {}
+    for s in SCHEMES:
+        call = seg["route_fifo"][s]
+        ok = run_route(ff.route_fifo, call)
+        opl = run_route(ff.route_fifo_plain, call)
+        e = compare(ok, opl, ("workers", "fin", "busy", "counts", "m_k",
+                              "ebl", "eas"))
+        err = max(err, e)
+        args, kw = clone_call(call)
+        route_ms[s] = time_cuda(lambda: ff.route_fifo(*args, **kw), 10, torch)
+        log(f"route_fifo    {s:4s} m={args[1]} w1={kw['busy'].shape[0]}: "
+            f"kernel {route_ms[s]:.4f} ms, max|err| {e}")
+    args, kw = clone_call(seg["route_fifo"]["fish"])
+    m = args[1]
+    pms = time_host(lambda: ff.route_fifo_plain(*args, **kw), 1, torch)
+    width = kw["rows"].shape[1]
+    w1 = kw["busy"].shape[0]
+    # candidates this segment's data makes the scan read: Σ min(d, width)
+    args, kw = clone_call(seg["route_fifo"]["fish"])
+    _, d = ff.route_prologue(
+        "fish", m, kw["keys"], kw["rows"], None, 0, 0, kw["trk"], kw["snap"],
+        kw["psum"], kw["pmax"], kw["g0"], kw["epoch"], kw["theta"],
+        kw["wnum"], kw["m_k"], kw["d_min"])
+    d_sum = int(np.minimum(d, width).sum())
+    row("route_fifo", src_ff, "src/repro/kernels/feed_fused.py:175", err,
+        route_ms["fish"], pms, 4 * d_sum + 16 * m + 4 * 2 * 6 * w1,
+        3 * d_sum + 2 * m)
+    log(f"route_fifo    fish plain {pms:.1f} ms (host loop)")
+
+    # pane_update (FISH, a steady-state segment of an open pane)
+    def run_pane(fn, call):
+        (keys, workers, m), kw = clone_call(call)
+        fn(keys, workers, m, **kw)
+        return [kw["repl"], kw["pane_tab"], kw["pane_cnt"], kw["pane_last"]]
+    err = 0.0
+    for s in SCHEMES:
+        call = seg["pane_update"][s]
+        err = max(err, compare(
+            run_pane(ff.pane_update, call),
+            run_pane(lambda k, w, m, **kw: ff.pane_update_plain(
+                True, kw["reset"], k, w, kw["vals"], m, kw["seg_base"],
+                kw["pane_tab"], kw["pane_cnt"], kw["pane_last"],
+                kw["repl"]), call),
+            (f"repl[{s}]", f"pane_tab[{s}]", f"pane_cnt[{s}]",
+             f"pane_last[{s}]")))
+    (keys, workers, m), kw = clone_call(seg["pane_update"]["fish"])
+    ms = time_cuda(lambda: ff.pane_update(keys, workers, m, **kw), 50, torch)
+    pms = time_host(lambda: ff.pane_update_plain(
+        True, False, keys, workers, kw["vals"], m, kw["seg_base"],
+        kw["pane_tab"], kw["pane_cnt"], kw["pane_last"], kw["repl"]), 5,
+        torch)
+    pairs = int(torch.unique(workers[:m].long() * kcap1
+                             + keys[:m].long()).shape[0])
+    row("pane_update", src_ff, "src/repro/kernels/feed_fused.py:414", err,
+        ms, pms, 12 * m + pairs * (2 * 12 + 1) + 8 * w1, 4 * m)
+    log(f"pane_update   m={m} pairs={pairs}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, max|err| {err}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tuples", type=int, default=N_TUPLES,
+                    help="stream length per scheme (the only allowed cut)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    try:
+        import numpy as np
+
+        import repro_torch.topology as T
+        from repro_torch.data.synthetic import zipf_time_evolving
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import feed_fused as ff
+        from repro_torch.kernels import store_probe as sp
+        from repro_torch.state import direct_aggregate
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e}); run "
+              "from the root of a checkout", file=sys.stderr)
+        return 2
+    # the card's path may never drop to the host engine unseen
+    warnings.filterwarnings("error", message="simulate_edge falling back")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    log(f"card: {card_line()}")
+
+    # -- build -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, one nvcc per source "
+        f"in parallel (built: {', '.join(built) or 'none, cached'})")
+    for name, rec in _build.BUILD_LOG.items():
+        for line in rec.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas[{name}]: {line.strip()}")
+
+    dev = torch.device("cuda")
+    n = args.tuples - args.tuples % FEED if args.tuples >= FEED else args.tuples
+    log(f"stream: ZF num_keys={NUM_KEYS} z=1.2 flip_at=0.8 flip_head=10000, "
+        f"{n} tuples per scheme, feeds of {FEED}, {WORKERS} workers, "
+        f"window {WINDOW} (device store), seed {args.seed}")
+    keys = zipf_time_evolving(n, num_keys=NUM_KEYS, z=1.2, flip_at=0.8,
+                              flip_head=10_000, seed=args.seed)
+    values = np.random.default_rng(args.seed).integers(
+        1, 10, n).astype(np.float64)
+    feeds = batches(keys, values, T)
+
+    # warm-up (not timed, not counted): CUDA context, library loads and the
+    # caching allocator's first growth would otherwise land on SG's feeds
+    run_session("fused", "fish", feeds[:2], dev, T, torch)
+
+    # -- the main path, counters from 0 ------------------------------------------
+    cap = Capture()
+    install_capture(cap)
+    for d in (ff.LAUNCHES, sp.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    fused = {}
+    for scheme in SCHEMES:
+        cap.scheme = scheme
+        rep, wall, walls = run_session("fused", scheme, feeds, dev, T, torch)
+        fused[scheme] = rep
+        w = np.asarray(walls)
+        log(f"fused {scheme:4s}: {n / wall:,.0f} tuples/s, per-feed wall p50 "
+            f"{np.percentile(w, 50) * 1e3:.2f} ms p99 "
+            f"{np.percentile(w, 99) * 1e3:.2f} ms, dispatches "
+            f"{rep.edges[0].dispatches}")
+    cap.scheme = None
+    launches = dict(ff.LAUNCHES)
+    launches.update(sp.LAUNCHES)
+    log(f"launches on the main path: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+
+    # -- fused (card) vs batched (host) + the oracle -------------------------------
+    segments = 0
+    for b in feeds:  # pane cuts inside each feed (no events on this path)
+        lo = int(b.timestamps[0] * RATE + 0.5)
+        segments += 1 + sum(1 for c in range(lo + 1, lo + len(b))
+                            if c % WINDOW == 0)
+    ref = None
+    for scheme in SCHEMES:
+        rf = fused[scheme]
+        rb, wall_b, _ = run_session("batched", scheme, feeds, dev, T, torch)
+        if ref is None:
+            op = topology(scheme, T).stages[0].operator
+            ref = direct_aggregate(keys, op, values=values)
+        why = check_exact_or_banded(scheme, rf, rb)
+        if why:
+            fail(f"{scheme}: fused vs batched: {why}")
+        if rf.state["agg"]["merged"] != ref:
+            fail(f"{scheme}: merged windows != direct_aggregate")
+        if rf.edges[0].dispatches != segments:
+            fail(f"{scheme}: dispatches {rf.edges[0].dispatches} != "
+                 f"{segments} segments")
+        ef, eb = rf.edges[0], rb.edges[0]
+        log(f"check {scheme:4s}: ok (batched host {n / wall_b:,.0f} tuples/s)"
+            f" exec {ef.execution_time:.6f}/{eb.execution_time:.6f} s, p99 "
+            f"{ef.latency_p99:.6f}/{eb.latency_p99:.6f} s, imbalance "
+            f"{ef.imbalance:.6f}/{eb.imbalance:.6f}, memory "
+            f"{ef.memory_overhead}/{eb.memory_overhead}")
+
+    # -- same-seed double runs ------------------------------------------------------
+    for scheme in ("fish", "wc"):
+        again, _, _ = run_session("fused", scheme, feeds, dev, T, torch)
+        if again.to_dict() != fused[scheme].to_dict():
+            fail(f"{scheme}: same-seed double run is not bit-identical")
+        log(f"double run {scheme}: bit-identical")
+
+    # -- kernels vs plain ---------------------------------------------------------
+    rows = kernel_checks(cap, torch, np, launches)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

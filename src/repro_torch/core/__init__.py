@@ -1,0 +1,58 @@
+"""FISH core of the port: Algs. 1-3 host parts, CHK, consistent hashing,
+the baseline groupings and the DSPE simulator (batched, reference and
+fused engines)."""
+
+from .assignment import WorkerStateEstimator, greedy_allocate, select_min_wait
+from .baselines import (
+    DChoices,
+    FieldGrouping,
+    FishGrouper,
+    Grouper,
+    PartialKeyGrouping,
+    ShuffleGrouping,
+    WChoices,
+)
+from .chash import ConsistentHashRing, hash32
+from .fish import (
+    EpochFrequencyTracker,
+    FishParams,
+    chk_num_workers,
+    chk_num_workers_batch,
+)
+from .stream import (
+    CapacityEvent,
+    EdgeResult,
+    EdgeState,
+    MembershipEvent,
+    StreamMetrics,
+    at_time,
+    edge_metrics,
+    simulate_edge,
+)
+
+__all__ = [
+    "WorkerStateEstimator",
+    "greedy_allocate",
+    "select_min_wait",
+    "DChoices",
+    "FieldGrouping",
+    "FishGrouper",
+    "Grouper",
+    "PartialKeyGrouping",
+    "ShuffleGrouping",
+    "WChoices",
+    "ConsistentHashRing",
+    "hash32",
+    "EpochFrequencyTracker",
+    "FishParams",
+    "chk_num_workers",
+    "chk_num_workers_batch",
+    "CapacityEvent",
+    "EdgeResult",
+    "EdgeState",
+    "MembershipEvent",
+    "StreamMetrics",
+    "at_time",
+    "edge_metrics",
+    "simulate_edge",
+]

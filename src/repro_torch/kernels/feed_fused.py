@@ -1,0 +1,1119 @@
+"""Device-resident fused feed hot path: hand-written CUDA kernels for one
+(edge, segment), their plain PyTorch versions, and the per-edge runner.
+
+Replaces ``src/repro/kernels/feed_fused.py::_get_seg_fn`` — one jitted XLA
+launch per segment that chains
+
+a. **routing** — all six schemes over device state: SG is round-robin
+   arithmetic; FG/PKG/DC/WC/FISH look their candidates up in a consistent-
+   hash ring table (upper-bound search over the ring points — the device
+   mirror of ``chash.lookup_n``); PKG is the exact sequential two-choice;
+   DC/WC/FISH classify hot keys against a dense device frequency tracker
+   and pick per tuple by a masked argmin (FISH: the Eq. 2 wait-time argmin
+   against the Alg. 3 estimator state);
+b. **FIFO** — the per-worker recurrence ``f = max(busy[w], t) + caps[w]``
+   in the reference scan's operation order, in float64 relative to the
+   feed's first arrival (the reference's float32, forced by the TPU, drifts
+   past its own 1e-4 contract on a hot worker at the paper's scale);
+c. **keyed-state update** — per-(key, worker) pane aggregate tables
+   updated by scatter-add; panes sync to the host
+   :class:`~repro_torch.state.window.KeyedStateManager` only at pane
+   boundaries and membership events.
+
+PyTorch has no sequential scan, so the segment is at most five kernels
+(``csrc/feed_fused.cu`` — see its header for what bounds each and how the
+float sums stay deterministic):
+
+=============== ============ ==============================================
+kernel          shape        computes
+=============== ============ ==============================================
+``ring_rows``   tuple × col  candidate rows (per-key hash cache when the key
+                             table is no larger than the segment, else
+                             per-tuple hashes — as the reference)
+``tracker_count`` tuple      int32 counts per (epoch ordinal, key)
+``tracker_fold`` key         decayed dense tracker, its per-epoch
+                             snapshots, per-(epoch, block) sum/max
+``route_fifo``  one block    the sequential routing scan and the FIFO
+``pane_update`` tuple        pane (value, count), count plane, replicas,
+                             ``pane_last``
+=============== ============ ==============================================
+
+SG runs ``route_fifo`` + ``pane_update``; FG/PKG add ``ring_rows``;
+DC/WC/FISH run all five.  Each wrapper launches its kernel for a CUDA
+tensor (or raises) and takes its plain version only for a CPU tensor;
+``LAUNCHES[name]`` counts kernel launches.  ``EdgeResult.dispatches``
+keeps the reference's meaning: one per segment.
+
+Semantics vs the reference (DESIGN.md §6): SG/FG/PKG routing, counts,
+replicas and window aggregates are exact, and timing agrees with the host
+engine to float64 rounding; DC/WC/FISH read frequencies at segment
+granularity from a dense tracker and FISH ticks its estimator at segment
+starts — bounded drift, the same class as the batched engine's
+sub-chunking.  DC/WC trackers hold integer counts and match the reference
+exactly.  FISH departs from the reference on purpose: the reference reads
+every tuple of a segment against the tracker at the segment's end, which
+at 16k-tuple segments (~16 FISH epochs) reclassifies a hot key as light
+for the part of the segment before a hot-key flip — its makespan then
+drifts far outside the §6 bands.  Here each FISH tuple reads the tracker
+at the end of its own epoch (the batched engine's sub-chunk discipline)
+and the CHK memory as of its epoch's start.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from hashlib import sha1 as _sha1
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..obs.telemetry import Telemetry
+from . import _build
+
+__all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
+           "MIN_BUCKET", "KEY_CAP_LIMIT", "ring_rows", "ring_rows_plain",
+           "tracker_update", "tracker_update_plain", "route_fifo",
+           "route_fifo_plain", "route_prologue", "pane_update",
+           "pane_update_plain", "SCHEME_IDS"]
+
+#: kernel launches on CUDA tensors, counted where each wrapper launches
+LAUNCHES = {"ring_rows": 0, "tracker_count": 0, "tracker_fold": 0,
+            "route_fifo": 0, "pane_update": 0}
+
+#: Shared disabled bundle for runners no session bound telemetry to.
+_NULL_TELEMETRY = Telemetry(enabled=False)
+MIN_BUCKET = 64  # smallest pow2 padding bucket for segment lengths
+KEY_CAP_LIMIT = 1 << 21  # dense per-key tables; larger key ids fall back
+
+_SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
+_RING_SCHEMES = ("fg", "pkg", "dc", "wc", "fish")
+SCHEME_IDS = {s: i for i, s in enumerate(_SCHEMES)}  # csrc enum Scheme
+_BIG_I32 = 2 ** 30  # masked candidate wait (int schemes)
+_FOLD_THREADS = 256   # csrc kFoldThreads: tracker_fold's tree width
+_ROUTE_THREADS = 256  # csrc kRouteThreads: route_fifo's block
+_SMEM_LIMIT = 48 * 1024
+
+
+def _bucket(n: int) -> int:
+    """Smallest power of two >= n that is >= MIN_BUCKET."""
+    return max(MIN_BUCKET, 1 << (int(n) - 1).bit_length())
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def fused_reject_reason(grouper, keys_arr: np.ndarray,
+                        values: Optional[np.ndarray],
+                        state_sink, tuple_observer) -> Optional[str]:
+    """Why this feed cannot run fused (None = it can).  Checked per feed;
+    any reason makes the edge fall back to the batched engine for good."""
+    scheme = getattr(grouper, "name", None)
+    if scheme not in _SCHEMES:
+        return f"scheme {scheme!r} has no fused routing"
+    if scheme == "fish" and not getattr(grouper, "use_consistent_hash", True):
+        return "fused FISH requires the consistent-hash candidate path"
+    if tuple_observer is not None:
+        return ("fused mode feeds keyed state through state_sink, not "
+                "tuple_observer")
+    if keys_arr.shape[0]:
+        kmin = int(keys_arr.min())
+        kmax = int(keys_arr.max())
+        if kmin < 0:
+            return "fused key tables are dense; negative key ids"
+        if kmax >= KEY_CAP_LIMIT:
+            return (f"fused key tables are dense; key id {kmax} exceeds "
+                    f"capacity limit {KEY_CAP_LIMIT}")
+    if state_sink is not None:
+        from ..state.window import tuple_values
+
+        op = state_sink.op
+        vals = tuple_values(op, keys_arr, payload=values)
+        if vals.shape[0]:
+            lim = (2 ** 31 - 1) // max(op.stride, 1)
+            if int(np.abs(vals).max()) > lim:
+                return ("pane aggregates could overflow int32: "
+                        f"|value| > {lim} at stride {op.stride}")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# ring candidate table — the device mirror of chash.lookup_n
+# ---------------------------------------------------------------------------
+
+
+def _build_ring_table(ring, dmax: int):
+    """(sorted ring points uint32, (R, dmax) int32 first-d-distinct-owners).
+
+    ``upper_bound(points, h) % R`` lands on the same ring position as
+    ``bisect_right`` + wrap in ``chash.lookup``; row r holds the first
+    ``dmax`` distinct owners walking clockwise from position r — exactly
+    ``lookup_n``'s prefix for every d <= dmax.  Rebuilt host-side only on
+    membership change; rows are padded with -1 past the number of distinct
+    live owners.  Vectorised: a worker's rank in row r is the clockwise
+    distance from r to its next point, so each row is an argsort of those
+    distances (the walk's first-seen order, since distances are distinct).
+    """
+    pts_l = ring._points
+    r_n = len(pts_l)
+    pts = np.asarray(pts_l, dtype=np.uint32)
+    owners = np.fromiter((ring._owner[p] for p in pts_l), dtype=np.int64,
+                         count=r_n)
+    workers = np.unique(owners)
+    d_eff = min(dmax, workers.shape[0])
+    cands = np.full((r_n, dmax), -1, dtype=np.int32)
+    if r_n == 0:
+        return pts, cands
+    positions = [np.flatnonzero(owners == w) for w in workers]
+    block = max(1, (1 << 22) // max(workers.shape[0], 1))
+    for lo in range(0, r_n, block):
+        r = np.arange(lo, min(lo + block, r_n), dtype=np.int64)
+        dist = np.empty((r.shape[0], workers.shape[0]), dtype=np.int64)
+        for j, pos in enumerate(positions):
+            nxt = np.searchsorted(pos, r, side="left")  # first point >= r
+            wrap = nxt == pos.shape[0]
+            at = np.where(wrap, pos[0] + r_n,
+                          pos[np.minimum(nxt, pos.shape[0] - 1)])
+            dist[:, j] = at - r
+        order = np.argsort(dist, axis=1, kind="stable")[:, :d_eff]
+        cands[r, :d_eff] = workers[order]
+    return pts, cands
+
+
+def _u32_bits(arr: np.ndarray) -> np.ndarray:
+    """uint32 values as int32 bit patterns: torch carries them in int32
+    tensors and the kernels read them as ``unsigned int``."""
+    return np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+
+
+def _as_u64(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns → their uint32 values, as int64."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers and plain versions
+# ---------------------------------------------------------------------------
+
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+
+
+class _RouteArgs(ctypes.Structure):
+    """Mirror of ``struct RouteArgs`` in csrc/feed_fused.cu."""
+
+    _fields_ = [("scheme", _I), ("n_pad", _I), ("m", _I), ("w1", _I),
+                ("width", _I), ("rows", _P), ("keys", _P), ("t", _P),
+                ("busy", _P), ("caps", _P), ("counts", _P), ("workers", _P),
+                ("fin", _P), ("act", _P), ("a_live", _I), ("rr", _I),
+                ("kcap1", _I), ("trk", _P), ("snap", _P), ("psum", _P),
+                ("pmax", _P), ("n_part", _I), ("ne", _I), ("g0", _LL),
+                ("epoch", _I),
+                ("theta", _F), ("wnum", _F), ("act_mask", _P), ("m_k", _P),
+                ("d_min", _I), ("ebl", _P), ("eas", _P), ("ecaps", _P),
+                ("do_tick", _I), ("elapsed", _F), ("dbuf", _P),
+                ("mbuf", _P)]
+
+
+_SIGS = {
+    "ring_rows": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P),
+    "tracker_count": (_P, _I, _I, _LL, _I, _P, _P),
+    "tracker_fold": (_P, _I, _P, _I, _F, _I, _P, _P, _P, _P),
+    "route_fifo": (ctypes.POINTER(_RouteArgs), _P),
+    "pane_update": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+}
+
+
+def _lib():
+    return _build.library("feed_fused", _SIGS)
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (plain version); anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _need(what: str, device, dtype, **tensors) -> None:
+    """Raise unless every given tensor is a contiguous ``dtype`` tensor on
+    ``device`` — what the kernel's raw pointers assume."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise TypeError(
+                f"{what}: {name} must be a contiguous {dtype} tensor on "
+                f"{device}, got {t.dtype} on {t.device}"
+                f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+
+
+# -- ring_rows ----------------------------------------------------------------
+
+
+def ring_rows_plain(pts, cands, hashes, keys, m: int, width: int, n_pad: int):
+    r_n = pts.shape[0]
+    h = _as_u64(hashes)
+    hv = h[keys[:m].long()] if keys is not None else h[:m]
+    idx = torch.searchsorted(_as_u64(pts), hv, right=True) % r_n
+    rows = torch.full((n_pad, width), -1, dtype=torch.int32,
+                      device=pts.device)
+    rows[:m] = cands[idx, :width]
+    return rows
+
+
+def ring_rows(pts: torch.Tensor, cands: torch.Tensor, hashes: torch.Tensor,
+              keys: Optional[torch.Tensor], m: int, width: int,
+              n_pad: int) -> torch.Tensor:
+    """(n_pad, width) candidate rows: row i is ``cands[upper_bound(pts,
+    h_i) % R, :width]`` for tuple i < m (-1 past m).
+
+    pts:    (R,) ring points, uint32 bit patterns in int32.
+    cands:  (R, dmax) int32 first-distinct-owner rows.
+    hashes: uint32 bit patterns in int32 — the per-key hash cache when
+            ``keys`` is given (tuple i hashes as ``hashes[keys[i]]``),
+            else one hash per tuple.
+    """
+    if not _on_card(pts, "ring_rows"):
+        return ring_rows_plain(pts, cands, hashes, keys, m, width, n_pad)
+    _need("ring_rows", pts.device, torch.int32, pts=pts, cands=cands,
+          hashes=hashes, keys=keys)
+    if width > cands.shape[1]:
+        raise ValueError("ring_rows: width exceeds the candidate rows")
+    rows = torch.empty((n_pad, width), dtype=torch.int32, device=pts.device)
+    err = _lib().ring_rows(pts.data_ptr(), pts.shape[0], cands.data_ptr(),
+                           cands.shape[1], width, hashes.data_ptr(),
+                           _ptr(keys), n_pad, m, rows.data_ptr(),
+                           _build.stream_ptr(pts.device))
+    _build.check(err, "ring_rows")
+    LAUNCHES["ring_rows"] += 1
+    return rows
+
+
+# -- tracker ------------------------------------------------------------------
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Shared-memory halving tree along the last axis (the kernels' order)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def tracker_update_plain(trk, cnt, keys, m, g0, epoch, pre, ne, alpha,
+                         snap):
+    kcap1 = trk.shape[0]
+    dev = trk.device
+    k = keys[:m].long()
+    j = torch.zeros(m, dtype=torch.int64, device=dev)
+    if epoch > 0:
+        i = torch.arange(m, dtype=torch.int64, device=dev)
+        j = (g0 + i) // epoch - g0 // epoch
+    cnt.view(-1).index_add_(0, j * kcap1 + k,
+                            torch.ones(m, dtype=torch.int32, device=dev))
+    a = torch.tensor(alpha, dtype=torch.float32, device=dev)
+    acc = trk.clone()
+    if pre:
+        acc = acc * a
+    nb = -(-kcap1 // _FOLD_THREADS)
+    psum = torch.empty((ne, nb), dtype=torch.float32, device=dev)
+    pmax = torch.empty_like(psum)
+    pad = torch.zeros(nb * _FOLD_THREADS, dtype=torch.float32, device=dev)
+    for e in range(ne):
+        if e:
+            acc = acc * a
+        c = cnt[e]
+        acc = torch.where(c != 0, acc + c.to(torch.float32), acc)
+        if snap is not None:
+            snap[e] = acc
+        pad[:kcap1] = acc
+        x = pad.view(nb, _FOLD_THREADS)
+        psum[e] = _tree_sum(x)
+        pmax[e] = x.amax(dim=1)
+    cnt[:ne].zero_()
+    trk.copy_(acc)
+    return psum, pmax
+
+
+def tracker_update(trk: torch.Tensor, cnt: torch.Tensor, keys: torch.Tensor,
+                   m: int, *, g0: int = 0, epoch: int = 0, pre: int = 0,
+                   ne: int = 1, alpha: float = 1.0,
+                   snap: Optional[torch.Tensor] = None):
+    """Dense per-key tracker update for one segment, in place.
+
+    Tuple i belongs to epoch ordinal ``(g0+i)//epoch - g0//epoch`` (all 0
+    with ``epoch=0`` — the DC/WC undecayed count).  The tracker decays by
+    ``alpha`` at every epoch boundary before that epoch's tuples are added
+    (once up front when ``pre``: a segment starting on a boundary), as
+    Alg. 1's TimeDecayingUpdate.  ``cnt`` is an all-zero (≥ ne, kcap1)
+    int32 scratch table, left zeroed; ``snap`` (ne, kcap1), when given,
+    receives the tracker at the end of each ordinal.  Returns the
+    per-(ordinal, block) partial sums and maxima, (ne, nb) each, that
+    ``route_fifo`` reduces to each epoch's total and max.  Two kernels:
+    ``tracker_count`` then ``tracker_fold``."""
+    if ne > cnt.shape[0]:
+        raise ValueError("tracker_update: count table has too few epochs")
+    if not _on_card(trk, "tracker_update"):
+        return tracker_update_plain(trk, cnt, keys, m, g0, epoch, pre, ne,
+                                    alpha, snap)
+    _need("tracker_update", trk.device, torch.float32, trk=trk, snap=snap)
+    _need("tracker_update", trk.device, torch.int32, cnt=cnt, keys=keys)
+    kcap1 = trk.shape[0]
+    if cnt.shape[1] != kcap1 or (snap is not None
+                                 and tuple(snap.shape) != (ne, kcap1)):
+        raise ValueError("tracker_update: cnt/snap do not match the tracker")
+    nb = -(-kcap1 // _FOLD_THREADS)
+    psum = torch.empty((ne, nb), dtype=torch.float32, device=trk.device)
+    pmax = torch.empty_like(psum)
+    lib = _lib()
+    stream = _build.stream_ptr(trk.device)
+    err = lib.tracker_count(keys.data_ptr(), m, kcap1, g0, epoch,
+                            cnt.data_ptr(), stream)
+    _build.check(err, "tracker_count")
+    LAUNCHES["tracker_count"] += 1
+    err = lib.tracker_fold(trk.data_ptr(), kcap1, cnt.data_ptr(), ne,
+                           float(np.float32(alpha)), int(pre), _ptr(snap),
+                           psum.data_ptr(), pmax.data_ptr(), stream)
+    _build.check(err, "tracker_fold")
+    LAUNCHES["tracker_fold"] += 1
+    return psum, pmax
+
+
+# -- route_fifo -----------------------------------------------------------------
+
+
+def _reduce_partials(psum: np.ndarray, pmax: np.ndarray):
+    """route_fifo's prologue for one epoch: partials summed per thread in
+    a fixed stride order, then the block tree; max is order-free."""
+    n = psum.shape[0]
+    rows = -(-n // _ROUTE_THREADS)
+    pad = np.zeros(rows * _ROUTE_THREADS, dtype=np.float32)
+    pad[:n] = psum
+    acc = np.zeros(_ROUTE_THREADS, dtype=np.float32)
+    for r in pad.reshape(rows, _ROUTE_THREADS):
+        acc = acc + r
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    mx = np.float32(max(float(pmax.max(initial=0.0)), 0.0))
+    return np.float32(acc[0]), mx
+
+
+def _epoch_bounds(m: int, g0: int, epoch: int, ne: int):
+    """[lo, hi) of each epoch ordinal's tuples inside the segment."""
+    if epoch <= 0:
+        return [(0, m)]
+    e0 = g0 // epoch
+    return [(0 if j == 0 else min((e0 + j) * epoch - g0, m),
+             min((e0 + j + 1) * epoch - g0, m)) for j in range(ne)]
+
+
+def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
+                   pmax, g0, epoch, theta, wnum, m_k, d_min):
+    """route_fifo's parallel prologue, on the host: the fixed routes of
+    SG/FG, and for DC/WC/FISH each tuple's candidate count ``d`` (WC hot
+    keys: -1, the whole live set), read epoch by epoch against the tracker
+    at the epoch's end — FISH also against the CHK memory ``m_k`` at the
+    epoch's start, which it then raises (in place).  Returns (routes, d)."""
+    f32 = np.float32
+    k = keys[:m].cpu().numpy().astype(np.int64)
+    theta32, wnum32 = f32(theta), f32(wnum)
+    if scheme == "sg":
+        wk = act.cpu().numpy()[(rr + np.arange(m)) % a_live].astype(np.int64)
+        return wk, None
+    if scheme == "fg":
+        return rows[:m, 0].cpu().numpy().astype(np.int64), None
+    if scheme == "pkg":
+        return None, None
+    ps, pm = psum.cpu().numpy(), pmax.cpu().numpy()
+    ne = ps.shape[0]
+    snaps = None if snap is None else snap.cpu().numpy()
+    tk = trk.cpu().numpy()
+    mk = None if m_k is None else m_k.cpu().numpy().copy()
+    d = np.empty(m, dtype=np.int64)
+    for j, (lo, hi) in enumerate(_epoch_bounds(m, g0, epoch, ne)):
+        total, mx = _reduce_partials(ps[j], pm[j])
+        f_top = mx / total if total > 0 else f32(0.0)
+        tj = tk if snaps is None else snaps[j]
+        kj = k[lo:hi]
+        f = tj[kj] / total if total > 0 else np.zeros(hi - lo, np.float32)
+        if scheme in ("dc", "wc"):
+            hot = f > theta32
+            dh = np.ceil(f * wnum32 / np.sqrt(theta32))
+            dh = np.minimum(np.maximum(dh, f32(2.0)), wnum32).astype(np.int64)
+            d[lo:hi] = np.where(hot, -1 if scheme == "wc" else dh, 2)
+        else:
+            hot = (f > theta32) & (f > 0) & (f_top > 0)
+            ratio = np.maximum(f_top / np.maximum(f, f32(1e-30)), f32(1.0))
+            # floor(log2(ratio)) exactly, from the binary exponent
+            idx = np.clip(np.frexp(ratio)[1] - 1, 0, 30)
+            d0 = np.floor(np.ldexp(wnum32, -idx).astype(np.float32))
+            d0 = np.minimum(np.maximum(d0, f32(d_min)),
+                            wnum32).astype(np.int64)
+            m_prev = mk[kj].astype(np.int64)
+            d[lo:hi] = np.where(hot, np.maximum(d0, m_prev), 2)
+            mv = np.where(hot, np.maximum(m_prev, d0), 0)
+            np.maximum.at(mk, kj, mv.astype(mk.dtype))
+    if mk is not None:
+        m_k.copy_(torch.from_numpy(mk))
+    return None, d
+
+
+def route_fifo_plain(scheme, m, keys, t, busy, caps, counts, rows=None,
+                     act=None, a_live=0, rr=0, trk=None, snap=None,
+                     psum=None, pmax=None, g0=0, epoch=0, theta=0.0,
+                     wnum=0.0, act_mask=None, m_k=None, d_min=2, ebl=None,
+                     eas=None, ecaps=None, do_tick=0, elapsed=0.0):
+    f32 = np.float32
+    n_pad = keys.shape[0]
+    w1 = busy.shape[0]
+    wk, d = route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap,
+                           psum, pmax, g0, epoch, theta, wnum, m_k, d_min)
+    if wk is None:
+        wk = np.empty(m, dtype=np.int64)
+    bz = busy.cpu().numpy().astype(np.float64)
+    cp = caps.cpu().numpy().astype(np.float64)
+    tt = t.cpu().numpy().astype(np.float64)
+    rw = None if rows is None else rows.cpu().numpy()
+    am = None if act_mask is None else act_mask.cpu().numpy()
+    if scheme == "fish":
+        # Alg. 3 Eq. 1 estimator tick, once at segment start when due
+        bl = ebl.cpu().numpy().astype(np.float32)
+        asn = eas.cpu().numpy().astype(np.float32)
+        ec = ecaps.cpu().numpy().astype(np.float32)
+        if do_tick:
+            el = f32(elapsed)
+            work = (bl + asn) * ec
+            bl = np.where(work > el, (work - el) / ec, f32(0.0)).astype(
+                np.float32)
+            asn = np.zeros_like(asn)
+    # the sequential scan
+    fin = np.zeros(n_pad, dtype=np.float64)
+    cnt_l = counts.cpu().numpy().astype(np.int64).tolist()
+    for i in range(m):
+        if scheme in ("sg", "fg"):
+            w = int(wk[i])
+        else:
+            r = rw[i]
+            if scheme == "pkg":
+                a0 = int(r[0])
+                a1 = int(r[1]) if r[1] >= 0 else a0
+                w = a0 if cnt_l[a0] <= cnt_l[a1] else a1
+            elif scheme == "fish":
+                c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
+                cs = np.maximum(c, 0)
+                wt = np.where(c >= 0, (bl[cs] + asn[cs]) * ec[cs],
+                              np.float32(np.inf))
+                w = int(c[int(np.argmin(wt))])
+            elif d[i] < 0:  # WC hot key: least-loaded live worker
+                full = np.where(am, np.asarray(cnt_l), _BIG_I32)
+                w = int(np.argmin(full))
+            else:
+                c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
+                wt = [cnt_l[x] if x >= 0 else _BIG_I32 for x in c.tolist()]
+                w = int(c[wt.index(min(wt))])
+        cnt_l[w] += 1
+        if scheme == "fish":
+            asn[w] = asn[w] + f32(1.0)
+        # FIFO, in _fifo_scan's operation order: max(busy, t) + cap
+        fv = max(bz[w], tt[i]) + cp[w]
+        bz[w] = fv
+        fin[i] = fv
+        wk[i] = w
+    workers = torch.full((n_pad,), w1 - 1, dtype=torch.int32)
+    workers[:m] = torch.from_numpy(wk.astype(np.int32))
+    busy.copy_(torch.from_numpy(bz))
+    counts.copy_(torch.from_numpy(np.asarray(cnt_l, dtype=np.int32)))
+    if scheme == "fish":
+        ebl.copy_(torch.from_numpy(bl))
+        eas.copy_(torch.from_numpy(asn))
+    return workers.to(keys.device), torch.from_numpy(fin).to(keys.device)
+
+
+def route_fifo(scheme: str, m: int, *, keys, t, busy, caps, counts,
+               rows=None, act=None, a_live: int = 0, rr: int = 0,
+               trk=None, snap=None, psum=None, pmax=None, g0: int = 0,
+               epoch: int = 0, theta: float = 0.0, wnum: float = 0.0,
+               act_mask=None, m_k=None, d_min: int = 2, ebl=None, eas=None,
+               ecaps=None, do_tick: int = 0, elapsed: float = 0.0):
+    """Route tuples [0, m) of a segment and run their FIFO, in one block.
+
+    Returns ``(workers, fin)`` — (n_pad,) int32 worker per tuple and (n_pad,)
+    f64 finish time relative to the feed base (entries past m undefined on
+    the card).  Updates ``busy``/``counts`` (w1,) in place, and for FISH
+    ``m_k`` (kcap1,) and the estimator ``ebl``/``eas`` (w1,).  ``rows``
+    are the ``ring_rows`` candidates (all but SG); DC/WC/FISH read the
+    tracker from ``tracker_update`` — its per-epoch snapshots ``snap`` (or
+    ``trk`` itself with one epoch) and per-epoch partials — each tuple
+    against its own epoch's (``g0``, ``epoch``) state."""
+    if not _on_card(keys, "route_fifo"):
+        return route_fifo_plain(
+            scheme, m, keys, t, busy, caps, counts, rows, act, a_live, rr,
+            trk, snap, psum, pmax, g0, epoch, theta, wnum, act_mask, m_k,
+            d_min, ebl, eas, ecaps, do_tick, elapsed)
+    n_pad = keys.shape[0]
+    w1 = busy.shape[0]
+    ne = 0 if psum is None else psum.shape[0]
+    if 8 * 2 * w1 + 4 * (4 * w1 + 2 * ne) > _SMEM_LIMIT:
+        raise ValueError(f"route_fifo: {w1} worker lanes exceed the block's "
+                         "shared memory")
+    dev = keys.device
+    _need("route_fifo", dev, torch.int32, keys=keys, counts=counts,
+          rows=rows, act=act, m_k=m_k)
+    _need("route_fifo", dev, torch.float64, t=t, busy=busy, caps=caps)
+    _need("route_fifo", dev, torch.float32, trk=trk, snap=snap, psum=psum,
+          pmax=pmax, ebl=ebl, eas=eas, ecaps=ecaps)
+    _need("route_fifo", dev, torch.bool, act_mask=act_mask)
+    workers = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    fin = torch.empty(n_pad, dtype=torch.float64, device=dev)
+    dbuf = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    mbuf = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    args = _RouteArgs(
+        scheme=SCHEME_IDS[scheme], n_pad=n_pad, m=m, w1=w1,
+        width=0 if rows is None else rows.shape[1], rows=_ptr(rows),
+        keys=_ptr(keys), t=_ptr(t), busy=_ptr(busy), caps=_ptr(caps),
+        counts=_ptr(counts), workers=_ptr(workers), fin=_ptr(fin),
+        act=_ptr(act), a_live=a_live, rr=rr,
+        kcap1=0 if trk is None else trk.shape[0], trk=_ptr(trk),
+        snap=_ptr(snap), psum=_ptr(psum), pmax=_ptr(pmax),
+        n_part=0 if psum is None else psum.shape[1], ne=ne, g0=g0,
+        epoch=epoch,
+        theta=float(np.float32(theta)), wnum=float(np.float32(wnum)),
+        act_mask=_ptr(act_mask), m_k=_ptr(m_k), d_min=d_min,
+        ebl=_ptr(ebl), eas=_ptr(eas), ecaps=_ptr(ecaps), do_tick=do_tick,
+        elapsed=float(np.float32(elapsed)), dbuf=_ptr(dbuf),
+        mbuf=_ptr(mbuf))
+    err = _lib().route_fifo(ctypes.byref(args), _build.stream_ptr(dev))
+    _build.check(err, "route_fifo")
+    LAUNCHES["route_fifo"] += 1
+    return workers, fin
+
+
+# -- pane_update ------------------------------------------------------------------
+
+
+def pane_update_plain(has_pane, reset, keys, workers, vals, m, seg_base,
+                      pane_tab, pane_cnt, pane_last, repl):
+    w1 = repl.shape[1]
+    k = keys[:m].long()
+    w = workers[:m].long()
+    if has_pane:
+        kcap1 = pane_cnt.shape[1]
+        if reset:
+            pane_tab.zero_()
+            pane_cnt.zero_()
+            pane_last.fill_(-1)
+        flat = w * kcap1 + k
+        ones = torch.ones(m, dtype=torch.int32, device=keys.device)
+        pane_tab.view(-1).index_add_(0, 2 * flat, vals[:m])
+        pane_tab.view(-1).index_add_(0, 2 * flat + 1, ones)
+        pane_cnt.view(-1).index_add_(0, flat, ones)
+        gidx = seg_base + torch.arange(m, dtype=torch.int32,
+                                       device=keys.device)
+        pane_last.scatter_reduce_(0, w, gidx, reduce="amax")
+    repl.view(-1)[k * w1 + w] = True
+
+
+def pane_update(keys: torch.Tensor, workers: torch.Tensor, m: int, *,
+                repl: torch.Tensor, vals: Optional[torch.Tensor] = None,
+                seg_base: int = 0, pane_tab=None, pane_cnt=None,
+                pane_last=None, reset: bool = False) -> None:
+    """Fold tuples [0, m) of a routed segment into the device state, in
+    place: ``repl[key, worker] = True``, and with a pane the worker-major
+    (w1, kcap1, 2) (value, count) table, its contiguous (w1, kcap1) count
+    plane and ``pane_last`` (w1,) — zeroed first when ``reset``."""
+    has_pane = pane_tab is not None
+    if not _on_card(keys, "pane_update"):
+        return pane_update_plain(has_pane, reset, keys, workers, vals, m,
+                                 seg_base, pane_tab, pane_cnt, pane_last,
+                                 repl)
+    _need("pane_update", keys.device, torch.int32, keys=keys,
+          workers=workers, vals=vals, pane_tab=pane_tab, pane_cnt=pane_cnt,
+          pane_last=pane_last)
+    _need("pane_update", keys.device, torch.bool, repl=repl)
+    w1 = repl.shape[1]
+    kcap1 = repl.shape[0]
+    if has_pane and (tuple(pane_tab.shape) != (w1, kcap1, 2)
+                     or tuple(pane_cnt.shape) != (w1, kcap1)
+                     or vals is None):
+        raise ValueError("pane_update: pane tables do not match repl")
+    err = _lib().pane_update(int(has_pane), int(reset), keys.data_ptr(),
+                             workers.data_ptr(), _ptr(vals), m, w1, kcap1,
+                             seg_base, _ptr(pane_tab), _ptr(pane_cnt),
+                             _ptr(pane_last), repl.data_ptr(),
+                             _build.stream_ptr(keys.device))
+    _build.check(err, "pane_update")
+    LAUNCHES["pane_update"] += 1
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the per-edge runner (device state residency across feeds)
+# ---------------------------------------------------------------------------
+
+
+class FusedEdgeRunner:
+    """Device-resident execution state of one fused edge.
+
+    Lives on ``EdgeState.device`` across feeds.  Per-key state —
+    frequency tracker, CHK memory, replica matrix, open pane tables —
+    stays on the device between launches; per-worker vectors (busy, counts,
+    estimator) round-trip with each segment, keeping the host copies
+    authoritative so event handling and metrics never need a separate
+    sync.  ``host_sync`` folds the replica matrix back into the grouper —
+    called before metrics/close and membership events.
+
+    ``device``: ``None`` means ``"cuda"`` (raises without a card);
+    ``"cpu"`` runs every kernel's plain version.
+    """
+
+    def __init__(self, grouper, state, sink, telemetry=None, device=None):
+        self.device = resolve_device(device)
+        self.scheme = grouper.name
+        self.has_pane = sink is not None
+        # launch/pane counters live in the metrics registry; ``dispatches``
+        # is a per-feed window over the cumulative counter (one per segment)
+        self.tel = telemetry if telemetry is not None else _NULL_TELEMETRY
+        self._c_dispatches = self.tel.metrics.counter(
+            "fused.dispatches", scheme=self.scheme)
+        self._c_pane_flushes = self.tel.metrics.counter(
+            "fused.pane_flushes", scheme=self.scheme)
+        self._c_host_syncs = self.tel.metrics.counter(
+            "fused.host_syncs", scheme=self.scheme)
+        self._feed_base_dispatches = 0
+        self._prev_hot: set = set()   # fish hot set at the last epoch point
+        self._fish_epoch_idx = -1
+        self._fish_epochs_crossed = 0
+        self.pane_fed = 0         # tuples in the device pane, unsynced
+        self._kcap = 0
+        self._w1 = 0
+        self._dmax = 1 if self.scheme == "fg" else (
+            2 if self.scheme == "pkg" else 0)  # 0 = worker-universe width
+        self._pts = None          # ring points (np uint32)
+        self._cands = None        # ring candidate rows (np int32)
+        self._pts_dev = None      # uint32 bit patterns in int32
+        self._cands_dev = None
+        self._hash_arr = None     # dense key -> hash32 cache (np uint32)
+        self._hash_ok = None
+        self._hash_dev = None     # device copy of the cache (per-key rows)
+        self._hash_dirty = True
+        self._repl_dirty = False
+        # device-resident per-key state
+        self.trk = None
+        self.m_k = None
+        self.repl = None
+        self.pane_tab = None      # (w1, kcap1, 2): value / count planes
+        self.pane_cnt = None      # contiguous count plane for the flush scan
+        self.pane_last = None
+        self._repl_synced = None  # replica pairs already folded to the host
+        self._cnt = None          # tracker count scratch, kept all-zero
+
+    @property
+    def dispatches(self) -> int:
+        """Segments in the current feed (the ``EdgeResult.dispatches``
+        source) — a per-feed window on the registry's cumulative
+        ``fused.dispatches`` counter."""
+        return self._c_dispatches.value - self._feed_base_dispatches
+
+    def _up(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- shape management (rare) ---------------------------------------------
+    def _ensure_shapes(self, grouper, state, kmax: int) -> None:
+        w1 = state.busy_until.shape[0] + 1
+        new_kcap = self._kcap
+        if kmax >= new_kcap:
+            new_kcap = _pow2_at_least(max(kmax + 1, MIN_BUCKET))
+        if w1 == self._w1 and new_kcap == self._kcap:
+            return
+        old_k, old_w = self._kcap, self._w1
+        kcap1 = new_kcap + 1
+        dev = self.device
+        self._hash_arr = _grow1(self._hash_arr, old_k, new_kcap, np.uint32)
+        self._hash_ok = _grow1(self._hash_ok, old_k, new_kcap, np.bool_)
+        self._hash_dirty = True
+        if self.scheme in _RING_SCHEMES and new_kcap <= (1 << 14):
+            # prefill the whole ring-hash cache at the (rare) resize so
+            # steady-state feeds never touch SHA-1; for sparse key spaces
+            # past 16k ids stay lazy per feed
+            self._fill_hashes(np.flatnonzero(~self._hash_ok))
+        # the old phantom key row (index old_k) is dropped by the [:old_k]
+        # copy — it only ever holds the padding lanes' sink entries
+        self.trk = _grow_dev(self.trk, (old_k,), (kcap1,), torch.float32,
+                             dev)
+        self.m_k = _grow_dev(self.m_k, (old_k,), (kcap1,), torch.int32, dev)
+        self.repl = _grow_dev(self.repl, (old_k, old_w), (kcap1, w1),
+                              torch.bool, dev)
+        self._repl_synced = _grow_dev(self._repl_synced, (old_k, old_w),
+                                      (kcap1, w1), torch.bool, dev)
+        self._cnt = None  # re-made at the next tracker launch
+        if self.has_pane and self.pane_tab is not None:
+            if self.pane_fed:
+                self.pane_tab = _grow_dev(self.pane_tab,
+                                          (old_w, old_k, 2), (w1, kcap1, 2),
+                                          torch.int32, dev)
+                self.pane_cnt = _grow_dev(self.pane_cnt, (old_w, old_k),
+                                          (w1, kcap1), torch.int32, dev)
+                last = torch.full((w1,), -1, dtype=torch.int32, device=dev)
+                last[:old_w] = self.pane_last[:old_w]
+                self.pane_last = last
+            else:  # an empty pane is re-made (and reset) at the new shape
+                self.pane_tab = self.pane_cnt = self.pane_last = None
+        grew_w = w1 != self._w1
+        self._kcap = new_kcap
+        self._w1 = w1
+        if grew_w:
+            self.refresh_membership(grouper, state)
+
+    def refresh_membership(self, grouper, state) -> None:
+        """Rebuild the device ring table + live-set arrays after a
+        membership change (or worker-universe growth)."""
+        ring_span = self.tel.tracer.span("fused.refresh_membership",
+                                         cat="fused")
+        if self.scheme in _RING_SCHEMES:
+            dmax = self._dmax or max(state.busy_until.shape[0], 2)
+            self._pts, self._cands = _build_ring_table(grouper.ring, dmax)
+            self._pts_dev = self._up(_u32_bits(self._pts))
+            self._cands_dev = self._up(self._cands)
+        act = np.asarray(sorted(state.active), dtype=np.int32)
+        self._act = act
+        act_pad = np.full(self._w1, self._w1 - 1, np.int32)
+        act_pad[:act.shape[0]] = act
+        act_mask = np.zeros(self._w1, bool)
+        act_mask[act] = True
+        self._act_pad = self._up(act_pad)
+        self._act_mask = self._up(act_mask)
+        ring_span.set(live=int(act.shape[0])).done()
+
+    # -- per-feed lifecycle -------------------------------------------------
+    def begin_feed(self, grouper, state, keys_arr, values, times,
+                   sink) -> None:
+        self._feed_base_dispatches = self._c_dispatches.value
+        with self.tel.tracer.span("fused.begin_feed", cat="fused",
+                                  n=int(keys_arr.shape[0])):
+            self._base = float(times[0]) if times.shape[0] else 0.0
+            kmax = int(keys_arr.max()) if keys_arr.shape[0] else 0
+            self._ensure_shapes(grouper, state, kmax)
+            self._feed_keys = keys_arr.astype(np.int32)
+            self._feed_times = times
+            if self.scheme in _RING_SCHEMES:
+                self._feed_hash = self._hashes(keys_arr)
+            if self.has_pane:
+                from ..state.window import tuple_values
+
+                self._feed_vals = tuple_values(
+                    sink.op, keys_arr, payload=values).astype(np.int32)
+
+    def _fill_hashes(self, miss: np.ndarray) -> None:
+        if miss.shape[0]:
+            # inlined hash32 for plain int keys (same SHA-1 bucket as
+            # chash.hash32): skips the per-key canonicalise/dispatch
+            sha1, fb = _sha1, int.from_bytes
+            self._hash_arr[miss] = np.fromiter(
+                (fb(sha1(repr(k).encode("utf-8")).digest()[:4], "big")
+                 for k in miss.tolist()),
+                dtype=np.uint32, count=miss.shape[0])
+            self._hash_ok[miss] = True
+            self._hash_dirty = True
+
+    def _hashes(self, keys_arr: np.ndarray) -> np.ndarray:
+        ok = self._hash_ok[keys_arr]
+        if not ok.all():
+            self._fill_hashes(np.unique(keys_arr[~ok]))
+        return self._hash_arr[keys_arr]
+
+    def _hash_device(self) -> torch.Tensor:
+        """The per-key hash cache on the device (re-uploaded after fills)."""
+        if self._hash_dirty or self._hash_dev is None:
+            self._hash_dev = self._up(_u32_bits(self._hash_arr))
+            self._hash_dirty = False
+        return self._hash_dev
+
+    def _count_table(self, ne: int) -> torch.Tensor:
+        """The all-zero (epochs, kcap1) tracker count scratch."""
+        if self._cnt is None or self._cnt.shape[0] < ne:
+            self._cnt = torch.zeros((max(ne, 1), self._kcap + 1),
+                                    dtype=torch.int32, device=self.device)
+        return self._cnt
+
+    def _tracker_args(self, grouper, lo: int, hi: int, offset: int):
+        """The segment's tracker update: FISH decays at every epoch
+        boundary (the boundary decay fires before the boundary tuple is
+        counted; ``pre`` covers a segment starting on a boundary) and
+        routes each epoch against its own end-of-epoch tracker; DC/WC do
+        not decay (the reference tracker runs alpha=1, one giant epoch)."""
+        if self.scheme != "fish":
+            return dict(g0=0, epoch=0, pre=0, ne=1, alpha=1.0)
+        p = grouper.params
+        g0 = offset + lo
+        g1 = offset + hi
+        pre = 1 if (g0 > 0 and g0 % p.epoch == 0) else 0
+        self._fish_epochs_crossed = (g1 - 1) // p.epoch - g0 // p.epoch + pre
+        self._fish_epoch_idx = g1 // p.epoch
+        return dict(g0=g0, epoch=p.epoch, pre=pre,
+                    ne=(g1 - 1) // p.epoch - g0 // p.epoch + 1,
+                    alpha=float(np.float32(p.alpha)))
+
+    def _estimator_args(self, grouper, lo: int) -> dict:
+        """Alg. 3 estimator state for the segment (host-authoritative)."""
+        est = grouper.estimator
+        now0 = float(self._feed_times[lo])
+        do_tick = 0
+        elapsed = 0.0
+        if now0 - est._t_prior > est.interval:
+            do_tick = 1
+            elapsed = now0 - est._t_prior
+            est._t_prior = now0
+        w1 = self._w1
+        ebl = np.zeros(w1, np.float32)
+        eas = np.zeros(w1, np.float32)
+        ecaps = np.ones(w1, np.float32)
+        nw = est.backlog.shape[0]
+        ebl[:nw] = est.backlog
+        eas[:nw] = est.assigned
+        ecaps[:nw] = est.capacities
+        return dict(m_k=self.m_k, d_min=grouper.params.d_min,
+                    ebl=self._up(ebl), eas=self._up(eas),
+                    ecaps=self._up(ecaps), do_tick=do_tick,
+                    elapsed=float(np.float32(elapsed)))
+
+    def run_segment(self, grouper, state, lo: int, hi: int) -> np.ndarray:
+        """One fused segment for tuples [lo, hi) of the current feed.
+        Returns their absolute finish times (float64, host)."""
+        tracer = self.tel.tracer
+        seg_span = tracer.span("fused.segment", cat="fused",
+                               scheme=self.scheme, lo=lo, hi=hi)
+        prep_span = tracer.span("fused.segment.prep", cat="fused")
+        m = hi - lo
+        n_pad = _bucket(m)
+        w1 = self._w1
+        kcap1 = self._kcap + 1
+        scheme = self.scheme
+
+        keys_np = np.full(n_pad, self._kcap, np.int32)  # pad -> phantom row
+        keys_np[:m] = self._feed_keys[lo:hi]
+        t = np.zeros(n_pad, np.float64)
+        t[:m] = self._feed_times[lo:hi] - self._base
+
+        busy = np.zeros(w1, np.float64)
+        busy[:w1 - 1] = state.busy_until - self._base
+        caps = np.ones(w1, np.float64)
+        caps[:w1 - 1] = state.capacities
+        counts = np.zeros(w1, np.int32)
+        cn = grouper.assigned_counts.shape[0]
+        # the device kernel compares counts pairwise (PKG/DC argmin), never
+        # absolutely — shifting all workers by the running minimum keeps
+        # every comparison identical while the int64 lifetime totals stay
+        # host-side, so 10⁸-tuple runs never push the int32 device domain
+        # past 2³¹
+        counts_base = int(grouper.assigned_counts.min()) if cn else 0
+        rebased = grouper.assigned_counts - counts_base
+        if rebased.max(initial=0) + m > 2 ** 31 - 1:
+            raise ValueError(
+                "fused feed: per-worker count spread exceeds int32 "
+                f"(max-min = {int(rebased.max(initial=0))}, feed m = {m})")
+        counts[:cn] = rebased
+
+        keys = self._up(keys_np)
+        busy_d, caps_d, counts_d = self._up(busy), self._up(caps), \
+            self._up(counts)
+        kw = {}
+        rows = None
+        if scheme == "sg":
+            kw.update(act=self._act_pad, a_live=int(self._act.shape[0]),
+                      rr=int(grouper._rr))
+        else:
+            width = self._cands.shape[1]
+            if kcap1 <= n_pad:  # route keys via the cache, gather tuples
+                hashes, tuple_keys = self._hash_device(), keys
+            else:
+                h = np.zeros(n_pad, np.uint32)
+                h[:m] = self._feed_hash[lo:hi]
+                hashes, tuple_keys = self._up(_u32_bits(h)), None
+        if scheme in ("dc", "wc", "fish"):
+            targs = self._tracker_args(grouper, lo, hi, state.offset)
+        if scheme == "fish":
+            kw.update(self._estimator_args(grouper, lo))
+        vals = seg_base = None
+        reset = False
+        if self.has_pane:
+            v = np.zeros(n_pad, np.int32)
+            v[:m] = self._feed_vals[lo:hi]
+            vals = self._up(v)
+            reset = self.pane_fed == 0  # first segment of a fresh pane
+            if self.pane_tab is None:
+                self.pane_tab = torch.empty((w1, kcap1, 2), dtype=torch.int32,
+                                            device=self.device)
+                self.pane_cnt = torch.empty((w1, kcap1), dtype=torch.int32,
+                                            device=self.device)
+                self.pane_last = torch.empty((w1,), dtype=torch.int32,
+                                             device=self.device)
+            seg_base = state.offset + lo
+        prep_span.done()
+
+        with tracer.span("fused.segment.launch", cat="fused", n_pad=n_pad,
+                         phases="route|fifo|state-scatter"):
+            if scheme != "sg":
+                rows = ring_rows(self._pts_dev, self._cands_dev, hashes,
+                                 tuple_keys, m, width, n_pad)
+            if scheme in ("dc", "wc", "fish"):
+                ne = targs["ne"]
+                snap = (torch.empty((ne, kcap1), dtype=torch.float32,
+                                    device=self.device) if ne > 1 else None)
+                psum, pmax = tracker_update(
+                    self.trk, self._count_table(ne), keys, m, snap=snap,
+                    **targs)
+                kw.update(trk=self.trk, snap=snap, psum=psum, pmax=pmax,
+                          g0=targs["g0"], epoch=targs["epoch"],
+                          theta=self._theta(grouper),
+                          wnum=float(grouper.num_workers))
+                if scheme == "wc":
+                    kw["act_mask"] = self._act_mask
+            workers, fin_d = route_fifo(
+                scheme, m, keys=keys, t=self._up(t), busy=busy_d,
+                caps=caps_d, counts=counts_d, rows=rows, **kw)
+            pane_update(keys, workers, m, repl=self.repl, vals=vals,
+                        seg_base=seg_base if seg_base is not None else 0,
+                        pane_tab=self.pane_tab if self.has_pane else None,
+                        pane_cnt=self.pane_cnt, pane_last=self.pane_last,
+                        reset=reset)
+        self._c_dispatches.add(1)
+        if self.has_pane:
+            self.pane_fed += m
+        self._repl_dirty = True
+
+        # small per-worker vectors ride back after the segment
+        with tracer.span("fused.segment.readback", cat="fused"):
+            state.busy_until[:] = self._base + busy_d.cpu().numpy()[:w1 - 1]
+            grouper.assigned_counts[:] = counts_base + counts_d.cpu().numpy(
+            ).astype(np.int64)[:cn]
+            if scheme == "sg":
+                grouper._rr = int((grouper._rr + m) % self._act.shape[0])
+            elif scheme == "fish":
+                est = grouper.estimator
+                nw = est.backlog.shape[0]
+                est.backlog[:] = kw["ebl"].cpu().numpy().astype(
+                    np.float64)[:nw]
+                est.assigned[:] = kw["eas"].cpu().numpy().astype(
+                    np.float64)[:nw]
+            fin = self._base + fin_d[:m].cpu().numpy()
+        if (scheme == "fish" and self.tel.enabled
+                and self._fish_epochs_crossed):
+            self._fish_epoch_points(grouper, state, lo, hi)
+        seg_span.done()
+        return fin
+
+    def _theta(self, grouper) -> float:
+        if self.scheme == "fish":
+            return grouper.params.theta(grouper.num_workers)
+        return grouper.theta  # dc/wc property (theta_frac / num_workers)
+
+    def _fish_epoch_points(self, grouper, state, lo: int, hi: int) -> None:
+        """Per-epoch FISH timeline (telemetry-enabled only): hot-set size
+        and churn read off the *device* tracker after a segment that
+        crossed one or more epoch boundaries, plus the per-worker
+        imbalance at that instant — one readback per crossed epoch batch,
+        never per tuple."""
+        epoch_idx = self._fish_epoch_idx
+        self.tel.ctx.epoch_idx = epoch_idx
+        trk = self.trk.cpu().numpy()[:-1]  # drop the phantom padding row
+        total = float(trk.sum())
+        theta = grouper.params.theta(grouper.num_workers)
+        hot = (set(np.flatnonzero(trk > theta * total).tolist())
+               if total > 0.0 else set())
+        churn = len(hot ^ self._prev_hot)
+        self._prev_hot = hot
+        tl = self.tel.timeline
+        tl.point("fish.hot_set_size", len(hot), epoch_idx=epoch_idx)
+        tl.point("fish.hot_set_churn", churn, epoch_idx=epoch_idx)
+        counts = grouper.assigned_counts
+        act = self._act
+        if act.shape[0] and counts[act].sum() > 0:
+            share = counts[act]
+            tl.point("fish.worker_imbalance",
+                     float(share.max() / max(share.mean(), 1e-12)),
+                     epoch_idx=epoch_idx)
+        self.tel.tracer.instant(
+            "fish.epoch_decay", cat="fish", epoch=epoch_idx,
+            crossed=int(self._fish_epochs_crossed), hot_set=len(hot))
+
+    # -- host sync points ---------------------------------------------------
+    def flush_pane(self, sink) -> None:
+        """Sync the open device pane into the host KeyedStateManager and
+        mark it empty (``merge_entries`` accumulates, so the pane can keep
+        filling on the device afterwards; the next segment resets it)."""
+        if not self.has_pane or self.pane_fed == 0:
+            return
+        self._c_pane_flushes.add(1)
+        flush_span = self.tel.tracer.span("fused.pane_flush", cat="fused",
+                                          pane_fed=self.pane_fed)
+        kcap1 = self.pane_cnt.shape[1]
+        # phantom row/lane never accumulate, so the nonzero cells of the
+        # contiguous count plane are every live entry — found on the
+        # device, already per-worker grouped with keys ascending because
+        # the table is worker-major; only the entries cross to the host
+        flat_d = torch.nonzero(self.pane_cnt.view(-1)).squeeze(1)
+        tab = self.pane_tab.view(-1, 2)[flat_d]
+        flat = flat_d.cpu().numpy()
+        tab = tab.cpu().numpy()
+        last = self.pane_last.cpu().numpy()
+        entries = []
+        if flat.shape[0]:
+            ws, ks0 = np.divmod(flat, kcap1)
+            ks = ks0.astype(np.int64)
+            vs = tab[:, 0].astype(np.int64)
+            cs = tab[:, 1].astype(np.int64)
+            starts = np.concatenate(
+                [[0], np.flatnonzero(ws[1:] != ws[:-1]) + 1, [ws.shape[0]]])
+            for s, e in zip(starts[:-1].tolist(), starts[1:].tolist()):
+                w = int(ws[s])
+                entries.append((w, ks[s:e], vs[s:e], cs[s:e], int(last[w])))
+        sink.feed_aggregated(self.pane_fed, entries)
+        self.pane_fed = 0
+        flush_span.done()
+
+    def host_sync(self, grouper) -> None:
+        """Fold device-resident per-key state back into the grouper: new
+        (key, worker) replica pairs since the last sync.  Called before
+        metrics/close and before membership events."""
+        if not self._repl_dirty:
+            return
+        self._c_host_syncs.add(1)
+        with self.tel.tracer.span("fused.host_sync", cat="fused"):
+            new = self.repl[:-1, :-1] & ~self._repl_synced[:-1, :-1]
+            pairs = torch.nonzero(new).cpu().numpy()
+            for k, w in pairs.tolist():
+                grouper.replicas.setdefault(int(k), set()).add(int(w))
+            self._repl_synced.copy_(self.repl)
+            self._repl_dirty = False
+
+
+# -- growth helpers (rare: worker-universe or key-capacity growth) ------------
+
+
+def _grow1(arr, old, new, dtype):
+    out = np.zeros(new, dtype)
+    if arr is not None:
+        out[:old] = arr[:old]
+    return out
+
+
+def _grow_dev(arr, old_shape, new_shape, dtype, device):
+    """Zeros of ``new_shape`` with the ``old_shape`` corner copied over.
+    The old phantom column (a worker lane) may only hold phantom-row
+    entries, which the key-row slice already drops."""
+    out = torch.zeros(new_shape, dtype=dtype, device=device)
+    if arr is not None:
+        sl = tuple(slice(0, n) for n in old_shape)
+        out[sl] = arr[sl]
+    return out

@@ -1,0 +1,169 @@
+"""Every hand-written CUDA kernel against its plain PyTorch version, on the
+card (``cuda``-marked; each test skips where there is no card — a CUDA
+kernel has no CPU interpret mode).  This file imports neither JAX nor the
+JAX package, so it runs on a machine with the card alone:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Integer outputs must match exactly; so must the float ones, since both
+versions round the same float32/float64 operations in the same order
+(the kernels build with ``-fmad=false``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.chash import ConsistentHashRing, hash32
+from repro_torch.data.synthetic import zipf_time_evolving
+from repro_torch.kernels import feed_fused as ff
+from repro_torch.kernels import store_probe as sp
+
+import torch_helpers  # noqa: F401  (caps torch threads)
+
+T = torch.from_numpy
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(300, 5_000), (1, 7), (4_096, 100_000)])
+def test_cuda_store_probe_matches_plain(k, n):
+    dev = _card()
+    rng = np.random.default_rng(k)
+    table = np.sort(rng.choice(4 * k + 10, size=k, replace=False)).astype(
+        np.int32)
+    keys = rng.integers(0, 4 * k + 10, n).astype(np.int32)
+    vals = rng.integers(-50, 50, n).astype(np.int32)
+    args = [T(x).to(dev) for x in (table, keys, vals)]
+    got = sp.store_probe(*args, validate=True)
+    want = sp.store_probe_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if k > 1:  # a descending table breaks the kernel's precondition
+        with pytest.raises(ValueError, match="ascending"):
+            sp.store_probe(args[0].flip(0), args[1], args[2], validate=True)
+
+
+def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8):
+    rng = np.random.default_rng(seed)
+    keys = np.full(n_pad, kcap, np.int32)
+    keys[:m] = zipf_time_evolving(m, num_keys=kcap, z=1.4, seed=seed)
+    ring = ConsistentHashRing(range(workers), virtual_nodes=16)
+    pts, cands = ff._build_ring_table(ring, workers)
+    h = np.zeros(n_pad, np.uint32)
+    h[:m] = [hash32(int(k)) for k in keys[:m]]
+    w1 = workers + 1
+    return dict(
+        m=m, n_pad=n_pad, kcap=kcap, w1=w1, keys=keys, pts=pts, cands=cands,
+        h=h, counts=rng.integers(0, 5, w1).astype(np.int32),
+        t=np.sort(rng.random(n_pad) * 0.1),
+        busy=rng.random(w1) * 0.05, caps=rng.uniform(5e-4, 2e-3, w1),
+        act_mask=np.arange(w1) < workers,
+        ebl=(rng.random(w1) * 3).astype(np.float32),
+        eas=rng.integers(0, 4, w1).astype(np.float32),
+        ecaps=rng.uniform(0.5, 1.5, w1).astype(np.float32),
+        m_k=np.where(np.arange(kcap + 1) < 20, rng.integers(0, 6, kcap + 1),
+                     0).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
+def test_cuda_segment_kernels_match_plain(scheme):
+    """One whole segment — ring_rows, tracker_count/fold, route_fifo and
+    pane_update — on the card and through the plain versions."""
+    dev = _card()
+    s = _segment()
+    m, n_pad, kcap, w1 = s["m"], s["n_pad"], s["kcap"], s["w1"]
+    width = {"fg": 1, "pkg": 2}.get(scheme, s["cands"].shape[1])
+    outs = {}
+    for where in ("cuda", "cpu"):
+        d = torch.device(where)
+        up = (lambda a: T(np.ascontiguousarray(a)).to(d))
+        kw = {}
+        rows = None
+        if scheme != "sg":
+            rows = ff.ring_rows(up(ff._u32_bits(s["pts"])), up(s["cands"]),
+                                up(ff._u32_bits(s["h"])), None, m, width,
+                                n_pad)
+        else:
+            kw.update(act=up(np.arange(w1, dtype=np.int32)), a_live=w1 - 1,
+                      rr=2)
+        if scheme in ("dc", "wc", "fish"):
+            trk = torch.zeros(kcap + 1, dtype=torch.float32, device=d)
+            tk = (dict(g0=300, epoch=500, pre=0, ne=4, alpha=0.2)
+                  if scheme == "fish" else dict(ne=1))
+            cnt = torch.zeros((tk["ne"], kcap + 1), dtype=torch.int32,
+                              device=d)
+            snap = (torch.empty((tk["ne"], kcap + 1), device=d)
+                    if tk["ne"] > 1 else None)
+            psum, pmax = ff.tracker_update(trk, cnt, up(s["keys"]), m,
+                                           snap=snap, **tk)
+            kw.update(trk=trk, snap=snap, psum=psum, pmax=pmax,
+                      g0=tk.get("g0", 0), epoch=tk.get("epoch", 0),
+                      theta=0.25 / 8, wnum=8.0, act_mask=up(s["act_mask"]))
+        if scheme == "fish":
+            kw.update(m_k=up(s["m_k"]), d_min=2, ebl=up(s["ebl"]),
+                      eas=up(s["eas"]), ecaps=up(s["ecaps"]), do_tick=1,
+                      elapsed=0.3)
+        busy, counts = up(s["busy"]), up(s["counts"])
+        workers, fin = ff.route_fifo(
+            scheme, m, keys=up(s["keys"]), t=up(s["t"]), busy=busy,
+            caps=up(s["caps"]), counts=counts, rows=rows, **kw)
+        tab = torch.zeros((w1, kcap + 1, 2), dtype=torch.int32, device=d)
+        cntp = torch.zeros((w1, kcap + 1), dtype=torch.int32, device=d)
+        last = torch.zeros((w1,), dtype=torch.int32, device=d)
+        repl = torch.zeros((kcap + 1, w1), dtype=torch.bool, device=d)
+        ff.pane_update(up(s["keys"]), workers, m, repl=repl,
+                       vals=up(s["keys"]), seg_base=7, pane_tab=tab,
+                       pane_cnt=cntp, pane_last=last, reset=True)
+        outs[where] = [workers[:m], fin[:m], busy, counts, tab, cntp, last,
+                       repl] + [kw[k] for k in ("trk", "snap", "psum",
+                                                "pmax", "m_k", "ebl", "eas")
+                                if kw.get(k) is not None]
+        if rows is not None:
+            outs[where].append(rows)
+    for c, p in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(c.cpu(), p), scheme
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
+def test_cuda_fused_engine_matches_plain_engine(scheme):
+    """Whole sessions — several feeds, a scale-out, a straggler and a
+    scale-in, device window store — on the card and on the CPU's plain
+    versions: since every kernel matches its plain version exactly, the
+    reports must be identical."""
+    import repro_torch.core as C
+    import repro_torch.topology as TP
+
+    _card()
+    keys = zipf_time_evolving(6_000, num_keys=700, z=1.3, seed=3)
+    values = np.random.default_rng(4).integers(1, 10, 6_000).astype(float)
+    events = [TP.ScopedEvent("agg", C.MembershipEvent(
+                  at=2_100, workers=tuple(range(10)))),
+              TP.ScopedEvent("agg", C.CapacityEvent(at=3_300,
+                                                    capacities={0: 4e-3})),
+              TP.ScopedEvent("agg", C.MembershipEvent(
+                  at=4_700, workers=tuple(range(1, 10))))]
+    reports = []
+    for device in ("cuda", "cpu"):
+        op = TP.WindowOp(agg="sum", value="payload", size=1_024,
+                         backend="device")
+        topo = TP.Topology(name=scheme,
+                           stages=(TP.Stage("agg", 8, operator=op),),
+                           edges=(TP.Edge("source", "agg",
+                                          TP.config_for(scheme)),))
+        sess = TP.SimulatorEngine(mode="fused", device=device).open(
+            topo, arrival_rate=2e4)
+        sess.advance(events)
+        ts = np.arange(6_000) / 2e4
+        for lo in range(0, 6_000, 1_500):
+            sess.feed(TP.RecordBatch(keys[lo:lo + 1_500], ts[lo:lo + 1_500],
+                                     values[lo:lo + 1_500]))
+        reports.append(sess.close().to_dict())
+    assert reports[0] == reports[1]

@@ -1,0 +1,104 @@
+"""The port's keyed state against the JAX package's: the three store
+backends, the device store's int32 young generation past 2^31, migration
+under churn, and the merge oracle.  Integer aggregates must be exact."""
+
+import numpy as np
+import pytest
+
+import repro.state as RS
+import repro_torch.state as PS
+from repro_torch.state.store import DeviceStateStore
+
+from torch_helpers import CPU
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def _fill(store, seed, rounds=2):
+    rng = np.random.default_rng(seed)
+    for _ in range(rounds):
+        store.update_batch(rng.integers(0, 300, 200), rng.integers(1, 99, 200))
+    rng2 = np.random.default_rng(seed + 1)
+    keys = np.unique(rng2.integers(0, 400, 50))
+    store.merge_entries(keys, rng2.integers(1, 9, keys.shape[0]),
+                        rng2.integers(1, 9, keys.shape[0]))
+
+
+@pytest.mark.parametrize("backend", ["dict", "array", "device"])
+def test_store_backends_match_reference(backend):
+    mk_p = (lambda: DeviceStateStore(device=CPU)) if backend == "device" \
+        else (lambda: PS.make_store(backend))
+    sp, sr = mk_p(), RS.make_store(backend)
+    _fill(sp, 3), _fill(sr, 3)
+    for a, b in zip(sp.items(), sr.items()):
+        np.testing.assert_array_equal(a, b)
+    assert sp.num_entries == sr.num_entries
+    assert sp.size_bytes() == sr.size_bytes()
+    take = np.array([1, 5, 17], dtype=np.int64)
+    take = take[np.isin(take, sr.items()[0])]
+    for a, b in zip(sp.take(take), sr.take(take)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(sp.items(), sr.items()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_store_young_generation_spills_past_int32():
+    st = DeviceStateStore(device=CPU)
+    chunk = 2 ** 30
+    for _ in range(3):  # 3 * 2^30 > INT32_MAX: forces a spill
+        st.merge_entries(np.array([3, 7]), np.array([chunk, chunk]),
+                         np.array([chunk, chunk]))
+    # key 1 sorts first: the rebuild must shift the spilled base with it
+    st.merge_entries(np.array([1, 7]), np.array([5, chunk]),
+                     np.array([1, chunk]))
+    ks, vs, cs = st.items()
+    assert ks.tolist() == [1, 3, 7]
+    assert vs.tolist() == [5, 3 * chunk, 4 * chunk]
+    assert cs.tolist() == [1, 3 * chunk, 4 * chunk]
+    assert st._base_v.max() > INT32_MAX // 2
+    vals, cnts = st.take(np.array([3]))
+    assert vals.tolist() == [3 * chunk] and cnts.tolist() == [3 * chunk]
+    with pytest.raises(ValueError, match="int32"):
+        st.update_batch(np.array([2 ** 40]), np.array([1]))
+    with pytest.raises(KeyError):
+        st.take(np.array([999]))
+
+
+def test_migration_under_churn_matches_reference():
+    """A keyed-state manager fed the same routed chunks, with a scale-out
+    and a scale-in in between, moves the same entries and bytes."""
+    from repro.topology.configs import config_for as ref_config
+    from repro_torch.topology.configs import config_for
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 200, 1_800)
+    outs = []
+    for S, cfg in ((PS, config_for), (RS, ref_config)):
+        op = S.WindowOp(agg="sum", value="key", size=600, slide=300,
+                        migration="migrate")
+        mgr = S.KeyedStateManager(op)
+        g = cfg("fg").build(6)
+        for lo, members in ((0, None), (700, range(8)), (1_300, range(1, 8))):
+            if members is not None:
+                mgr.on_event("pre_membership", g)
+                g.on_membership_change(list(members))
+                mgr.on_event("post_membership", g)
+            hi = {0: 700, 700: 1_300, 1_300: 1_800}[lo]
+            mgr.feed(keys[lo:hi], g.assign_batch(keys[lo:hi]))
+        outs.append(mgr.report("agg").summary())
+    assert outs[0] == outs[1]
+    assert outs[0]["migration_bytes"] > 0
+    op = PS.WindowOp(agg="sum", value="key", size=600, slide=300)
+    assert outs[0]["merged"] == PS.direct_aggregate(keys, op)
+
+
+def test_direct_aggregate_and_topk_match_reference():
+    rng = np.random.default_rng(6)
+    keys = rng.integers(0, 50, 2_000)
+    vals = rng.integers(1, 10, 2_000).astype(np.float64)
+    for agg, value in (("sum", "payload"), ("count", "hashed"),
+                       ("topk", "hashed")):
+        op_p = PS.WindowOp(agg=agg, value=value, size=500, k=5)
+        op_r = RS.WindowOp(agg=agg, value=value, size=500, k=5)
+        assert PS.direct_aggregate(keys, op_p, values=vals) == \
+            RS.direct_aggregate(keys, op_r, values=vals)
