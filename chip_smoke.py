@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Runs the port's main path — the paper's ZF keyed stream routed onto 128
-workers by each of the six grouping schemes, through the session API on
-the fused engine, with the device window store — and checks it:
+Drives the port's three device paths, each with the launch counters of
+its kernels set to 0 just before it and read just after, and checks each:
 
-1. builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, started together);
-2. drives the main path once per scheme with every kernel launch counter
-   at 0 beforehand, and fails if any kernel of the path never launched;
-3. holds each fused run against the port's batched host engine on the same
-   stream (SG/FG/PKG exact; DC/WC/FISH within the DESIGN.md §6 bands) and
-   every merged window against ``direct_aggregate``;
-4. re-runs FISH and WC with the same seed and requires bit-identical
-   reports;
-5. calls every kernel's wrapper on the inputs the main path gave it,
-   holds the result against the plain PyTorch version, and times both.
+A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
+   each of the six grouping schemes, through the session API on the fused
+   engine, with the device window store.  Each fused run is held against
+   the port's batched host engine on the same stream (SG/FG/PKG exact;
+   DC/WC/FISH within the DESIGN.md §6 bands), every merged window against
+   ``direct_aggregate``, and FISH and WC re-run with the same seed must
+   give bit-identical reports.
+B. **The device FISH tracker** — the same stream, one ``epoch_update`` per
+   epoch at the paper's ``FishParams()``, once through ``fish_epoch_count``
+   (``fused_fn``) and once through ``fish_count`` (``match_fn``), then
+   ``classify_hot_keys`` at 128 workers.  Each path equals the kernels'
+   plain versions on the CPU over the whole stream, and its top-20 hot set
+   meets the sequential ``EpochFrequencyTracker``'s with Jaccard >= 0.6.
+C. **mamba2-780m at full width** (48 layers, d_model 1536, bf16, random
+   weights from a seed): a prefill of 4 prompts of 4,096 tokens (the
+   ``prefill_32k`` shape, 32 x 32,768, cut for time), 32 decode steps, the
+   prefill-then-decode consistency check, and ``ServingEngine`` over two
+   ``ModelReplica``s with ``launch/serve.py``'s defaults.
+
+Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
+per source, started together), and at the end each kernel's wrapper is
+called on the inputs its path gave it, held against its plain PyTorch
+version and timed beside it.
 
 Usage: ``python3 chip_smoke.py [--tuples N] [--seed S]`` from the root of
-a checkout (the stream length is the only cut allowed).  Needs one card;
-exits non-zero with no result without one or outside a checkout.  The
-last stdout line is ``{"ok": true, "device": {...}}``; the line before it
-names the card and its power limit, and a ``{"kernels": [...]}`` line
+a checkout (``--tuples`` cuts the stream of paths A and B).  Needs one
+card; exits non-zero with no result without one or outside a checkout.
+The last stdout line is ``{"ok": true, "device": {...}}``; the line before
+it names the card and its power limit, and a ``{"kernels": [...]}`` line
 before that carries each kernel's launches, error and times.
 """
 
@@ -47,6 +58,14 @@ F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
+FISH_WORKERS = 128   # classify_hot_keys
+FISH_TOP = 20        # hot-set size held against the sequential tracker
+FISH_JACCARD = 0.6   # tests/test_batched_engine.py:273
+FISH_CAPTURE = 100   # epoch whose kernel inputs are kept (a full table)
+PROMPTS, PROMPT_LEN = 4, 4_096   # prefill_32k (32 x 32,768), cut for time
+DECODE_STEPS = 32
+CONSIST = dict(rtol=0.08, atol=0.35)   # tests/test_models_smoke.py:98-102
+SSD_TOL = dict(rtol=3e-4, atol=3e-4)   # tests/test_kernels.py:84-87
 
 REPO = Path(__file__).resolve().parent
 
@@ -248,6 +267,20 @@ def time_host(fn, reps, torch):
     return best
 
 
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bytes_,
+               ops, library_ms=None):
+    """One entry of the ``kernels`` line; the bound is the larger of the
+    bytes over the memory rate and the operations over the float32 rate."""
+    bound_b = bytes_ / HBM_BPS * 1e3
+    bound_o = ops / F32_OPS * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_b, bound_o),
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "library_ms": library_ms}
+
+
 def kernel_checks(cap, torch, np, launches):
     """Kernel vs plain on the captured main-path inputs, plus times and
     bounds.  Returns the ``kernels`` JSON rows."""
@@ -259,15 +292,8 @@ def kernel_checks(cap, torch, np, launches):
 
     def row(name, source, replaces, err, ms, plain_ms, bytes_, ops,
             library_ms=None):
-        bound_b = bytes_ / HBM_BPS * 1e3
-        bound_o = ops / F32_OPS * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": library_ms})
+        rows.append(kernel_row(name, source, replaces, launches, err, ms,
+                               plain_ms, bytes_, ops, library_ms))
 
     # -- store_probe --------------------------------------------------------
     call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
@@ -435,6 +461,310 @@ def kernel_checks(cap, torch, np, launches):
 
 
 # ---------------------------------------------------------------------------
+# path B: the device FISH tracker
+# ---------------------------------------------------------------------------
+
+
+def top_keys(counts_by_key, k):
+    return set(sorted(counts_by_key, key=counts_by_key.get,
+                      reverse=True)[:k])
+
+
+def fish_path(keys, dev, torch, np):
+    """One ``epoch_update`` per epoch over the stream, on each path, on the
+    card and on the CPU's plain versions; CHK at 128 workers.  Returns the
+    captured kernel inputs and the launch counts."""
+    from repro_torch.core import fish as F
+    from repro_torch.kernels import fish_count as fc
+    from repro_torch.kernels import ops
+
+    p = F.FishParams()
+    n_epochs = -(-keys.shape[0] // p.epoch)
+    seq = F.EpochFrequencyTracker(p)
+    seq.update_many(keys)
+    top_seq = top_keys(seq.counts, FISH_TOP)
+    captured = {}
+
+    def capturing(name, fn, epoch_box):
+        def call(*args, **kwargs):
+            if epoch_box[0] == FISH_CAPTURE and name not in captured:
+                captured[name] = (tuple(a.clone() for a in args),
+                                  dict(kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    paths = {"fused_fn": ops.fish_epoch_count, "match_fn": ops.fish_count}
+    fc.LAUNCHES.update(dict.fromkeys(fc.LAUNCHES, 0))
+    states, epoch_ms = {}, {}
+    keys_dev = torch.from_numpy(keys).to(dev)
+    for path, fn in paths.items():
+        box = [0]
+        kw = {path: capturing(fn.__name__, fn, box)}
+        st = F.init_fish_state(p.k_max, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(n_epochs):
+            box[0] = e
+            st = F.epoch_update(st, keys_dev[e * p.epoch:(e + 1) * p.epoch],
+                                alpha=p.alpha, **kw)
+        torch.cuda.synchronize()
+        epoch_ms[path] = (time.perf_counter() - t0) * 1e3 / n_epochs
+        states[path] = st
+    launches = dict(fc.LAUNCHES)
+    log(f"fish tracker: {n_epochs} epochs of {p.epoch}, k_max {p.k_max}, "
+        f"alpha {p.alpha}: fused_fn {epoch_ms['fused_fn']:.3f} ms/epoch, "
+        f"match_fn {epoch_ms['match_fn']:.3f} ms/epoch (host wall); "
+        f"launches {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the FISH tracker path: {missing}")
+
+    # the same epochs through the plain versions on the CPU
+    keys_cpu = torch.from_numpy(keys)
+    for path, fn in paths.items():
+        st = F.init_fish_state(p.k_max, device="cpu")
+        for e in range(n_epochs):
+            st = F.epoch_update(st, keys_cpu[e * p.epoch:(e + 1) * p.epoch],
+                                alpha=p.alpha, **{path: fn})
+        got = states[path]
+        if not (torch.equal(got["keys"].cpu(), st["keys"])
+                and torch.equal(got["counts"].cpu(), st["counts"])):
+            fail(f"fish tracker ({path}): card != plain versions on the CPU")
+        order = torch.sort(got["counts"], descending=True,
+                           stable=True).indices[:FISH_TOP]
+        top_dev = set(got["keys"][order].tolist())
+        jac = len(top_dev & top_seq) / len(top_dev | top_seq)
+        if jac < FISH_JACCARD:
+            fail(f"fish tracker ({path}): top-{FISH_TOP} Jaccard {jac} vs "
+                 f"the sequential tracker, below {FISH_JACCARD}")
+        d, hot, m_k = F.classify_hot_keys(
+            got, num_workers=FISH_WORKERS, theta=p.theta(FISH_WORKERS),
+            d_min=p.d_min)
+        d_cpu, hot_cpu, _ = F.classify_hot_keys(
+            st, num_workers=FISH_WORKERS, theta=p.theta(FISH_WORKERS),
+            d_min=p.d_min)
+        if not (torch.equal(d.cpu(), d_cpu) and torch.equal(hot.cpu(),
+                                                            hot_cpu)):
+            fail(f"fish tracker ({path}): CHK differs from the CPU's")
+        n_hot = int(hot.sum())
+        if n_hot == 0 or int(d[hot].max()) > FISH_WORKERS:
+            fail(f"fish tracker ({path}): CHK gave {n_hot} hot keys")
+        log(f"check fish tracker {path}: ok (card == plain over the whole "
+            f"stream; top-{FISH_TOP} Jaccard {jac:.2f} vs sequential; "
+            f"{n_hot} hot keys at {FISH_WORKERS} workers, d up to "
+            f"{int(d[hot].max())})")
+    return captured, launches
+
+
+def fish_kernel_checks(captured, launches, torch):
+    from repro_torch.kernels import fish_count as fc
+
+    rows = []
+    src = "src/repro_torch/csrc/fish_count.cu"
+    (tbl, ks), _ = captured["fish_count"]
+    outs_k = fc.fish_count(tbl, ks)
+    err = compare(outs_k, fc.fish_count_plain(tbl, ks),
+                  ("counts", "matched"))
+    ms = time_cuda(lambda: fc.fish_count(tbl, ks), 200, torch)
+    pms = time_host(lambda: fc.fish_count_plain(tbl, ks), 5, torch)
+    k_, n_ = tbl.shape[0], ks.shape[0]
+    rows.append(kernel_row(
+        "fish_count", src, "src/repro/kernels/fish_count.py:50", launches,
+        err, ms, pms, 4 * k_ + 4 * n_ + 4 * k_ + n_, n_ * k_))
+    log(f"fish_count    K={k_} N={n_}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, max|err| {err}")
+
+    (tbl, cnt, ks), kw = captured["fish_epoch_count"]
+    outs_k = fc.fish_epoch_count(tbl, cnt, ks, **kw)
+    err = compare(outs_k, fc.fish_epoch_count_plain(tbl, cnt, ks, **kw),
+                  ("counts", "matched", "cand", "first"))
+    ms = time_cuda(lambda: fc.fish_epoch_count(tbl, cnt, ks, **kw), 200,
+                   torch)
+    pms = time_host(lambda: fc.fish_epoch_count_plain(tbl, cnt, ks, **kw),
+                    5, torch)
+    rows.append(kernel_row(
+        "fish_epoch_count", src, "src/repro/kernels/fish_count.py:133",
+        launches, err, ms, pms, 8 * k_ + 4 * n_ + 4 * k_ + 6 * n_,
+        n_ * k_ + n_ * n_ + 2 * k_))
+    log(f"fish_epoch_count K={k_} N={n_}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, max|err| {err}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# path C: mamba2-780m at full width
+# ---------------------------------------------------------------------------
+
+
+def mamba_path(seed, dev, torch, np):
+    """Prefill, decode, prefill-then-decode consistency and the serving
+    engine, with the SSD kernels' counters from 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as MT
+
+    cfg = get_config("mamba2-780m")
+    prompts, prompt_len, decode_steps = PROMPTS, PROMPT_LEN, DECODE_STEPS
+    t0 = time.perf_counter()
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"mamba2-780m: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.head_dim}, d_state "
+        f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{MT.num_params(params):,} parameters, random init (seed {seed}) "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    captured = {}
+    real_state, real_output = ssd.ssd_chunk_state, ssd.ssd_chunk_output
+
+    def cap(name, fn):
+        def call(*args):
+            if name not in captured:  # layer 0 of the first prefill
+                captured[name] = tuple(a.clone() for a in args)
+            return fn(*args)
+        return call
+
+    ssd.ssd_chunk_state = cap("ssd_chunk_state", real_state)
+    ssd.ssd_chunk_output = cap("ssd_chunk_output", real_output)
+    ssd.LAUNCHES.update(dict.fromkeys(ssd.LAUNCHES, 0))
+    vocab = cfg.vocab_size
+    gen = np.random.default_rng(seed)
+    toks = torch.from_numpy(gen.integers(0, vocab, (prompts, prompt_len + 1)
+                                         ).astype(np.int32)).to(dev)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = MT.prefill(params, {"tokens": toks[:, :prompt_len]},
+                                   cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if logits.shape != (prompts, MT.padded_vocab(cfg)) or not bool(
+                torch.isfinite(logits[:, :vocab]).all()):
+            fail(f"mamba prefill: logits {tuple(logits.shape)} not finite")
+        log(f"mamba prefill {prompts} x {prompt_len} (prefill_32k's 32 x "
+            f"32,768 cut for time): {prefill_s:.3f} s, "
+            f"{prompts * prompt_len / prefill_s:,.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # prefill-then-decode: decode token S after a prefill of S-1
+        c2, _ = MT.prefill(params, {"tokens": toks[:, :prompt_len - 1]}, cfg)
+        step, _ = MT.decode_step(params, c2, toks[:, prompt_len - 1:
+                                                  prompt_len], cfg)
+        del c2
+        a_, b_ = step[:, :vocab].float(), logits[:, :vocab].float()
+        gap = (a_ - b_).abs()
+        bad = gap > CONSIST["atol"] + CONSIST["rtol"] * b_.abs()
+        if bool(bad.any()):
+            fail(f"mamba prefill-then-decode: {int(bad.sum())} logits beyond "
+                 f"rtol {CONSIST['rtol']} atol {CONSIST['atol']} (max gap "
+                 f"{float(gap.max())})")
+        log(f"check mamba prefill-then-decode: ok (max |gap| "
+            f"{float(gap.max()):.4f}, rtol {CONSIST['rtol']} atol "
+            f"{CONSIST['atol']})")
+
+        # decode from the full prefill
+        tok = torch.argmax(logits[:, :vocab], -1)[:, None].to(torch.int32)
+        walls = []
+        for _ in range(decode_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = MT.decode_step(params, cache, tok, cfg)
+            tok = torch.argmax(lg[:, :vocab], -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(lg[:, :vocab]).all()):
+                fail("mamba decode: non-finite logits")
+        if cache["pos"] != prompt_len - 1 + decode_steps:
+            fail(f"mamba decode: position {cache['pos']}")
+        w = np.asarray(walls[1:]) * 1e3
+        log(f"mamba decode {decode_steps} steps, batch {prompts}: p50 "
+            f"{np.percentile(w, 50):.2f} ms p99 {np.percentile(w, 99):.2f} "
+            f"ms per step (host wall)")
+        del cache
+
+        # the serving engine over two replicas (launch/serve.py defaults)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, reps = serve.serve(cfg, params, device=dev)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        m = eng.metrics()
+        steps = sum(r.tokens_generated for r in reps) // reps[0].tokens.shape[0]
+        if len(eng.done) != 64 or m.shed or not all(
+                bool(torch.isfinite(r.cache["layers"]["ssm"]).all())
+                for r in reps):
+            fail(f"mamba serving: {len(eng.done)} of 64 requests done")
+        log(f"check mamba serving: ok, 64 requests over 2 replicas x 4 "
+            f"slots in {eng.now:.0f} ticks, p50 {m.latency_p50:.1f} p99 "
+            f"{m.latency_p99:.1f} ticks, {m.throughput_tokens:.2f} tok/tick,"
+            f" session replication {m.session_replicas_norm:.2f}x; "
+            f"{steps} decode steps in {serve_s:.2f} s "
+            f"({serve_s / max(steps, 1) * 1e3:.2f} ms per step)")
+    finally:
+        ssd.ssd_chunk_state, ssd.ssd_chunk_output = real_state, real_output
+    launches = dict(ssd.LAUNCHES)
+    log(f"launches on the mamba path: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the mamba path: {missing}")
+    return captured, launches
+
+
+def ssd_compare(name, got, want):
+    """|kernel - plain| within atol + rtol·|plain|, elementwise."""
+    g, w = got.double(), want.double()
+    gap = (g - w).abs()
+    if not bool(g.isfinite().all()) or bool(
+            (gap > SSD_TOL["atol"] + SSD_TOL["rtol"] * w.abs()).any()):
+        fail(f"{name}: beyond rtol {SSD_TOL['rtol']} atol {SSD_TOL['atol']}"
+             f" (max |err| {float(gap.max())})")
+    return float(gap.max())
+
+
+def ssd_kernel_checks(captured, launches, torch):
+    from repro_torch.kernels import ssd
+
+    rows = []
+    src = "src/repro_torch/csrc/ssd.cu"
+    x, b, a_cum = captured["ssd_chunk_state"]
+    bc, q, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    st_k, at_k = ssd.ssd_chunk_state(x, b, a_cum)
+    st_p, at_p = ssd.ssd_chunk_state_plain(x, b, a_cum)
+    err = max(ssd_compare("ssd_chunk_state states", st_k, st_p),
+              ssd_compare("ssd_chunk_state a_tot", at_k, at_p))
+    ms = time_cuda(lambda: ssd.ssd_chunk_state(x, b, a_cum), 20, torch)
+    pms = time_host(lambda: ssd.ssd_chunk_state_plain(x, b, a_cum), 5, torch)
+    nb = 4 * (x.numel() + b.numel() + a_cum.numel() + st_k.numel()
+              + at_k.numel())
+    rows.append(kernel_row(
+        "ssd_chunk_state", src, "src/repro/kernels/ssd.py:51", launches, err,
+        ms, pms, nb, bc * h * (2 * q * n * p + q * n + q)))
+    log(f"ssd_chunk_state BC={bc} Q={q} H={h} P={p} G={g} N={n}: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, max|err| {err:.3e}")
+
+    x, b, c, a_cum, prev = captured["ssd_chunk_output"]
+    y_k = ssd.ssd_chunk_output(x, b, c, a_cum, prev)
+    y_p = ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev)
+    err = ssd_compare("ssd_chunk_output", y_k, y_p)
+    ms = time_cuda(lambda: ssd.ssd_chunk_output(x, b, c, a_cum, prev), 20,
+                   torch)
+    pms = time_host(lambda: ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev),
+                    3, torch)
+    pairs = q * (q + 1) // 2
+    nb = 4 * (x.numel() + b.numel() + c.numel() + a_cum.numel()
+              + prev.numel() + y_k.numel())
+    ops = bc * h * (pairs * (2 * n + 2 * p + 2) + 2 * q * n * p + q * n + q)
+    rows.append(kernel_row(
+        "ssd_chunk_output", src, "src/repro/kernels/ssd.py:108", launches,
+        err, ms, pms, nb, ops))
+    log(f"ssd_chunk_output BC={bc} Q={q} H={h} P={p}: kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, max|err| {err:.3e}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -502,8 +832,7 @@ def main() -> int:
     cap = Capture()
     install_capture(cap)
     for d in (ff.LAUNCHES, sp.LAUNCHES):
-        for k in d:
-            d[k] = 0
+        d.update(dict.fromkeys(d, 0))
     fused = {}
     for scheme in SCHEMES:
         cap.scheme = scheme
@@ -559,7 +888,18 @@ def main() -> int:
 
     # -- kernels vs plain ---------------------------------------------------------
     rows = kernel_checks(cap, torch, np, launches)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    log(f"path A (stream) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path B: the device FISH tracker ------------------------------------------
+    fish_cap, fish_launches = fish_path(keys, dev, torch, np)
+    rows += fish_kernel_checks(fish_cap, fish_launches, torch)
+    log(f"path B (FISH tracker) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path C: mamba2-780m at full width ------------------------------------------
+    ssd_cap, ssd_launches = mamba_path(args.seed, dev, torch, np)
+    rows += ssd_kernel_checks(ssd_cap, ssd_launches, torch)
+    log(f"path C (mamba2-780m) done; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,33 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the architectures the port runs are registered: ``mamba2-780m``, the
+model whose prefill runs the SSD kernels.
+"""
+
+import importlib
+from typing import List
+
+from .base import (MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SHAPES,
+                   ShapeConfig, SSMConfig, reduced_config)
+
+_ARCH_MODULES = {
+    "mamba2-780m": "mamba2_780m",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    try:
+        mod_name = _ARCH_MODULES[arch]
+    except KeyError:
+        raise ValueError(f"unknown arch {arch!r}; one of {list_archs()}")
+    return importlib.import_module(f".{mod_name}", __package__).CONFIG
+
+
+__all__ = [
+    "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
+    "ShapeConfig", "SHAPES", "reduced_config", "list_archs", "get_config",
+]

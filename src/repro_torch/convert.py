@@ -12,7 +12,14 @@ and its per-worker stores).  Feeding the returned state, and manager as
 ``state_sink``, to ``repro_torch.core.simulate_edge(mode="fused")``
 continues the stream.
 
-Only attributes are read: this module imports nothing of the JAX package.
+Two more carry state and weights over: :func:`fish_state_from_reference`
+turns the reference's device ``FishState`` (the bounded epoch table) into
+the port's, and :func:`model_params_from_reference` maps the reference's
+model parameter pytree onto the port's modules, so that both packages
+compute from the same weights.
+
+Only attributes and numpy arrays are read: this module imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from .core.assignment import WorkerStateEstimator
 from .core.baselines import (DChoices, FieldGrouping, FishGrouper,
                              PartialKeyGrouping, ShuffleGrouping, WChoices)
 from .core.chash import ConsistentHashRing
-from .core.fish import EpochFrequencyTracker, FishParams
+from ._device import resolve_device
+from .core.fish import EpochFrequencyTracker, FishParams, FishState
 from .core.stream import EdgeState
 from .kernels.feed_fused import FusedEdgeRunner, _u32_bits
 from .state.migration import MigrationStats
@@ -35,7 +43,8 @@ from .state.store import make_store
 from .state.window import KeyedStateManager, WindowOp, WindowPartial, _Pane
 
 __all__ = ["grouper_from_reference", "state_from_reference",
-           "runner_from_reference", "manager_from_reference"]
+           "runner_from_reference", "manager_from_reference",
+           "fish_state_from_reference", "model_params_from_reference"]
 
 _CLASSES = {"sg": ShuffleGrouping, "fg": FieldGrouping,
             "pkg": PartialKeyGrouping, "dc": DChoices, "wc": WChoices,
@@ -195,3 +204,46 @@ def manager_from_reference(ref, device=None) -> KeyedStateManager:
     mgr._seen_keys = set(ref._seen_keys)
     mgr._seen_pending = [np.array(a) for a in ref._seen_pending]
     return mgr
+
+
+def fish_state_from_reference(np_state, device=None) -> FishState:
+    """The port's ``FishState`` holding a reference one, read as numpy
+    (``{"keys": (k_max,) int32, "counts": (k_max,) float32}``), on
+    ``device`` (``None`` = ``"cuda"``)."""
+    dev = resolve_device(device)
+    return FishState(
+        keys=torch.from_numpy(np.array(np_state["keys"], dtype=np.int32)
+                              ).to(dev),
+        counts=torch.from_numpy(np.array(np_state["counts"],
+                                         dtype=np.float32)).to(dev))
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 ones as ml_dtypes hands them over) as a CPU
+    tensor of the same dtype and bits."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def model_params_from_reference(np_params, cfg, device=None):
+    """The port's model (:class:`repro_torch.models.transformer.Model`)
+    holding a reference parameter pytree, read as numpy arrays (the SSM
+    family's: ``embed``, ``final_norm``, ``head``, and ``stack`` with every
+    layer leaf stacked on a leading layer axis).  Values and dtypes carry
+    over bit for bit; ``device`` ``None`` = ``"cuda"``."""
+    from .models.transformer import Model
+
+    model = Model(cfg, device=resolve_device(device))
+    stack = np_params["stack"]
+    with torch.no_grad():
+        model.embed.copy_(_tensor(np_params["embed"]))
+        model.final_norm.copy_(_tensor(np_params["final_norm"]["scale"]))
+        if model.head is not None:
+            model.head.copy_(_tensor(np_params["head"]))
+        for i, layer in enumerate(model.layers):
+            layer.ln1.copy_(_tensor(stack["ln1"]["scale"][i]))
+            for name, param in layer.mamba.named_parameters():
+                param.copy_(_tensor(stack["mamba"][name][i]))
+    return model

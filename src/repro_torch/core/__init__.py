@@ -1,6 +1,6 @@
-"""FISH core of the port: Algs. 1-3 host parts, CHK, consistent hashing,
-the baseline groupings and the DSPE simulator (batched, reference and
-fused engines)."""
+"""FISH core of the port: Algs. 1-3 (host parts and the device epoch
+table), CHK, consistent hashing, the baseline groupings and the DSPE
+simulator (batched, reference and fused engines)."""
 
 from .assignment import WorkerStateEstimator, greedy_allocate, select_min_wait
 from .baselines import (
@@ -16,8 +16,12 @@ from .chash import ConsistentHashRing, hash32
 from .fish import (
     EpochFrequencyTracker,
     FishParams,
+    FishState,
     chk_num_workers,
     chk_num_workers_batch,
+    classify_hot_keys,
+    epoch_update,
+    init_fish_state,
 )
 from .stream import (
     CapacityEvent,
@@ -47,6 +51,10 @@ __all__ = [
     "FishParams",
     "chk_num_workers",
     "chk_num_workers_batch",
+    "FishState",
+    "classify_hot_keys",
+    "epoch_update",
+    "init_fish_state",
     "CapacityEvent",
     "EdgeResult",
     "EdgeState",

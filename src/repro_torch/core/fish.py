@@ -1,5 +1,4 @@
-"""FISH epoch-based recent hot-key identification (paper Alg. 1 + Alg. 2),
-host parts.
+"""FISH epoch-based recent hot-key identification (paper Alg. 1 + Alg. 2).
 
 :class:`EpochFrequencyTracker` is the paper-faithful *sequential* host-side
 implementation: per-tuple SpaceSaving with replace-min (count inherited from
@@ -7,10 +6,12 @@ the evicted minimum, Alg. 1 lines 19-22) and per-epoch time decay
 (``TimeDecayingUpdate``, lines 23-26).  :func:`chk_num_workers` and
 :func:`chk_num_workers_batch` are Alg. 2 (CHK), scalar and vectorised.
 
-The device forms of the epoch update (the bounded counter table counted by
-the ``fish_count``/``fish_epoch_count`` kernels) are not part of this
-package yet; the fused engine keeps its own dense device tracker
-(:mod:`repro_torch.kernels.feed_fused`).
+The device form: :class:`FishState` (the bounded counter table as torch
+tensors), :func:`epoch_update` (one whole epoch through the table, its
+match-count through the ``fish_count`` or ``fish_epoch_count`` kernel of
+:mod:`repro_torch.kernels.ops`) and :func:`classify_hot_keys`
+(CHK over the whole table).  The fused engine keeps its own dense device
+tracker (:mod:`repro_torch.kernels.feed_fused`).
 """
 
 from __future__ import annotations
@@ -21,12 +22,19 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..kernels.ops import fish_count
 
 __all__ = [
     "FishParams",
     "EpochFrequencyTracker",
     "chk_num_workers",
     "chk_num_workers_batch",
+    "FishState",
+    "init_fish_state",
+    "epoch_update",
+    "classify_hot_keys",
 ]
 
 
@@ -264,3 +272,150 @@ def chk_num_workers_batch(
     new_m_k = np.where(hot, np.maximum(m_k, d), m_k)
     d = np.where(hot, np.maximum(d, m_k), 2)
     return d, new_m_k
+
+
+# ---------------------------------------------------------------------------
+# Device-side state + epoch-batched update (torch)
+# ---------------------------------------------------------------------------
+
+
+class FishState(dict):
+    """The bounded counter table on the device.
+
+    keys:   (k_max,) int32   — key ids, -1 for empty slots
+    counts: (k_max,) float32 — decayed occurrence counters
+    """
+
+    def __init__(self, keys, counts):
+        super().__init__(keys=keys, counts=counts)
+
+
+def init_fish_state(k_max: int, device=None) -> FishState:
+    """An empty table on ``device`` (``None`` = ``cuda``)."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    return FishState(
+        keys=torch.full((k_max,), -1, dtype=torch.int32, device=dev),
+        counts=torch.zeros((k_max,), dtype=torch.float32, device=dev))
+
+
+def _top(scores: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest, ties to the lower index (a stable
+    descending sort; ``torch.topk`` leaves the tie order open)."""
+    vals, idx = torch.sort(scores, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def epoch_update(
+    state: FishState,
+    batch_keys: torch.Tensor,
+    *,
+    alpha: float,
+    max_new: int = 64,
+    match_fn=None,
+    fused_fn=None,
+) -> FishState:
+    """Process one epoch of keys through the bounded counter table.
+
+    Device-side analog of Alg. 1 with epoch-batched ReplaceMin:
+
+    1. inter-epoch decay:   counts *= alpha
+    2. intra-epoch counting: counts[k] += #occurrences for keys already in K
+       (the O(N·K_max) hotspot — ``match_fn`` defaults to
+       ``repro_torch.kernels.ops.fish_count``: the kernel on the card, its
+       plain version on the CPU)
+    3. batched ReplaceMin: the ``max_new`` most frequent *unmatched* keys of
+       this epoch replace the ``max_new`` smallest counters (empty slots
+       count 0); each inserted key inherits ``c_min + its epoch frequency``
+       (Alg. 1 line 22 generalised to a batch).
+
+    ``fused_fn`` (``repro_torch.kernels.ops.fish_epoch_count``) does steps
+    1-2 *and* the candidate histogram in one launch.  The two paths break
+    ties among equally frequent candidates as the reference's do: the fused
+    one by the token position of a key's first occurrence, the unfused one
+    by ascending key.
+
+    ``batch_keys``: (n,) int32 key ids (>= 0).  Returns a new state.
+    """
+    table_keys = state["keys"]
+    n = batch_keys.shape[0]
+    # a partial final epoch may carry fewer tuples than max_new, and more
+    # than k_max inserts per epoch can never land
+    max_new = min(max_new, int(table_keys.shape[0]), n)
+
+    if fused_fn is not None:
+        counts, matched, cand_count, is_first = fused_fn(
+            table_keys, state["counts"], batch_keys, alpha=alpha)
+        scores = torch.where(is_first & ~matched, cand_count, 0.0)
+        top_len, top_idx = _top(scores, max_new)
+        top_key = batch_keys[top_idx]
+    else:
+        if match_fn is None:
+            match_fn = fish_count
+        a = torch.tensor(alpha, dtype=torch.float32, device=table_keys.device)
+        counts_delta, matched = match_fn(table_keys, batch_keys)
+        counts = state["counts"] * a + counts_delta  # TimeDecayingUpdate
+
+        # candidate new keys: sort the unmatched keys so equal ids are
+        # adjacent, then count each run
+        cand_keys = torch.where(matched, -1, batch_keys)
+        sorted_keys = torch.sort(cand_keys).values
+        new_run = torch.ones(n, dtype=torch.bool, device=table_keys.device)
+        new_run[1:] = sorted_keys[1:] != sorted_keys[:-1]
+        run_id = torch.cumsum(new_run.to(torch.int64), 0) - 1
+        run_len = torch.zeros(n, dtype=torch.float32,
+                              device=table_keys.device).index_add_(
+            0, run_id, torch.ones(n, dtype=torch.float32,
+                                  device=table_keys.device))
+        run_key = torch.full((n,), torch.iinfo(torch.int32).min,
+                             dtype=torch.int32, device=table_keys.device
+                             ).scatter_reduce_(0, run_id, sorted_keys,
+                                               "amax")
+        run_len = torch.where(run_key >= 0, run_len, 0.0)  # drop the -1 run
+        top_len, top_idx = _top(run_len, max_new)
+        top_key = run_key[top_idx]
+
+    # batched ReplaceMin: the bottom max_new slots (ascending by counter,
+    # empty slots as free minima) take the top max_new candidates
+    empty = table_keys < 0
+    eff = torch.where(empty, 0.0, counts)
+    bottom = torch.sort(eff, stable=True).indices[:max_new]
+    do = top_len > 0.0
+    table_keys = table_keys.clone()
+    table_keys[bottom] = torch.where(do, top_key, table_keys[bottom])
+    counts = counts.clone()
+    counts[bottom] = torch.where(do, eff[bottom] + top_len, counts[bottom])
+    return FishState(keys=table_keys, counts=counts)
+
+
+def classify_hot_keys(
+    state: FishState,
+    *,
+    num_workers: int,
+    theta: float,
+    d_min: int = 2,
+    m_k: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Vectorised CHK (Alg. 2) over the whole table.
+
+    Returns ``(d, is_hot, new_m_k)`` — per-slot candidate-worker counts
+    (non-hot slots get 2), hotness mask, and the updated monotone memory.
+    """
+    counts = state["counts"]
+    total = torch.clamp(counts.sum(), min=1e-30)
+    f = counts / total
+    f_top = f.max()
+    is_hot = f > theta
+    ratio = torch.clamp(f_top / torch.clamp(f, min=1e-30), min=1.0)
+    # log2 as the reference computes it: log(x) / log(2) in float32
+    log2 = torch.log(ratio) / torch.log(torch.tensor(
+        2.0, dtype=torch.float32, device=counts.device))
+    index = torch.clamp(torch.floor(log2).to(torch.int32), 0, 30)
+    d = (num_workers // torch.pow(2, index)).to(torch.int32)
+    d = torch.clamp(d, min=d_min, max=num_workers)
+    if m_k is None:
+        m_k = torch.zeros_like(d)
+    new_m_k = torch.where(is_hot, torch.maximum(m_k, d), m_k)
+    d = torch.where(is_hot, torch.maximum(d, m_k), 2)
+    return d, is_hot, new_m_k

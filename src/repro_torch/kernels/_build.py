@@ -25,7 +25,8 @@ __all__ = ["CSRC", "NVCC_FLAGS", "SOURCES", "BUILD_LOG", "build_all",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel library name → source file under ``csrc/``
-SOURCES = {"store_probe": "store_probe.cu", "feed_fused": "feed_fused.cu"}
+SOURCES = {"store_probe": "store_probe.cu", "feed_fused": "feed_fused.cu",
+           "fish_count": "fish_count.cu", "ssd": "ssd.cu"}
 
 #: ``sm_90a`` (Hopper); ``-fmad=false`` keeps every float expression
 #: rounding op by op, as the plain PyTorch versions do.

@@ -5,9 +5,11 @@ JAX package, so it runs on a machine with the card alone:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integer outputs must match exactly; so must the float ones, since both
-versions round the same float32/float64 operations in the same order
-(the kernels build with ``-fmad=false``).
+Integer outputs must match exactly; so must the float ones of the stream
+and FISH kernels, since both versions round the same float32/float64
+operations in the same order (the kernels build with ``-fmad=false``).
+The SSD kernels sum their dot products in another order than the plain
+einsums: within 3e-4 (``tests/test_kernels.py``'s bound).
 """
 
 import numpy as np
@@ -16,7 +18,11 @@ import torch
 
 from repro_torch.core.chash import ConsistentHashRing, hash32
 from repro_torch.data.synthetic import zipf_time_evolving
+from repro_torch.core import fish as F
 from repro_torch.kernels import feed_fused as ff
+from repro_torch.kernels import fish_count as fc
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd
 from repro_torch.kernels import store_probe as sp
 
 import torch_helpers  # noqa: F401  (caps torch threads)
@@ -167,3 +173,133 @@ def test_cuda_fused_engine_matches_plain_engine(scheme):
                                      values[lo:lo + 1_500]))
         reports.append(sess.close().to_dict())
     assert reports[0] == reports[1]
+
+
+def _fish_table(k, seed):
+    rng = np.random.default_rng(seed)
+    table = np.full(k, -1, np.int32)
+    real = k * 3 // 4
+    table[:real] = rng.choice(4 * k + 10, real, replace=False)
+    counts = np.zeros(k, np.float32)
+    counts[:real] = rng.gamma(2.0, 3.0, real).astype(np.float32)
+    return table, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1_000, 1_000), (1, 7), (4_096, 100_000),
+                                 (0, 5), (300, 0)])
+def test_cuda_fish_count_matches_plain(k, n):
+    dev = _card()
+    table, _ = _fish_table(k, k + n)
+    keys = np.random.default_rng(n).integers(0, 4 * k + 10, n).astype(
+        np.int32)
+    got = fc.fish_count(T(table).to(dev), T(keys).to(dev))
+    want = fc.fish_count_plain(T(table), T(keys))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,alpha", [(1_000, 1_000, 0.2), (128, 1_500, 0.5),
+                                       (50, 3_000, 0.2)])
+def test_cuda_fish_epoch_count_matches_plain(k, n, alpha):
+    """Bit for bit, the decayed counts included: fl(fl(c·alpha) + delta)."""
+    dev = _card()
+    table, counts = _fish_table(k, k)
+    keys = zipf_time_evolving(n, num_keys=4 * k + 10, z=1.2, seed=n)
+    keys[: n // 4] = np.resize(table[: k * 3 // 4], n // 4)
+    got = fc.fish_epoch_count(T(table).to(dev), T(counts).to(dev),
+                              T(keys).to(dev), alpha=alpha)
+    want = fc.fish_epoch_count_plain(T(table), T(counts), T(keys),
+                                     alpha=alpha)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["match_fn", "fused_fn"])
+def test_cuda_epoch_update_matches_plain(path):
+    """16 epochs of a ZF stream through the table on the card and on the
+    CPU's plain versions: identical tables, identical CHK."""
+    dev = _card()
+    keys = zipf_time_evolving(16_000, num_keys=2_000, z=1.4, seed=7)
+    fn = {"match_fn": ops.fish_count, "fused_fn": ops.fish_epoch_count}[path]
+    before = dict(fc.LAUNCHES)
+    states = []
+    for d in (dev, torch.device("cpu")):
+        st = F.init_fish_state(256, device=d)
+        for i in range(0, 16_000, 1_000):
+            st = F.epoch_update(st, T(keys[i:i + 1_000]).to(d), alpha=0.2,
+                                **{path: fn})
+        states.append(st)
+    assert torch.equal(states[0]["keys"].cpu(), states[1]["keys"])
+    assert torch.equal(states[0]["counts"].cpu(), states[1]["counts"])
+    chk = [F.classify_hot_keys(st, num_workers=64, theta=0.25 / 64)
+           for st in states]
+    for g, w in zip(*chk):
+        assert torch.equal(g.cpu(), w)
+    assert fc.LAUNCHES[fn.__name__] == before[fn.__name__] + 16
+
+
+def _ssd_close(got, want):
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc,q,h,p,g,n", [
+    (2, 128, 48, 64, 1, 128),   # mamba2-780m's chunk
+    (3, 32, 4, 16, 2, 16),
+    (2, 48, 4, 32, 1, 32),      # a chunk that is not a multiple of 32 rows
+    (1, 16, 4, 16, 1, 16),      # the reduced config's chunk
+])
+def test_cuda_ssd_chunk_kernels_match_plain(bc, q, h, p, g, n):
+    dev = _card()
+    rng = np.random.default_rng(q + h)
+    up = (lambda a: T(a.astype(np.float32)).to(dev))
+    x = up(rng.normal(size=(bc, q, h, p)))
+    b = up(rng.normal(size=(bc, q, g, n)) * 0.3)
+    c = up(rng.normal(size=(bc, q, g, n)) * 0.3)
+    a_cum = up(np.cumsum(-np.abs(rng.normal(size=(bc, q, h))) * 0.5,
+                         axis=1))
+    prev = up(rng.normal(size=(bc, h, n, p)))
+    st, at = ssd.ssd_chunk_state(x, b, a_cum)
+    st_p, at_p = ssd.ssd_chunk_state_plain(x, b, a_cum)
+    _ssd_close(st, st_p)
+    assert torch.equal(at, at_p)
+    _ssd_close(ssd.ssd_chunk_output(x, b, c, a_cum, prev),
+               ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev))
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_prefill_and_decode_match_plain():
+    """The reduced mamba2-780m in float32 on the card (SSD kernels) and on
+    the CPU (their plain versions), same weights: prefill of a ragged
+    length (padded to the chunk) and four decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer as MT
+
+    dev = _card()
+    cfg = dataclasses.replace(reduced_config(get_config("mamba2-780m")),
+                              dtype="float32")
+    cpu = MT.init_params(cfg, seed=1, device="cpu")
+    card = MT.Model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = T(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 45)).astype(np.int32))
+    before = dict(ssd.LAUNCHES)
+    out = []
+    for params, d in ((card, dev), (cpu, torch.device("cpu"))):
+        cache, logits = MT.prefill(params, {"tokens": toks[:, :41].to(d)},
+                                   cfg)
+        steps = [logits]
+        for i in range(41, 45):
+            lg, cache = MT.decode_step(params, cache, toks[:, i:i + 1].to(d),
+                                       cfg)
+            steps.append(lg)
+        out.append(steps + [cache["layers"]["ssm"]])
+    for g, w in zip(*out):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+    assert ssd.LAUNCHES["ssd_chunk_state"] == \
+        before["ssd_chunk_state"] + cfg.num_layers
