@@ -58,6 +58,12 @@ F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
+# dependency-chain bounds, in SM cycles per dependent step on one warp, as
+# tools/chain_probe.py measures them on the H100: a shared-memory
+# read-compare-write (two loads, a select, a store: route_scan's least
+# step) 43.9; an f64 max + add (fifo_workers' step) 33.2
+SMEM_STEP_CYCLES = 44
+F64_STEP_CYCLES = 33
 FISH_WORKERS = 128   # classify_hot_keys
 FISH_TOP = 20        # hot-set size held against the sequential tracker
 FISH_JACCARD = 0.6   # tests/test_batched_engine.py:273
@@ -77,6 +83,15 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def card_line() -> str:
@@ -106,6 +121,8 @@ class Capture:
     def _clone(self, x):
         import torch
 
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._clone(v) for v in x)
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     def wrap(self, name, fn, want):
@@ -121,20 +138,39 @@ class Capture:
 
 def install_capture(cap: Capture):
     from repro_torch.kernels import feed_fused as ff
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import store_probe as sp
 
     ff.ring_rows = cap.wrap("ring_rows", ff.ring_rows,
                             lambda a, k: a[4] == FEED)
     ff.tracker_update = cap.wrap("tracker_update", ff.tracker_update,
                                  lambda a, k: a[3] == FEED)
-    ff.route_fifo = cap.wrap("route_fifo", ff.route_fifo,
+    ff.route_scan = cap.wrap("route_scan", ff.route_scan,
                              lambda a, k: a[1] == FEED)
+    ff.fifo_workers = cap.wrap("fifo_workers", ff.fifo_workers,
+                               lambda a, k: a[1] == FEED)
     ff.pane_update = cap.wrap("pane_update", ff.pane_update,
                               lambda a, k: a[2] == FEED and not k["reset"])
-    # the store's probe: keep the first call that carries a real pane
-    # flush (a per-worker store of one window)
-    ops.store_probe = cap.wrap("store_probe", ops.store_probe,
-                               lambda a, k: a[1].shape[0] >= 64)
+    # the store's grouped probe: keep the first whole pane sync (one
+    # chunk per worker store of a window)
+    sp.store_probe_grouped = cap.wrap("store_probe", sp.store_probe_grouped,
+                                      lambda a, k: len(a[0]) >= WORKERS // 2)
+
+
+class SyncCounter:
+    """Counts pane syncs (``KeyedStateManager.feed_aggregated`` calls with
+    tuples), so a feed can be told apart as a steady or a flush feed."""
+
+    def __init__(self):
+        from repro_torch.state.window import KeyedStateManager
+
+        self.n = 0
+        real = KeyedStateManager.feed_aggregated
+
+        def counted(mgr, n_tuples, entries):
+            if n_tuples:
+                self.n += 1
+            return real(mgr, n_tuples, entries)
+        KeyedStateManager.feed_aggregated = counted
 
 
 # ---------------------------------------------------------------------------
@@ -158,16 +194,20 @@ def batches(keys, values, T):
             for lo in range(0, keys.shape[0], FEED)]
 
 
-def run_session(mode, scheme, feeds, device, T, torch):
+def run_session(mode, scheme, feeds, device, T, torch, syncs=None):
+    """Feed the stream; returns the report, the wall time, and each feed's
+    (wall, whether it synced a pane) — a flush feed or a steady one."""
     eng = T.SimulatorEngine(mode=mode, device=device)
     sess = eng.open(topology(scheme, T), arrival_rate=RATE)
     walls = []
     t0 = time.perf_counter()
     for b in feeds:
+        n0 = syncs.n if syncs else 0
         f0 = time.perf_counter()
         sess.feed(b)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - f0)
+        walls.append((time.perf_counter() - f0,
+                      bool(syncs and syncs.n > n0)))
     rep = sess.close()
     torch.cuda.synchronize()
     return rep, time.perf_counter() - t0, walls
@@ -291,24 +331,48 @@ def kernel_checks(cap, torch, np, launches):
     src_ff = "src/repro_torch/csrc/feed_fused.cu"
 
     def row(name, source, replaces, err, ms, plain_ms, bytes_, ops,
-            library_ms=None):
-        rows.append(kernel_row(name, source, replaces, launches, err, ms,
-                               plain_ms, bytes_, ops, library_ms))
+            library_ms=None, chain_bound_ms=None):
+        r = kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+                       bytes_, ops, library_ms)
+        if chain_bound_ms is not None:
+            r["chain_bound_ms"] = chain_bound_ms
+        rows.append(r)
 
-    # -- store_probe --------------------------------------------------------
+    # -- store_probe: the first pane sync, grouped; and G = 1 ----------------
     call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
-    (tbl, ks, vs), _ = call
-    vk = sp.store_probe(tbl, ks, vs, validate=True)
-    vp = sp.store_probe_plain(tbl, ks, vs)
-    err = compare(vk, vp, ("vsum", "csum", "matched"))
-    ms = time_cuda(lambda: sp.store_probe(tbl, ks, vs), 50, torch)
-    pms = time_host(lambda: sp.store_probe_plain(tbl, ks, vs), 5, torch)
-    k_, n_ = tbl.shape[0], ks.shape[0]
+    (tables, keys, vals, cnts, offsets, _, _), _ = call
+    dev = keys.device
+    for t in tables:  # the kernel's precondition, checked once
+        if t.shape[0] > 1 and not bool((t[1:] > t[:-1]).all()):
+            fail("store_probe: a pane store's table is not ascending")
+
+    def zeros():
+        return ([torch.zeros_like(t) for t in tables],
+                [torch.zeros_like(t) for t in tables])
+    vo, co = zeros()
+    sp.store_probe_grouped(tables, keys, vals, cnts, offsets, vo, co)
+    vp, cp = sp.store_probe_grouped_plain(tables, keys, vals, cnts, offsets)
+    err = compare(vo + co, vp + cp, [f"vsum[{g}]" for g in range(len(vo))]
+                  + [f"csum[{g}]" for g in range(len(co))])
+    lo, hi = offsets[0], offsets[1]  # G = 1, with hit flags: ops.store_probe
+    err = max(err, compare(
+        sp.store_probe(tables[0], keys[lo:hi], vals[lo:hi], validate=True),
+        sp.store_probe_plain(tables[0], keys[lo:hi], vals[lo:hi]),
+        ("vsum[G=1]", "csum[G=1]", "matched[G=1]")))
+    vo, co = zeros()
+    meta = torch.from_numpy(sp.grouped_meta(tables, offsets, vo, co)).to(dev)
+    ms = time_cuda(lambda: sp.store_probe_grouped(
+        tables, keys, vals, cnts, offsets, vo, co, meta=meta), 50, torch)
+    pms = time_host(lambda: sp.store_probe_grouped_plain(
+        tables, keys, vals, cnts, offsets), 3, torch)
+    g_, n_ = len(tables), keys.shape[0]
+    k_ = sum(t.shape[0] for t in tables)
     row("store_probe", "src/repro_torch/csrc/store_probe.cu",
         "src/repro/kernels/store_probe.py:56", err, ms, pms,
-        4 * k_ + 8 * n_ + 8 * k_ + n_, n_ * max(k_, 2).bit_length())
-    log(f"store_probe   K={k_} N={n_}: kernel {ms:.4f} ms, plain {pms:.4f} "
-        f"ms, max|err| {err}")
+        12 * n_ + 4 * k_ + 8 * k_ + 8 * (5 * g_ + 1),
+        n_ * (max(g_, 2).bit_length() + max(k_ // g_, 2).bit_length()))
+    log(f"store_probe   grouped G={g_} (one pane sync) K={k_} N={n_}: "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, max|err| {err}")
 
     # -- the segment kernels, every scheme's captured segment ----------------
     seg = {}
@@ -318,8 +382,10 @@ def kernel_checks(cap, torch, np, launches):
             continue
         seg.setdefault(name, {})[scheme] = call
     for scheme in SCHEMES:
-        if "route_fifo" not in seg or scheme not in seg["route_fifo"]:
-            fail(f"no captured route_fifo call for {scheme}")
+        if scheme not in seg.get("fifo_workers", {}) or (
+                scheme not in ("sg", "fg")
+                and scheme not in seg.get("route_scan", {})):
+            fail(f"no captured route_scan/fifo_workers call for {scheme}")
 
     # ring_rows (FISH: the widest rows)
     args, kw = seg["ring_rows"]["fish"]
@@ -390,44 +456,79 @@ def kernel_checks(cap, torch, np, launches):
         f" ms + fold {ms_fold:.4f} ms, plain (both) {pms:.4f} ms, "
         f"index_add_ {lib_ms:.4f} ms, max|err| {err}")
 
-    # route_fifo, every scheme
-    def run_route(fn, call):
+    # route_scan (PKG/DC/WC/FISH) and fifo_workers (every scheme)
+    def run_scan(fn, call):
+        args, kw = clone_call(call)
+        workers = fn(*args, **kw)
+        return [workers[:args[1]], kw["counts"], kw.get("m_k"),
+                kw.get("ebl"), kw.get("eas")]
+
+    def run_fifo(fn, call):
         args, kw = clone_call(call)
         workers, fin = fn(*args, **kw)
         m = args[1]
-        outs = [workers[:m], fin[:m], kw["busy"], kw["counts"]]
-        for k in ("m_k", "ebl", "eas"):
-            outs.append(kw.get(k))
-        return outs
-    err = 0.0
-    route_ms = {}
+        return [workers[:m], fin[:m], kw["busy"], kw["counts"]]
+    err_r = err_f = 0.0
+    route_ms, fifo_ms = {}, {}
     for s in SCHEMES:
-        call = seg["route_fifo"][s]
-        ok = run_route(ff.route_fifo, call)
-        opl = run_route(ff.route_fifo_plain, call)
-        e = compare(ok, opl, ("workers", "fin", "busy", "counts", "m_k",
-                              "ebl", "eas"))
-        err = max(err, e)
+        if s in seg["route_scan"]:
+            call = seg["route_scan"][s]
+            err_r = max(err_r, compare(
+                run_scan(ff.route_scan, call),
+                run_scan(ff.route_scan_plain, call),
+                (f"workers[{s}]", f"counts[{s}]", f"m_k[{s}]", f"ebl[{s}]",
+                 f"eas[{s}]")))
+            args, kw = clone_call(call)
+            route_ms[s] = time_cuda(lambda: ff.route_scan(*args, **kw), 10,
+                                    torch)
+        call = seg["fifo_workers"][s]
+        err_f = max(err_f, compare(
+            run_fifo(ff.fifo_workers, call),
+            run_fifo(ff.fifo_workers_plain, call),
+            (f"workers[{s}]", f"fin[{s}]", f"busy[{s}]", f"counts[{s}]")))
         args, kw = clone_call(call)
-        route_ms[s] = time_cuda(lambda: ff.route_fifo(*args, **kw), 10, torch)
-        log(f"route_fifo    {s:4s} m={args[1]} w1={kw['busy'].shape[0]}: "
-            f"kernel {route_ms[s]:.4f} ms, max|err| {e}")
-    args, kw = clone_call(seg["route_fifo"]["fish"])
+        fifo_ms[s] = time_cuda(lambda: ff.fifo_workers(*args, **kw), 20,
+                               torch)
+        log(f"segment       {s:4s} m={args[1]}: route_scan "
+            f"{route_ms.get(s, 0.0):.4f} ms + fifo_workers {fifo_ms[s]:.4f} "
+            f"ms = {route_ms.get(s, 0.0) + fifo_ms[s]:.4f} ms per segment")
+    clock = sm_clock_mhz()
+
+    # the rows: FISH's segment, the widest chain
+    args, kw = clone_call(seg["route_scan"]["fish"])
     m = args[1]
-    pms = time_host(lambda: ff.route_fifo_plain(*args, **kw), 1, torch)
+    pms = time_host(lambda: ff.route_scan_plain(*args, **kw), 1, torch)
     width = kw["rows"].shape[1]
-    w1 = kw["busy"].shape[0]
-    # candidates this segment's data makes the scan read: Σ min(d, width)
-    args, kw = clone_call(seg["route_fifo"]["fish"])
+    w1 = kw["counts"].shape[0]
+    # candidates this segment's data makes the chain read: Σ min(d, width)
+    args, kw = clone_call(seg["route_scan"]["fish"])
     _, d = ff.route_prologue(
         "fish", m, kw["keys"], kw["rows"], None, 0, 0, kw["trk"], kw["snap"],
         kw["psum"], kw["pmax"], kw["g0"], kw["epoch"], kw["theta"],
         kw["wnum"], kw["m_k"], kw["d_min"])
     d_sum = int(np.minimum(d, width).sum())
-    row("route_fifo", src_ff, "src/repro/kernels/feed_fused.py:175", err,
-        route_ms["fish"], pms, 4 * d_sum + 16 * m + 4 * 2 * 6 * w1,
-        3 * d_sum + 2 * m)
-    log(f"route_fifo    fish plain {pms:.1f} ms (host loop)")
+    wide = int((np.minimum(d, width) > 2).sum())
+    chain = m * SMEM_STEP_CYCLES / (clock * 1e3)
+    row("route_scan", src_ff, "src/repro/kernels/feed_fused.py:237,276,307",
+        err_r, route_ms["fish"], pms, 4 * d_sum + 20 * m + 4 * 8 * w1,
+        3 * d_sum + 2 * m, chain_bound_ms=chain)
+    log(f"route_scan    fish: {wide} of {m} tuples take the wide argmin, "
+        f"Σ min(d, width) = {d_sum}; chain bound {chain:.4f} ms ({m} x "
+        f"{SMEM_STEP_CYCLES} cycles at {clock:.0f} MHz); plain {pms:.1f} ms "
+        f"(host loop)")
+    # fifo_workers' row: FG's segment, whose hottest worker holds the
+    # longest per-worker run of the six schemes
+    args, kw = clone_call(seg["fifo_workers"]["fg"])
+    pms = time_host(lambda: ff.fifo_workers_plain(*args, **kw), 1, torch)
+    runs = torch.bincount(kw["rows"][:m, 0].long(), minlength=w1)
+    longest = int(runs.max())
+    chain = longest * F64_STEP_CYCLES / (clock * 1e3)
+    row("fifo_workers", src_ff, "src/repro/kernels/feed_fused.py:175",
+        err_f, fifo_ms["fg"], pms, 20 * m + 3 * 8 * w1, 2 * m,
+        chain_bound_ms=chain)
+    log(f"fifo_workers  fg: longest per-worker run {longest} of {m}; chain "
+        f"bound {chain:.4f} ms ({longest} x {F64_STEP_CYCLES} cycles); plain "
+        f"{pms:.1f} ms (host loop)")
 
     # pane_update (FISH, a steady-state segment of an open pane)
     def run_pane(fn, call):
@@ -831,19 +932,40 @@ def main() -> int:
     # -- the main path, counters from 0 ------------------------------------------
     cap = Capture()
     install_capture(cap)
+    syncs = SyncCounter()
     for d in (ff.LAUNCHES, sp.LAUNCHES):
         d.update(dict.fromkeys(d, 0))
-    fused = {}
+    fused, path_a = {}, {}
     for scheme in SCHEMES:
         cap.scheme = scheme
-        rep, wall, walls = run_session("fused", scheme, feeds, dev, T, torch)
+        l0, s0 = dict(ff.LAUNCHES, **sp.LAUNCHES), syncs.n
+        rep, wall, walls = run_session("fused", scheme, feeds, dev, T, torch,
+                                       syncs)
         fused[scheme] = rep
-        w = np.asarray(walls)
+        w = np.asarray([x for x, _ in walls]) * 1e3
+        steady = np.asarray([x for x, f in walls if not f]) * 1e3
+        flush = np.asarray([x for x, f in walls if f]) * 1e3
+        n_sync = syncs.n - s0
+        dl = {k: v - l0[k] for k, v in dict(ff.LAUNCHES,
+                                            **sp.LAUNCHES).items()}
+        path_a[scheme] = {
+            "tuples_per_s": n / wall, "feed_p50_ms": np.percentile(w, 50),
+            "feed_p99_ms": np.percentile(w, 99),
+            "steady_p50_ms": np.percentile(steady, 50) if steady.size else None,
+            "flush_p50_ms": np.percentile(flush, 50) if flush.size else None,
+            "steady_feeds": int(steady.size), "flush_feeds": int(flush.size),
+            "pane_syncs": n_sync, "launches": dl}
         log(f"fused {scheme:4s}: {n / wall:,.0f} tuples/s, per-feed wall p50 "
-            f"{np.percentile(w, 50) * 1e3:.2f} ms p99 "
-            f"{np.percentile(w, 99) * 1e3:.2f} ms, dispatches "
-            f"{rep.edges[0].dispatches}")
+            f"{np.percentile(w, 50):.2f} ms p99 {np.percentile(w, 99):.2f} "
+            f"ms; steady feeds ({steady.size}) p50 "
+            f"{np.percentile(steady, 50) if steady.size else 0:.2f} ms, "
+            f"flush feeds ({flush.size}) p50 "
+            f"{np.percentile(flush, 50) if flush.size else 0:.2f} ms; "
+            f"dispatches {rep.edges[0].dispatches}; {n_sync} pane syncs, "
+            f"store_probe launches {dl['store_probe']} "
+            f"({dl['store_probe'] / max(n_sync, 1):g} per sync)")
     cap.scheme = None
+    log(f"path A per scheme: {json.dumps(path_a)}")
     launches = dict(ff.LAUNCHES)
     launches.update(sp.LAUNCHES)
     log(f"launches on the main path: {json.dumps(launches)}")

@@ -5,14 +5,17 @@
 // grouping schemes, runs the per-worker FIFO and scatters the keyed pane
 // state.  XLA lowers its per-tuple lax.scans to a sequential loop; PyTorch
 // has no scan, and written op for op it would cost one launch per tuple.
-// Here the segment is at most five launches:
+// Here the segment is at most six launches:
 //
 //   ring_rows      (parallel)   consistent-hash candidate rows per tuple
 //   tracker_count  (parallel)   int32 per-(epoch ordinal, key) tuple counts
 //   tracker_fold   (parallel)   decay + fold the counts into the dense f32
 //                               tracker, its snapshot at each epoch's end,
 //                               per-(epoch, block) partial sum and max
-//   route_fifo     (one block)  the sequential routing scan + FIFO
+//   route_scan     (one block)  PKG/DC/WC/FISH: the sequential routing
+//                               chain (SG/FG routes are fixed: no launch)
+//   fifo_workers   (a warp per  the per-worker FIFO; SG/FG gather their
+//                   worker)     fixed routes here
 //   pane_update    (parallel)   pane (value, count) scatter, count plane,
 //                               replica matrix, pane_last
 //
@@ -21,13 +24,21 @@
 // scale a hot FG worker's sequential float32 busy-time sum drifts ~1.5e-4
 // from the host engine's float64 closed form, past the 1e-4 contract).
 //
-// What bounds it on the card: the route_fifo scan is a dependency chain —
-// tuple i's choice reads the counts that tuple i-1 wrote — so it runs on
-// one warp with the per-worker state (counts, busy, estimator) in shared
-// memory, and its time is ~m sequential steps of a warp argmin over at most
-// dmax candidates.  The parallel kernels move a few bytes per tuple plus,
-// for the trackers, one pass over the dense per-key table; they are bound
-// by bytes and by launch latency at 16k-tuple segments.
+// What bounds it on the card: routing is a dependency chain — tuple i's
+// choice reads the counts (or FISH's estimator) that tuple i-1 wrote — so
+// route_scan runs it on one warp: ~m dependent steps of a shared-memory
+// read-compare-write, plus a warp argmin (two redux.sync) for the wide
+// tuples.  Device memory stays off the chain: the block's other warps
+// stage the next tile of (d, candidate rows) into shared memory by
+// cp.async while warp 0 walks the current one, and FISH's per-worker wait
+// (bl + asn) * ec is kept in shared memory and refreshed only for the
+// worker that was picked.  The FIFO reads nothing that routing writes
+// except the route, and each worker's recurrence is independent of every
+// other's, so fifo_workers runs one warp per worker: bound by its longest
+// per-worker run of dependent f64 max + add.  The parallel kernels move a
+// few bytes per tuple plus, for the trackers, one pass over the dense
+// per-key table; they are bound by bytes and by launch latency at
+// 16k-tuple segments.
 //
 // Frequencies are read at epoch granularity: a FISH tuple classifies
 // against the tracker as it stands at the end of its own epoch (the batched
@@ -46,27 +57,20 @@
 
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <cuda_pipeline.h>
 #include <math.h>
 
-// route_fifo's arguments; outside the unnamed namespace so the C entry
+// route_scan's arguments; outside the unnamed namespace so the C entry
 // that takes it keeps external linkage
 struct RouteArgs {
-  int scheme;
-  int n_pad;
+  int scheme;           // PKG, DC, WC or FISH (SG/FG routes are fixed)
   int m;
   int w1;
   int width;
-  const int* rows;      // (n_pad, width) candidates; null for SG
+  const int* rows;      // (n_pad, width) candidates
   const int* keys;      // (n_pad,)
-  const double* t;      // (n_pad,) arrival time relative to the feed base
-  double* busy;         // (w1,) in/out, relative to the feed base
-  const double* caps;   // (w1,) seconds per tuple
   int* counts;          // (w1,) in/out, rebased
   int* workers;         // (n_pad,) out
-  double* fin;          // (n_pad,) out, relative to the feed base
-  const int* act;       // SG: live workers padded to w1
-  int a_live;
-  int rr;
   int kcap1;
   const float* trk;     // DC/WC/FISH: tracker after this segment's fold
   const float* snap;    // FISH: (ne, kcap1) tracker at each epoch's end
@@ -94,8 +98,21 @@ namespace {
 
 constexpr int kThreads = 256;        // parallel kernels
 constexpr int kFoldThreads = 256;    // tracker_fold block (fixed tree order)
-constexpr int kRouteThreads = 256;   // route_fifo: the one block
+constexpr int kRouteThreads = 256;   // route_scan: the one block
+constexpr int kTileInts = 8192;      // route_scan: ints per staged tile
+constexpr int kTileMax = 1024;       // route_scan: tuples per staged tile
+constexpr int kLaneCands = 4;        // route_scan: candidates a lane keeps
+                                     // in registers (128 per warp); the
+                                     // select tree below is written for 4
+constexpr int kFifoWarps = 4;        // fifo_workers: workers per block
+constexpr int kFifoUnroll = 4;       // fifo_workers: 32-tuple strides per load
 constexpr int kBigI32 = 1 << 30;     // masked candidate wait (int schemes)
+
+// route_scan's tuples per staged tile at a candidate width
+__host__ __device__ inline int route_tile(int width) {
+  const int per = kTileInts / (width > 1 ? width : 1);
+  return per < 1 ? 1 : (per > kTileMax ? kTileMax : per);
+}
 
 enum Scheme { SG = 0, FG = 1, PKG = 2, DC = 3, WC = 4, FISH = 5 };
 
@@ -189,52 +206,143 @@ __global__ void tracker_fold_kernel(float* __restrict__ trk, int kcap1,
 }
 
 // ---------------------------------------------------------------------------
-// route_fifo: one block; a parallel prologue, then the sequential scan
+// route_scan: one block; a parallel prologue, then the routing chain on
+// warp 0 while the other warps stage the next tile of candidates
 // ---------------------------------------------------------------------------
 
-
-// (value, index) argmin with ties to the lower index, like jnp.argmin
-template <typename T>
-__device__ __forceinline__ void argmin_merge(T& best, int& bj, T v, int j) {
+// (key, index, candidate) argmin with ties to the lower index, like
+// jnp.argmin
+__device__ __forceinline__ void argmin_merge(unsigned& best, int& bj, int& bc,
+                                             unsigned v, int j, int c) {
   if (v < best || (v == best && j < bj)) {
     best = v;
     bj = j;
+    bc = c;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ int warp_argmin(T best, int bj) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int oj = __shfl_down_sync(0xffffffffu, bj, off);
-    argmin_merge(best, bj, ob, oj);
-  }
-  return __shfl_sync(0xffffffffu, bj, 0);
+// order-preserving unsigned keys, so a warp argmin is two redux.sync
+// minimum reductions instead of five shuffle rounds
+__device__ __forceinline__ unsigned int_key(int v) {
+  return (unsigned)v ^ 0x80000000u;
 }
 
+__device__ __forceinline__ unsigned float_key(float v) {
+  // -0 and +0 compare equal as floats: fold -0 onto +0 first
+  const unsigned b = __float_as_uint(__fadd_rn(v, 0.0f));
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// the lane-wise (key, index) minima → the warp's index, ties to the lower
+// index; every lane gets the result
+__device__ __forceinline__ int warp_argmin(unsigned best, int bj) {
+  const unsigned lo = __reduce_min_sync(0xffffffffu, best);
+  return (int)__reduce_min_sync(0xffffffffu,
+                                best == lo ? (unsigned)bj : 0xffffffffu);
+}
+
+// candidate x's wait as an argmin key: FISH's estimator (bl + asn) * ec,
+// the others' count; a masked candidate (-1) waits forever.  The load is
+// unconditional (slot 0 for a masked one) so the key is a select, not a
+// branch
+template <int SCH>
+__device__ __forceinline__ unsigned cand_key(int x, const float* s_wait,
+                                             const int* s_counts) {
+  const int xi = x >= 0 ? x : 0;
+  if (SCH == FISH) {
+    const float v = s_wait[xi];
+    return float_key(x >= 0 ? v : INFINITY);
+  }
+  const int v = s_counts[xi];
+  return int_key(x >= 0 ? v : kBigI32);
+}
+
+// a lane's four (key, position lane + 32k, candidate) folded by a select
+// tree: the lower position wins ties, as argmin_merge in position order
+__device__ __forceinline__ void fold4(const unsigned (&key)[kLaneCands],
+                                      const int (&c)[kLaneCands], int lane,
+                                      unsigned& best, int& bj, int& bc) {
+  static_assert(kLaneCands == 4, "the tree folds four candidates");
+  const bool s1 = key[1] < key[0];
+  const bool s3 = key[3] < key[2];
+  const unsigned k01 = s1 ? key[1] : key[0];
+  const unsigned k23 = s3 ? key[3] : key[2];
+  const bool hi = k23 < k01;
+  best = hi ? k23 : k01;
+  bj = lane + 32 * (hi ? (s3 ? 3 : 2) : (s1 ? 1 : 0));
+  bc = hi ? (s3 ? c[3] : c[2]) : (s1 ? c[1] : c[0]);
+}
+
+// a tuple's candidates for this lane, j = lane + 32k < min(d, width), and
+// r[1] for lane 0's light path; entries past min(d, width) are not read
+__device__ __forceinline__ void load_cands(const int* r, int d, int width,
+                                           int lane, int (&c)[kLaneCands],
+                                           int& c1) {
+  const int dd = min(d, width);
+#pragma unroll
+  for (int k = 0; k < kLaneCands; ++k) {
+    const int j = lane + 32 * k;
+    c[k] = j < dd ? r[j] : -1;
+  }
+  c1 = dd >= 2 ? r[1] : -1;
+}
+
+// tile t's candidate rows and d values → shared buffer buf, by cp.async
+// (rows of consecutive tuples are contiguous in global and shared memory)
+__device__ __forceinline__ void stage_tile(const RouteArgs& a, int t, int buf,
+                                           int* s_rows, int* s_d, int ptid,
+                                           int nprod) {
+  const int tile = route_tile(a.width);
+  const int i0 = t * tile;
+  const int tn = min(tile, a.m - i0);
+  const int total = tn * a.width;
+  int* dst = s_rows + (long long)buf * tile * a.width;
+  const int* src = a.rows + (long long)i0 * a.width;
+  const bool vec = (a.width % 4 == 0) &&
+                   (reinterpret_cast<unsigned long long>(a.rows) % 16 == 0);
+  if (vec) {
+    for (int q = ptid; q < total / 4; q += nprod) {
+      __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
+    }
+  } else {
+    for (int q = ptid; q < total; q += nprod) {
+      __pipeline_memcpy_async(dst + q, src + q, 4);
+    }
+  }
+  for (int q = ptid; q < tn; q += nprod) {
+    __pipeline_memcpy_async(s_d + buf * tile + q, a.dbuf + i0 + q, 4);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+template <int SCH>
 __global__ void __launch_bounds__(kRouteThreads)
-route_fifo_kernel(RouteArgs a) {
-  extern __shared__ unsigned char smem[];
+route_scan_kernel(RouteArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int w1 = a.w1;
-  double* s_busy = reinterpret_cast<double*>(smem);
-  double* s_caps = s_busy + w1;
-  int* s_counts = reinterpret_cast<int*>(s_caps + w1);
-  float* s_bl = reinterpret_cast<float*>(s_counts + w1);
+  const int tile = route_tile(a.width);
+  // the staged tiles first (16-byte aligned for the vector copies)
+  int* s_rows = reinterpret_cast<int*>(smem);    // 2 x tile x width
+  int* s_d = s_rows + 2 * tile * a.width;        // 2 x tile
+  int* s_counts = s_d + 2 * tile;
+  int* s_act = s_counts + w1;                    // WC: live lanes
+  float* s_bl = reinterpret_cast<float*>(s_act + w1);
   float* s_asn = s_bl + w1;
   float* s_ec = s_asn + w1;
-  float* s_tot = s_ec + w1;         // per-epoch tracker total
+  float* s_wait = s_ec + w1;        // FISH: (bl + asn) * ec per worker
+  float* s_tot = s_wait + w1;       // per-epoch tracker total
   float* s_ftop = s_tot + a.ne;     // per-epoch max / total
   __shared__ float red_sum[kRouteThreads];
   __shared__ float red_max[kRouteThreads];
 
   const int tid = threadIdx.x;
-  const int sch = a.scheme;
-  const bool tracked = sch == DC || sch == WC || sch == FISH;
+  constexpr int sch = SCH;
+  constexpr bool tracked = sch == DC || sch == WC || sch == FISH;
 
   for (int w = tid; w < w1; w += kRouteThreads) {
     s_counts[w] = a.counts[w];
-    s_busy[w] = a.busy[w];
-    s_caps[w] = a.caps[w];
+    s_act[w] = (sch == WC) ? (int)a.act_mask[w] : 0;
     if (sch == FISH) {
       // Alg. 3 Eq. 1 estimator tick, once at segment start when due
       float bl = a.ebl[w];
@@ -248,6 +356,7 @@ route_fifo_kernel(RouteArgs a) {
       s_bl[w] = bl;
       s_asn[w] = asn;
       s_ec[w] = ec;
+      s_wait[w] = (bl + asn) * ec;
     }
   }
 
@@ -282,9 +391,9 @@ route_fifo_kernel(RouteArgs a) {
   }
   __syncthreads();
 
-  // parallel prologue: fixed routes (SG/FG) and per-tuple candidate counts,
-  // epoch by epoch — each tuple reads the tracker as of its epoch's end,
-  // and FISH's CHK memory M_k as of the epoch's start
+  // parallel prologue: per-tuple candidate counts, epoch by epoch — each
+  // tuple reads the tracker as of its epoch's end, and FISH's CHK memory
+  // M_k as of the epoch's start
   const int n_ep = tracked ? a.ne : 1;
   for (int j = 0; j < n_ep; ++j) {
     int lo = 0, hi = a.m;
@@ -298,10 +407,8 @@ route_fifo_kernel(RouteArgs a) {
     const float* tj = (a.snap && tracked) ? a.snap + (long long)j * a.kcap1
                                           : a.trk;
     for (int i = lo + tid; i < hi; i += kRouteThreads) {
-      if (sch == SG) {
-        a.workers[i] = a.act[(a.rr + i) % a.a_live];
-      } else if (sch == FG) {
-        a.workers[i] = a.rows[(long long)i * a.width];
+      if (sch == PKG) {
+        a.dbuf[i] = 2;
       } else if (sch == DC || sch == WC) {
         const float f = total > 0.0f ? tj[a.keys[i]] / total : 0.0f;
         const bool hot = f > a.theta;
@@ -309,7 +416,7 @@ route_fifo_kernel(RouteArgs a) {
         dh = fminf(fmaxf(dh, 2.0f), a.wnum);
         // WC hot keys take the argmin over the whole live set (d = -1)
         a.dbuf[i] = hot ? (sch == WC ? -1 : (int)dh) : 2;
-      } else if (sch == FISH) {
+      } else {  // FISH
         const float f = total > 0.0f ? tj[a.keys[i]] / total : 0.0f;
         const bool hot = (f > a.theta) && (f > 0.0f) && (f_top > 0.0f);
         const float ratio = fmaxf(f_top / fmaxf(f, 1e-30f), 1.0f);
@@ -334,71 +441,222 @@ route_fifo_kernel(RouteArgs a) {
     }
   }
 
-  // the sequential scan: warp 0, tuple by tuple
-  if (tid < 32) {
-    const int lane = tid;
-    for (int i = 0; i < a.m; ++i) {
-      int w;
-      if (sch == SG || sch == FG) {
-        w = a.workers[i];
-      } else {
-        const int* r = a.rows + (long long)i * a.width;
+  // the chain: warp 0 walks the tuples with every operand in shared
+  // memory; warps 1.. stage tile t+1 while warp 0 walks tile t
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ptid = tid - 32;
+  const int nprod = kRouteThreads - 32;
+  const int ntiles = (a.m + tile - 1) / tile;
+  if (warp > 0 && ntiles > 0) stage_tile(a, 0, 0, s_rows, s_d, ptid, nprod);
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (warp == 0) {
+      const int i0 = t * tile;
+      const int tn = min(tile, a.m - i0);
+      const int* rb = s_rows + (long long)buf * tile * a.width;
+      const int* db = s_d + buf * tile;
+      // this tuple's d and candidates in registers; the next tuple's are
+      // read while this one walks the chain.  Every lane computes every
+      // pick from broadcast shared loads (no divergence); lane 0 stores
+      // it, and a __syncwarp publishes the stores to the next tuple
+      int d = db[0];
+      int c[kLaneCands];
+      int c1;
+      load_cands(rb, d, a.width, lane, c, c1);
+      for (int ti = 0; ti < tn; ++ti) {
+        const int* r = rb + (long long)ti * a.width;
+        int nd = 0;
+        int nc[kLaneCands] = {};
+        int nc1 = -1;
+        if (ti + 1 < tn) {
+          nd = db[ti + 1];
+          load_cands(r + a.width, nd, a.width, lane, nc, nc1);
+        }
+        const int dd = min(d, a.width);
+        int w;
         if (sch == PKG) {
-          const int a0 = r[0];
-          const int a1 = r[1] >= 0 ? r[1] : r[0];
-          w = s_counts[a0] <= s_counts[a1] ? a0 : a1;
-        } else if (sch == FISH) {
-          const int d = min(a.dbuf[i], a.width);
-          float best = INFINITY;
-          int bj = INT_MAX;
-          for (int j = lane; j < d; j += 32) {
-            const int c = r[j];
-            const float v =
-                c >= 0 ? (s_bl[c] + s_asn[c]) * s_ec[c] : INFINITY;
-            argmin_merge(best, bj, v, j);
-          }
-          w = r[warp_argmin(best, bj)];
-        } else {
-          const int d = a.dbuf[i];
-          int best = INT_MAX;
-          int bj = INT_MAX;
-          if (d < 0) {  // WC hot key: least-loaded live worker, ties to id
-            for (int c = lane; c < w1; c += 32) {
-              argmin_merge(best, bj, a.act_mask[c] ? s_counts[c] : kBigI32,
-                           c);
-            }
-            w = warp_argmin(best, bj);
+          const int a1 = c1 >= 0 ? c1 : c[0];
+          w = s_counts[c[0]] <= s_counts[a1] ? c[0] : a1;
+        } else if (d >= 0 && dd <= 2) {
+          // light tuple: the two candidates, no shuffles
+          const int x1 = dd == 2 ? c1 : -1;
+          if (sch == FISH) {
+            const float v0 = c[0] >= 0 ? s_wait[c[0]] : INFINITY;
+            const float v1 = x1 >= 0 ? s_wait[x1] : INFINITY;
+            w = (dd == 2 && v1 < v0) ? x1 : c[0];
           } else {
-            const int dd = min(d, a.width);
-            for (int j = lane; j < dd; j += 32) {
-              const int c = r[j];
-              argmin_merge(best, bj, c >= 0 ? s_counts[c] : kBigI32, j);
-            }
-            w = r[warp_argmin(best, bj)];
+            const int v0 = c[0] >= 0 ? s_counts[c[0]] : kBigI32;
+            const int v1 = x1 >= 0 ? s_counts[x1] : kBigI32;
+            w = (dd == 2 && v1 < v0) ? x1 : c[0];
+          }
+        } else if (sch == WC && d < 0) {
+          // WC hot key: least-loaded live worker, ties to id
+          unsigned key[kLaneCands];
+          int ids[kLaneCands];
+#pragma unroll
+          for (int k = 0; k < kLaneCands; ++k) {
+            const int x = lane + 32 * k;
+            const int xi = x < w1 ? x : 0;
+            const unsigned kk = int_key(s_act[xi] ? s_counts[xi] : kBigI32);
+            key[k] = x < w1 ? kk : 0xffffffffu;
+            ids[k] = x;
+          }
+          unsigned best;
+          int bj, bc;
+          fold4(key, ids, lane, best, bj, bc);
+          for (int x = lane + 32 * kLaneCands; x < w1; x += 32) {
+            argmin_merge(best, bj, bc,
+                         int_key(s_act[x] ? s_counts[x] : kBigI32), x, x);
+          }
+          w = warp_argmin(best, bj);
+        } else {
+          // wide argmin, ties to the lower candidate position.  A lane's
+          // four candidates load together (clamped index, no branch), then
+          // fold in a select tree that keeps the lower position on ties
+          unsigned key[kLaneCands];
+#pragma unroll
+          for (int k = 0; k < kLaneCands; ++k) {
+            const unsigned kk = cand_key<sch>(c[k], s_wait, s_counts);
+            key[k] = lane + 32 * k < dd ? kk : 0xffffffffu;
+          }
+          unsigned best;
+          int bj, bc;
+          fold4(key, c, lane, best, bj, bc);
+          for (int j = lane + 32 * kLaneCands; j < dd; j += 32) {
+            const int x = r[j];
+            argmin_merge(best, bj, bc, cand_key<sch>(x, s_wait, s_counts), j,
+                         x);
+          }
+          const int jw = warp_argmin(best, bj);
+          w = __shfl_sync(0xffffffffu, bc, jw & 31);
+        }
+        // commit: every lane reads, lane 0 writes
+        const int cnt = s_counts[w] + 1;
+        if (sch == FISH) {
+          const float asn = s_asn[w] + 1.0f;
+          const float wait = (s_bl[w] + asn) * s_ec[w];
+          if (lane == 0) {
+            s_asn[w] = asn;
+            s_wait[w] = wait;
           }
         }
+        if (lane == 0) {
+          s_counts[w] = cnt;
+          a.workers[i0 + ti] = w;
+        }
+        __syncwarp();
+        d = nd;
+#pragma unroll
+        for (int k = 0; k < kLaneCands; ++k) c[k] = nc[k];
+        c1 = nc1;
       }
-      if (lane == 0) {
-        s_counts[w] += 1;
-        if (sch == FISH) s_asn[w] = s_asn[w] + 1.0f;
-        // FIFO, in _fifo_scan's operation order: max(busy, t) + cap
-        const double f = fmax(s_busy[w], a.t[i]) + s_caps[w];
-        s_busy[w] = f;
-        a.fin[i] = f;
-        a.workers[i] = w;
-      }
-      __syncwarp();
+    } else if (t + 1 < ntiles) {
+      stage_tile(a, t + 1, buf ^ 1, s_rows, s_d, ptid, nprod);
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   for (int w = tid; w < w1; w += kRouteThreads) {
     a.counts[w] = s_counts[w];
-    a.busy[w] = s_busy[w];
     if (sch == FISH) {
       a.ebl[w] = s_bl[w];
       a.eas[w] = s_asn[w];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fifo_workers: one warp per worker lane walks that worker's tuples in
+// arrival order — f = max(busy, t) + cap, _fifo_scan's operation order
+// ---------------------------------------------------------------------------
+
+// one 128-tuple stride's routes (SG/FG: the fixed route) and arrivals;
+// -1 past m (padding lanes are never read)
+__device__ __forceinline__ void fifo_load(
+    int scheme, int i0, int m, int lane, int width, const int* rows,
+    const int* act, int a_live, int rr, const int* workers, const double* t,
+    int (&wk)[kFifoUnroll], double (&tk)[kFifoUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kFifoUnroll; ++u) {
+    const int i = i0 + u * 32 + lane;
+    int x = -1;
+    double ti = 0.0;
+    if (i < m) {
+      if (scheme == SG) {
+        x = act[(rr + i) % a_live];
+      } else if (scheme == FG) {
+        x = rows[(long long)i * width];
+      } else {
+        x = workers[i];
+      }
+      ti = t[i];
+    }
+    wk[u] = x;
+    tk[u] = ti;
+  }
+}
+
+__global__ void __launch_bounds__(kFifoWarps * 32)
+fifo_workers_kernel(int scheme, int m, int w1, int width,
+                    const int* __restrict__ rows, const int* __restrict__ act,
+                    int a_live, int rr, int* __restrict__ workers,
+                    const double* __restrict__ t, double* __restrict__ busy,
+                    const double* __restrict__ caps, int* __restrict__ counts,
+                    double* __restrict__ fin) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kFifoWarps + (threadIdx.x >> 5);
+  if (w >= w1) return;  // the whole warp
+  const bool fixed = scheme == SG || scheme == FG;
+  double b = busy[w];
+  const double cap = caps[w];
+  int n_w = 0;
+  // stride i0's routes and arrivals are loaded while stride i0 - 128 is
+  // walked
+  int wk[kFifoUnroll];
+  double tk[kFifoUnroll];
+  fifo_load(scheme, 0, m, lane, width, rows, act, a_live, rr, workers, t, wk,
+            tk);
+  for (int i0 = 0; i0 < m; i0 += 32 * kFifoUnroll) {
+    int nwk[kFifoUnroll];
+    double ntk[kFifoUnroll];
+    fifo_load(scheme, i0 + 32 * kFifoUnroll, m, lane, width, rows, act,
+              a_live, rr, workers, t, nwk, ntk);
+#pragma unroll
+    for (int u = 0; u < kFifoUnroll; ++u) {
+      const int i = i0 + u * 32 + lane;
+      const bool mine = wk[u] == w;
+      if (mine && fixed) workers[i] = w;
+      unsigned bal = __ballot_sync(0xffffffffu, mine);
+      n_w += __popc(bal);
+      if (bal == 0u) continue;  // uniform across the warp
+      // walk the matches in lane order; the next match's arrival is
+      // shuffled in before this one's max + add, off the busy chain
+      int src = __ffs(bal) - 1;
+      double tt = __shfl_sync(0xffffffffu, tk[u], src);
+      double mine_f = 0.0;
+      while (true) {
+        bal &= bal - 1;
+        const int nsrc = bal ? __ffs(bal) - 1 : src;
+        const double ntt = __shfl_sync(0xffffffffu, tk[u], nsrc);
+        b = fmax(b, tt) + cap;
+        mine_f = lane == src ? b : mine_f;
+        if (!bal) break;
+        src = nsrc;
+        tt = ntt;
+      }
+      if (mine) fin[i] = mine_f;
+    }
+#pragma unroll
+    for (int u = 0; u < kFifoUnroll; ++u) {
+      wk[u] = nwk[u];
+      tk[u] = ntk[u];
+    }
+  }
+  if (lane == 0) {
+    busy[w] = b;
+    if (fixed) counts[w] += n_w;  // routed schemes counted in route_scan
   }
 }
 
@@ -468,11 +726,41 @@ int tracker_fold(float* trk, int kcap1, int* cnt, int ne, float alpha,
   return (int)cudaGetLastError();
 }
 
-int route_fifo(const RouteArgs* args, cudaStream_t stream) {
-  const size_t smem = sizeof(double) * 2 * (size_t)args->w1 +
-                      sizeof(float) * (4 * (size_t)args->w1 +
-                                       2 * (size_t)args->ne);
-  route_fifo_kernel<<<1, kRouteThreads, smem, stream>>>(*args);
+int route_scan(const RouteArgs* args, cudaStream_t stream) {
+  const RouteArgs& a = *args;
+  const int tile = route_tile(a.width);
+  const size_t smem =
+      sizeof(int) * (2 * (size_t)tile * a.width + 2 * (size_t)tile +
+                     2 * (size_t)a.w1) +
+      sizeof(float) * (4 * (size_t)a.w1 + 2 * (size_t)a.ne);
+  // one instantiation per routed scheme: no scheme test on the chain
+  void (*kernel)(RouteArgs) =
+      a.scheme == PKG  ? route_scan_kernel<PKG>
+      : a.scheme == DC ? route_scan_kernel<DC>
+      : a.scheme == WC ? route_scan_kernel<WC>
+                       : route_scan_kernel<FISH>;
+  if (a.scheme != PKG && a.scheme != DC && a.scheme != WC &&
+      a.scheme != FISH) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // above 48 KB a block's dynamic shared memory must be asked for; a
+  // refused size surfaces here or as the launch's error
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<1, kRouteThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int fifo_workers(int scheme, int m, int w1, int width, const int* rows,
+                 const int* act, int a_live, int rr, int* workers,
+                 const double* t, double* busy, const double* caps,
+                 int* counts, double* fin, cudaStream_t stream) {
+  if (w1 > 0) {
+    fifo_workers_kernel<<<blocks_for(w1, kFifoWarps), kFifoWarps * 32, 0,
+                          stream>>>(scheme, m, w1, width, rows, act, a_live,
+                                    rr, workers, t, busy, caps, counts, fin);
+  }
   return (int)cudaGetLastError();
 }
 

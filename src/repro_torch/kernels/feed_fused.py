@@ -20,7 +20,7 @@ c. **keyed-state update** — per-(key, worker) pane aggregate tables
    :class:`~repro_torch.state.window.KeyedStateManager` only at pane
    boundaries and membership events.
 
-PyTorch has no sequential scan, so the segment is at most five kernels
+PyTorch has no sequential scan, so the segment is at most six kernels
 (``csrc/feed_fused.cu`` — see its header for what bounds each and how the
 float sums stay deterministic):
 
@@ -33,14 +33,17 @@ kernel          shape        computes
 ``tracker_count`` tuple      int32 counts per (epoch ordinal, key)
 ``tracker_fold`` key         decayed dense tracker, its per-epoch
                              snapshots, per-(epoch, block) sum/max
-``route_fifo``  one block    the sequential routing scan and the FIFO
+``route_scan``  one block    PKG/DC/WC/FISH: the sequential routing chain
+``fifo_workers`` warp/worker the per-worker FIFO (SG/FG gather their
+                             fixed routes here)
 ``pane_update`` tuple        pane (value, count), count plane, replicas,
                              ``pane_last``
 =============== ============ ==============================================
 
-SG runs ``route_fifo`` + ``pane_update``; FG/PKG add ``ring_rows``;
-DC/WC/FISH run all five.  Each wrapper launches its kernel for a CUDA
-tensor (or raises) and takes its plain version only for a CPU tensor;
+SG runs ``fifo_workers`` + ``pane_update``; FG adds ``ring_rows``; PKG
+adds ``ring_rows`` and ``route_scan``; DC/WC/FISH run all six.  Each
+wrapper launches its kernel for a CUDA tensor (or raises) and takes its
+plain version only for a CPU tensor;
 ``LAUNCHES[name]`` counts kernel launches.  ``EdgeResult.dispatches``
 keeps the reference's meaning: one per segment.
 
@@ -74,13 +77,14 @@ from . import _build
 
 __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
            "MIN_BUCKET", "KEY_CAP_LIMIT", "ring_rows", "ring_rows_plain",
-           "tracker_update", "tracker_update_plain", "route_fifo",
-           "route_fifo_plain", "route_prologue", "pane_update",
+           "tracker_update", "tracker_update_plain", "route_scan",
+           "route_scan_plain", "fifo_workers", "fifo_workers_plain",
+           "route_prologue", "pane_update",
            "pane_update_plain", "SCHEME_IDS"]
 
 #: kernel launches on CUDA tensors, counted where each wrapper launches
 LAUNCHES = {"ring_rows": 0, "tracker_count": 0, "tracker_fold": 0,
-            "route_fifo": 0, "pane_update": 0}
+            "route_scan": 0, "fifo_workers": 0, "pane_update": 0}
 
 #: Shared disabled bundle for runners no session bound telemetry to.
 _NULL_TELEMETRY = Telemetry(enabled=False)
@@ -92,8 +96,10 @@ _RING_SCHEMES = ("fg", "pkg", "dc", "wc", "fish")
 SCHEME_IDS = {s: i for i, s in enumerate(_SCHEMES)}  # csrc enum Scheme
 _BIG_I32 = 2 ** 30  # masked candidate wait (int schemes)
 _FOLD_THREADS = 256   # csrc kFoldThreads: tracker_fold's tree width
-_ROUTE_THREADS = 256  # csrc kRouteThreads: route_fifo's block
-_SMEM_LIMIT = 48 * 1024
+_ROUTE_THREADS = 256  # csrc kRouteThreads: route_scan's block
+_TILE_INTS = 8192     # csrc kTileInts: route_scan's staged tile
+_TILE_MAX = 1024      # csrc kTileMax
+_SMEM_LIMIT = 232_448  # a Hopper block's dynamic shared memory (227 KB)
 
 
 def _bucket(n: int) -> int:
@@ -204,24 +210,23 @@ _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 class _RouteArgs(ctypes.Structure):
     """Mirror of ``struct RouteArgs`` in csrc/feed_fused.cu."""
 
-    _fields_ = [("scheme", _I), ("n_pad", _I), ("m", _I), ("w1", _I),
-                ("width", _I), ("rows", _P), ("keys", _P), ("t", _P),
-                ("busy", _P), ("caps", _P), ("counts", _P), ("workers", _P),
-                ("fin", _P), ("act", _P), ("a_live", _I), ("rr", _I),
+    _fields_ = [("scheme", _I), ("m", _I), ("w1", _I), ("width", _I),
+                ("rows", _P), ("keys", _P), ("counts", _P), ("workers", _P),
                 ("kcap1", _I), ("trk", _P), ("snap", _P), ("psum", _P),
                 ("pmax", _P), ("n_part", _I), ("ne", _I), ("g0", _LL),
-                ("epoch", _I),
-                ("theta", _F), ("wnum", _F), ("act_mask", _P), ("m_k", _P),
-                ("d_min", _I), ("ebl", _P), ("eas", _P), ("ecaps", _P),
-                ("do_tick", _I), ("elapsed", _F), ("dbuf", _P),
-                ("mbuf", _P)]
+                ("epoch", _I), ("theta", _F), ("wnum", _F),
+                ("act_mask", _P), ("m_k", _P), ("d_min", _I), ("ebl", _P),
+                ("eas", _P), ("ecaps", _P), ("do_tick", _I),
+                ("elapsed", _F), ("dbuf", _P), ("mbuf", _P)]
 
 
 _SIGS = {
     "ring_rows": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P),
     "tracker_count": (_P, _I, _I, _LL, _I, _P, _P),
     "tracker_fold": (_P, _I, _P, _I, _F, _I, _P, _P, _P, _P),
-    "route_fifo": (ctypes.POINTER(_RouteArgs), _P),
+    "route_scan": (ctypes.POINTER(_RouteArgs), _P),
+    "fifo_workers": (_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P),
     "pane_update": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
@@ -359,7 +364,7 @@ def tracker_update(trk: torch.Tensor, cnt: torch.Tensor, keys: torch.Tensor,
     int32 scratch table, left zeroed; ``snap`` (ne, kcap1), when given,
     receives the tracker at the end of each ordinal.  Returns the
     per-(ordinal, block) partial sums and maxima, (ne, nb) each, that
-    ``route_fifo`` reduces to each epoch's total and max.  Two kernels:
+    ``route_scan`` reduces to each epoch's total and max.  Two kernels:
     ``tracker_count`` then ``tracker_fold``."""
     if ne > cnt.shape[0]:
         raise ValueError("tracker_update: count table has too few epochs")
@@ -389,11 +394,11 @@ def tracker_update(trk: torch.Tensor, cnt: torch.Tensor, keys: torch.Tensor,
     return psum, pmax
 
 
-# -- route_fifo -----------------------------------------------------------------
+# -- route_scan -----------------------------------------------------------------
 
 
 def _reduce_partials(psum: np.ndarray, pmax: np.ndarray):
-    """route_fifo's prologue for one epoch: partials summed per thread in
+    """route_scan's prologue for one epoch: partials summed per thread in
     a fixed stride order, then the block tree; max is order-free."""
     n = psum.shape[0]
     rows = -(-n // _ROUTE_THREADS)
@@ -420,13 +425,13 @@ def _epoch_bounds(m: int, g0: int, epoch: int, ne: int):
 
 def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
                    pmax, g0, epoch, theta, wnum, m_k, d_min):
-    """route_fifo's parallel prologue, on the host: the fixed routes of
-    SG/FG, and for DC/WC/FISH each tuple's candidate count ``d`` (WC hot
-    keys: -1, the whole live set), read epoch by epoch against the tracker
-    at the epoch's end — FISH also against the CHK memory ``m_k`` at the
-    epoch's start, which it then raises (in place).  Returns (routes, d)."""
+    """route_scan's parallel prologue, on the host, and the fixed routes
+    of SG/FG that fifo_workers gathers: for DC/WC/FISH each tuple's
+    candidate count ``d`` (WC hot keys: -1, the whole live set), read
+    epoch by epoch against the tracker at the epoch's end — FISH also
+    against the CHK memory ``m_k`` at the epoch's start, which it then
+    raises (in place).  Returns (routes, d)."""
     f32 = np.float32
-    k = keys[:m].cpu().numpy().astype(np.int64)
     theta32, wnum32 = f32(theta), f32(wnum)
     if scheme == "sg":
         wk = act.cpu().numpy()[(rr + np.arange(m)) % a_live].astype(np.int64)
@@ -435,6 +440,7 @@ def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
         return rows[:m, 0].cpu().numpy().astype(np.int64), None
     if scheme == "pkg":
         return None, None
+    k = keys[:m].cpu().numpy().astype(np.int64)
     ps, pm = psum.cpu().numpy(), pmax.cpu().numpy()
     ne = ps.shape[0]
     snaps = None if snap is None else snap.cpu().numpy()
@@ -469,22 +475,16 @@ def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
     return None, d
 
 
-def route_fifo_plain(scheme, m, keys, t, busy, caps, counts, rows=None,
-                     act=None, a_live=0, rr=0, trk=None, snap=None,
+def route_scan_plain(scheme, m, keys, counts, rows, trk=None, snap=None,
                      psum=None, pmax=None, g0=0, epoch=0, theta=0.0,
                      wnum=0.0, act_mask=None, m_k=None, d_min=2, ebl=None,
                      eas=None, ecaps=None, do_tick=0, elapsed=0.0):
     f32 = np.float32
     n_pad = keys.shape[0]
-    w1 = busy.shape[0]
-    wk, d = route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap,
-                           psum, pmax, g0, epoch, theta, wnum, m_k, d_min)
-    if wk is None:
-        wk = np.empty(m, dtype=np.int64)
-    bz = busy.cpu().numpy().astype(np.float64)
-    cp = caps.cpu().numpy().astype(np.float64)
-    tt = t.cpu().numpy().astype(np.float64)
-    rw = None if rows is None else rows.cpu().numpy()
+    w1 = counts.shape[0]
+    _, d = route_prologue(scheme, m, keys, rows, None, 0, 0, trk, snap,
+                          psum, pmax, g0, epoch, theta, wnum, m_k, d_min)
+    rw = rows.cpu().numpy()
     am = None if act_mask is None else act_mask.cpu().numpy()
     if scheme == "fish":
         # Alg. 3 Eq. 1 estimator tick, once at segment start when due
@@ -497,95 +497,85 @@ def route_fifo_plain(scheme, m, keys, t, busy, caps, counts, rows=None,
             bl = np.where(work > el, (work - el) / ec, f32(0.0)).astype(
                 np.float32)
             asn = np.zeros_like(asn)
-    # the sequential scan
-    fin = np.zeros(n_pad, dtype=np.float64)
+    # the sequential chain
+    wk = np.empty(m, dtype=np.int64)
     cnt_l = counts.cpu().numpy().astype(np.int64).tolist()
     for i in range(m):
-        if scheme in ("sg", "fg"):
-            w = int(wk[i])
+        r = rw[i]
+        if scheme == "pkg":
+            a0 = int(r[0])
+            a1 = int(r[1]) if r[1] >= 0 else a0
+            w = a0 if cnt_l[a0] <= cnt_l[a1] else a1
+        elif scheme == "fish":
+            c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
+            cs = np.maximum(c, 0)
+            wt = np.where(c >= 0, (bl[cs] + asn[cs]) * ec[cs],
+                          np.float32(np.inf))
+            w = int(c[int(np.argmin(wt))])
+        elif d[i] < 0:  # WC hot key: least-loaded live worker
+            full = np.where(am, np.asarray(cnt_l), _BIG_I32)
+            w = int(np.argmin(full))
         else:
-            r = rw[i]
-            if scheme == "pkg":
-                a0 = int(r[0])
-                a1 = int(r[1]) if r[1] >= 0 else a0
-                w = a0 if cnt_l[a0] <= cnt_l[a1] else a1
-            elif scheme == "fish":
-                c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
-                cs = np.maximum(c, 0)
-                wt = np.where(c >= 0, (bl[cs] + asn[cs]) * ec[cs],
-                              np.float32(np.inf))
-                w = int(c[int(np.argmin(wt))])
-            elif d[i] < 0:  # WC hot key: least-loaded live worker
-                full = np.where(am, np.asarray(cnt_l), _BIG_I32)
-                w = int(np.argmin(full))
-            else:
-                c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
-                wt = [cnt_l[x] if x >= 0 else _BIG_I32 for x in c.tolist()]
-                w = int(c[wt.index(min(wt))])
+            c = r[:min(int(d[i]), r.shape[0])].astype(np.int64)
+            wt = [cnt_l[x] if x >= 0 else _BIG_I32 for x in c.tolist()]
+            w = int(c[wt.index(min(wt))])
         cnt_l[w] += 1
         if scheme == "fish":
             asn[w] = asn[w] + f32(1.0)
-        # FIFO, in _fifo_scan's operation order: max(busy, t) + cap
-        fv = max(bz[w], tt[i]) + cp[w]
-        bz[w] = fv
-        fin[i] = fv
         wk[i] = w
     workers = torch.full((n_pad,), w1 - 1, dtype=torch.int32)
     workers[:m] = torch.from_numpy(wk.astype(np.int32))
-    busy.copy_(torch.from_numpy(bz))
     counts.copy_(torch.from_numpy(np.asarray(cnt_l, dtype=np.int32)))
     if scheme == "fish":
         ebl.copy_(torch.from_numpy(bl))
         eas.copy_(torch.from_numpy(asn))
-    return workers.to(keys.device), torch.from_numpy(fin).to(keys.device)
+    return workers.to(keys.device)
 
 
-def route_fifo(scheme: str, m: int, *, keys, t, busy, caps, counts,
-               rows=None, act=None, a_live: int = 0, rr: int = 0,
-               trk=None, snap=None, psum=None, pmax=None, g0: int = 0,
-               epoch: int = 0, theta: float = 0.0, wnum: float = 0.0,
-               act_mask=None, m_k=None, d_min: int = 2, ebl=None, eas=None,
-               ecaps=None, do_tick: int = 0, elapsed: float = 0.0):
-    """Route tuples [0, m) of a segment and run their FIFO, in one block.
+def route_scan(scheme: str, m: int, *, keys, counts, rows, trk=None,
+               snap=None, psum=None, pmax=None, g0: int = 0, epoch: int = 0,
+               theta: float = 0.0, wnum: float = 0.0, act_mask=None,
+               m_k=None, d_min: int = 2, ebl=None, eas=None, ecaps=None,
+               do_tick: int = 0, elapsed: float = 0.0) -> torch.Tensor:
+    """Route tuples [0, m) of a PKG/DC/WC/FISH segment: the sequential
+    chain, in one block.
 
-    Returns ``(workers, fin)`` — (n_pad,) int32 worker per tuple and (n_pad,)
-    f64 finish time relative to the feed base (entries past m undefined on
-    the card).  Updates ``busy``/``counts`` (w1,) in place, and for FISH
-    ``m_k`` (kcap1,) and the estimator ``ebl``/``eas`` (w1,).  ``rows``
-    are the ``ring_rows`` candidates (all but SG); DC/WC/FISH read the
-    tracker from ``tracker_update`` — its per-epoch snapshots ``snap`` (or
-    ``trk`` itself with one epoch) and per-epoch partials — each tuple
-    against its own epoch's (``g0``, ``epoch``) state."""
-    if not _on_card(keys, "route_fifo"):
-        return route_fifo_plain(
-            scheme, m, keys, t, busy, caps, counts, rows, act, a_live, rr,
-            trk, snap, psum, pmax, g0, epoch, theta, wnum, act_mask, m_k,
-            d_min, ebl, eas, ecaps, do_tick, elapsed)
+    Returns ``workers`` — (n_pad,) int32, the worker of each tuple (entries
+    past m undefined on the card).  Updates ``counts`` (w1,) in place, and
+    for FISH ``m_k`` (kcap1,) and the estimator ``ebl``/``eas`` (w1,).
+    ``rows`` are the ``ring_rows`` candidates; DC/WC/FISH read the tracker
+    from ``tracker_update`` — its per-epoch snapshots ``snap`` (or ``trk``
+    itself with one epoch) and per-epoch partials — each tuple against its
+    own epoch's (``g0``, ``epoch``) state.  SG and FG have fixed routes:
+    :func:`fifo_workers` gathers them."""
+    if scheme not in ("pkg", "dc", "wc", "fish"):
+        raise ValueError(f"route_scan: {scheme!r} has fixed routes")
+    if not _on_card(keys, "route_scan"):
+        return route_scan_plain(
+            scheme, m, keys, counts, rows, trk, snap, psum, pmax, g0, epoch,
+            theta, wnum, act_mask, m_k, d_min, ebl, eas, ecaps, do_tick,
+            elapsed)
     n_pad = keys.shape[0]
-    w1 = busy.shape[0]
+    w1 = counts.shape[0]
+    width = rows.shape[1]
     ne = 0 if psum is None else psum.shape[0]
-    if 8 * 2 * w1 + 4 * (4 * w1 + 2 * ne) > _SMEM_LIMIT:
-        raise ValueError(f"route_fifo: {w1} worker lanes exceed the block's "
-                         "shared memory")
+    if _route_scan_smem(w1, ne, width) > _SMEM_LIMIT:
+        raise ValueError(f"route_scan: {w1} worker lanes at width {width} "
+                         "exceed the block's shared memory")
     dev = keys.device
-    _need("route_fifo", dev, torch.int32, keys=keys, counts=counts,
-          rows=rows, act=act, m_k=m_k)
-    _need("route_fifo", dev, torch.float64, t=t, busy=busy, caps=caps)
-    _need("route_fifo", dev, torch.float32, trk=trk, snap=snap, psum=psum,
+    _need("route_scan", dev, torch.int32, keys=keys, counts=counts,
+          rows=rows, m_k=m_k)
+    _need("route_scan", dev, torch.float32, trk=trk, snap=snap, psum=psum,
           pmax=pmax, ebl=ebl, eas=eas, ecaps=ecaps)
-    _need("route_fifo", dev, torch.bool, act_mask=act_mask)
+    _need("route_scan", dev, torch.bool, act_mask=act_mask)
     workers = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    fin = torch.empty(n_pad, dtype=torch.float64, device=dev)
     dbuf = torch.empty(n_pad, dtype=torch.int32, device=dev)
     mbuf = torch.empty(n_pad, dtype=torch.int32, device=dev)
     args = _RouteArgs(
-        scheme=SCHEME_IDS[scheme], n_pad=n_pad, m=m, w1=w1,
-        width=0 if rows is None else rows.shape[1], rows=_ptr(rows),
-        keys=_ptr(keys), t=_ptr(t), busy=_ptr(busy), caps=_ptr(caps),
-        counts=_ptr(counts), workers=_ptr(workers), fin=_ptr(fin),
-        act=_ptr(act), a_live=a_live, rr=rr,
-        kcap1=0 if trk is None else trk.shape[0], trk=_ptr(trk),
-        snap=_ptr(snap), psum=_ptr(psum), pmax=_ptr(pmax),
+        scheme=SCHEME_IDS[scheme], m=m, w1=w1, width=width,
+        rows=_ptr(rows), keys=_ptr(keys), counts=_ptr(counts),
+        workers=_ptr(workers), kcap1=0 if trk is None else trk.shape[0],
+        trk=_ptr(trk), snap=_ptr(snap), psum=_ptr(psum), pmax=_ptr(pmax),
         n_part=0 if psum is None else psum.shape[1], ne=ne, g0=g0,
         epoch=epoch,
         theta=float(np.float32(theta)), wnum=float(np.float32(wnum)),
@@ -593,9 +583,83 @@ def route_fifo(scheme: str, m: int, *, keys, t, busy, caps, counts,
         ebl=_ptr(ebl), eas=_ptr(eas), ecaps=_ptr(ecaps), do_tick=do_tick,
         elapsed=float(np.float32(elapsed)), dbuf=_ptr(dbuf),
         mbuf=_ptr(mbuf))
-    err = _lib().route_fifo(ctypes.byref(args), _build.stream_ptr(dev))
-    _build.check(err, "route_fifo")
-    LAUNCHES["route_fifo"] += 1
+    err = _lib().route_scan(ctypes.byref(args), _build.stream_ptr(dev))
+    _build.check(err, "route_scan")
+    LAUNCHES["route_scan"] += 1
+    return workers
+
+
+def _route_scan_smem(w1: int, ne: int, width: int) -> int:
+    """route_scan's dynamic shared memory (csrc ``route_scan``)."""
+    tile = max(1, min(_TILE_MAX, _TILE_INTS // max(width, 1)))
+    return 4 * (2 * tile * width + 2 * tile + 2 * w1) + 4 * (4 * w1 + 2 * ne)
+
+
+# -- fifo_workers ---------------------------------------------------------------
+
+
+def fifo_workers_plain(scheme, m, t, busy, caps, counts, workers=None,
+                       rows=None, act=None, a_live=0, rr=0):
+    n_pad = t.shape[0]
+    w1 = busy.shape[0]
+    fixed = scheme in ("sg", "fg")
+    if fixed:
+        wk, _ = route_prologue(scheme, m, None, rows, act, a_live, rr, None,
+                               None, None, None, 0, 0, 0.0, 0.0, None, 2)
+        workers = torch.full((n_pad,), w1 - 1, dtype=torch.int32)
+        workers[:m] = torch.from_numpy(wk.astype(np.int32))
+        workers = workers.to(t.device)
+        counts.add_(torch.bincount(workers[:m].long(), minlength=w1).to(
+            counts.dtype))
+    wl = workers[:m].cpu().tolist()
+    bz = busy.cpu().double().tolist()
+    cp = caps.cpu().double().tolist()
+    tt = t[:m].cpu().double().tolist()
+    fin = [0.0] * n_pad
+    for i in range(m):  # each worker's tuples in arrival order
+        w = wl[i]
+        fv = max(bz[w], tt[i]) + cp[w]  # _fifo_scan's order
+        bz[w] = fv
+        fin[i] = fv
+    busy.copy_(torch.tensor(bz, dtype=torch.float64))
+    return workers, torch.tensor(fin, dtype=torch.float64).to(t.device)
+
+
+def fifo_workers(scheme: str, m: int, *, t, busy, caps, counts, workers=None,
+                 rows=None, act=None, a_live: int = 0, rr: int = 0):
+    """The per-worker FIFO of tuples [0, m): ``f = max(busy[w], t) +
+    caps[w]`` for each worker's tuples in arrival order, one warp per
+    worker.
+
+    Returns ``(workers, fin)`` — (n_pad,) int32 and (n_pad,) f64 finish
+    time relative to the feed base (entries past m undefined on the card).
+    Updates ``busy`` (w1,) in place.  PKG/DC/WC/FISH pass the
+    ``route_scan`` ``workers``; SG (``act``, ``a_live``, ``rr``: round
+    robin over the live set) and FG (``rows``, one column) route here, and
+    add their routes to ``counts``."""
+    fixed = scheme in ("sg", "fg")
+    if fixed == (workers is not None):
+        raise ValueError("fifo_workers: SG/FG route here; the others pass "
+                         "route_scan's workers")
+    if not _on_card(t, "fifo_workers"):
+        return fifo_workers_plain(scheme, m, t, busy, caps, counts, workers,
+                                  rows, act, a_live, rr)
+    dev = t.device
+    n_pad = t.shape[0]
+    w1 = busy.shape[0]
+    _need("fifo_workers", dev, torch.int32, counts=counts, workers=workers,
+          rows=rows, act=act)
+    _need("fifo_workers", dev, torch.float64, t=t, busy=busy, caps=caps)
+    if workers is None:
+        workers = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    fin = torch.empty(n_pad, dtype=torch.float64, device=dev)
+    err = _lib().fifo_workers(
+        SCHEME_IDS[scheme], m, w1, 0 if rows is None else rows.shape[1],
+        _ptr(rows), _ptr(act), a_live, rr, workers.data_ptr(), t.data_ptr(),
+        busy.data_ptr(), caps.data_ptr(), counts.data_ptr(), fin.data_ptr(),
+        _build.stream_ptr(dev))
+    _build.check(err, "fifo_workers")
+    LAUNCHES["fifo_workers"] += 1
     return workers, fin
 
 
@@ -979,9 +1043,16 @@ class FusedEdgeRunner:
                           wnum=float(grouper.num_workers))
                 if scheme == "wc":
                     kw["act_mask"] = self._act_mask
-            workers, fin_d = route_fifo(
-                scheme, m, keys=keys, t=self._up(t), busy=busy_d,
-                caps=caps_d, counts=counts_d, rows=rows, **kw)
+            fifo = dict(t=self._up(t), busy=busy_d, caps=caps_d,
+                        counts=counts_d)
+            if scheme in ("sg", "fg"):
+                workers, fin_d = fifo_workers(scheme, m, rows=rows, **fifo,
+                                              **kw)
+            else:
+                workers = route_scan(scheme, m, keys=keys, counts=counts_d,
+                                     rows=rows, **kw)
+                workers, fin_d = fifo_workers(scheme, m, workers=workers,
+                                              **fifo)
             pane_update(keys, workers, m, repl=self.repl, vals=vals,
                         seg_base=seg_base if seg_base is not None else 0,
                         pane_tab=self.pane_tab if self.has_pane else None,

@@ -1,10 +1,14 @@
 """Keyed-state probe/accumulate: the hand-written CUDA kernel, its plain
-PyTorch version, and the wrapper that picks one by the tensor's device.
+PyTorch version, and the wrappers that pick one by the tensor's device.
 
 Replaces ``src/repro/kernels/store_probe.py::store_probe`` (the Pallas
 kernel behind ``DeviceStateStore._merge``).  It folds one routed chunk
 into a slot table: per slot the int32 Σvalue and Σcount of the chunk's
-tokens that hit it, plus a per-token hit flag.
+tokens that hit it, plus a per-token hit flag.  :func:`store_probe` is
+that function; :func:`store_probe_grouped` folds G (table, chunk) pairs
+in one launch of the same kernel — a whole pane sync of
+``DeviceStateStore.merge_many`` — adding both columns of each merge
+straight into the stores' young columns.
 
 * **Kernel** (``csrc/store_probe.cu``): one thread per token, a binary
   search over the strictly ascending table, ``atomicAdd`` on int32 for the
@@ -12,32 +16,36 @@ tokens that hit it, plus a per-token hit flag.
   Bound by bytes (each token's key and value, plus the sums it touches);
   integer atomics keep the sums exact and order-free.
 * **Plain version**: the compare-matrix form of the TPU kernel, tiled over
-  tokens.  It holds for any table, so comparing the two on the main path's
-  tables also checks the kernel's precondition.
+  tokens (grouped: one call per pair).  It holds for any table, so
+  comparing the two on the main path's tables also checks the kernel's
+  precondition.
 
-For a CUDA tensor the wrapper launches the kernel (or raises); only a CPU
+For a CUDA tensor a wrapper launches the kernel (or raises); only a CPU
 tensor takes the plain version.  ``LAUNCHES["store_probe"]`` counts kernel
-launches.
+launches of both wrappers.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["store_probe", "store_probe_plain", "LAUNCHES"]
+__all__ = ["store_probe", "store_probe_plain", "store_probe_grouped",
+           "store_probe_grouped_plain", "grouped_meta", "LAUNCHES"]
 
 #: kernel launches, counted where the wrapper launches
 LAUNCHES = {"store_probe": 0}
 
 _BLOCK_N = 1024  # tokens per compare-matrix tile (plain version)
 
-_SIGS = {"store_probe": (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {"store_probe": (_P, _I, _P, _P, _I, _P, _P, _P, _P),
+         "store_probe_grouped": (_I, _P, _P, _P, _P, _I, _P)}
 
 
 def _check_args(table_keys, batch_keys, batch_vals) -> None:
@@ -101,11 +109,106 @@ def store_probe(table_keys: torch.Tensor, batch_keys: torch.Tensor,
     vsum = torch.empty(k, dtype=torch.int32, device=table_keys.device)
     csum = torch.empty_like(vsum)
     matched = torch.empty(n, dtype=torch.bool, device=table_keys.device)
-    lib = _build.library("store_probe", _SIGS)
-    err = lib.store_probe(table_keys.data_ptr(), k, batch_keys.data_ptr(),
-                          batch_vals.data_ptr(), n, vsum.data_ptr(),
-                          csum.data_ptr(), matched.data_ptr(),
-                          _build.stream_ptr(table_keys.device))
+    err = _build.library("store_probe", _SIGS).store_probe(
+        table_keys.data_ptr(), k, batch_keys.data_ptr(),
+        batch_vals.data_ptr(), n, vsum.data_ptr(), csum.data_ptr(),
+        matched.data_ptr(), _build.stream_ptr(table_keys.device))
     _build.check(err, "store_probe")
     LAUNCHES["store_probe"] += 1
     return vsum, csum, matched
+
+
+# -- grouped: G (table, chunk) pairs in one launch -------------------------------
+
+
+def grouped_meta(tables: Sequence[torch.Tensor], offsets: Sequence[int],
+                 vout: Sequence[torch.Tensor],
+                 cout: Sequence[torch.Tensor]) -> np.ndarray:
+    """The kernel's int64 description of G pairs (5G+1 entries): table
+    pointers, table lengths, the G+1 token offsets, value-out and count-out
+    pointers.  A caller that packs its data into one upload writes this
+    beside it and passes the device copy as ``meta``."""
+    g = len(tables)
+    meta = np.empty(5 * g + 1, dtype=np.int64)
+    meta[:g] = [t.data_ptr() for t in tables]
+    meta[g:2 * g] = [t.shape[0] for t in tables]
+    meta[2 * g:3 * g + 1] = offsets
+    meta[3 * g + 1:4 * g + 1] = [t.data_ptr() for t in vout]
+    meta[4 * g + 1:] = [t.data_ptr() for t in cout]
+    return meta
+
+
+def store_probe_grouped_plain(tables, keys, vals, cnts, offsets):
+    """One compare-matrix call per pair: (vsums, csums), a list each."""
+    vsums, csums = [], []
+    for g, table in enumerate(tables):
+        lo, hi = int(offsets[g]), int(offsets[g + 1])
+        vs, cs, _ = store_probe_plain(table, keys[lo:hi], vals[lo:hi])
+        if cnts is not None:
+            cs = store_probe_plain(table, keys[lo:hi], cnts[lo:hi])[0]
+        vsums.append(vs)
+        csums.append(cs)
+    return vsums, csums
+
+
+def store_probe_grouped(tables: Sequence[torch.Tensor], keys: torch.Tensor,
+                        vals: torch.Tensor, cnts: Optional[torch.Tensor],
+                        offsets: Sequence[int], vout: Sequence[torch.Tensor],
+                        cout: Sequence[torch.Tensor], *,
+                        meta: Optional[torch.Tensor] = None) -> None:
+    """Fold G (slot table, chunk) pairs in one launch, adding in place:
+    ``vout[g] += Σ value`` and ``cout[g] += Σ count`` per slot of
+    ``tables[g]`` over the tokens ``[offsets[g], offsets[g+1])`` of the
+    packed ``keys``/``vals`` (count: ``cnts``, or 1 per token when None).
+
+    tables:     G 1-D int32, each **strictly ascending** on the kernel path.
+    keys, vals, cnts: (N,) int32, the pairs' chunks back to back.
+    vout, cout: G 1-D int32 columns, one slot per table entry.
+    meta:       the device copy of :func:`grouped_meta` for exactly these
+                tensors, when the caller uploaded it with its data; else it
+                is built and uploaded here (one more copy).
+    """
+    g = len(tables)
+    if not (len(vout) == len(cout) == g and len(offsets) == g + 1):
+        raise ValueError("store_probe_grouped: G tables, G output pairs and "
+                         "G+1 offsets")
+    if int(offsets[0]) != 0 or int(offsets[-1]) != keys.shape[0]:
+        raise ValueError("store_probe_grouped: offsets must span the chunk")
+    for name, t in [("keys", keys), ("vals", vals), ("cnts", cnts)] + [
+            ("table", t) for t in tables] + [("vout", t) for t in vout] + [
+            ("cout", t) for t in cout]:
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"store_probe_grouped: {name} must be 1-D int32,"
+                            f" got {t.dtype} {tuple(t.shape)}")
+        if t.device != keys.device or not t.is_contiguous():
+            raise ValueError("store_probe_grouped: contiguous tensors on one "
+                             "device")
+    for t, v, c in zip(tables, vout, cout):
+        if v.shape != t.shape or c.shape != t.shape:
+            raise ValueError("store_probe_grouped: an output column does not "
+                             "match its table")
+    if keys.device.type == "cpu":
+        vsums, csums = store_probe_grouped_plain(tables, keys, vals, cnts,
+                                                 offsets)
+        for v, c, vs, cs in zip(vout, cout, vsums, csums):
+            v.add_(vs)
+            c.add_(cs)
+        return None
+    if keys.device.type != "cuda":
+        raise ValueError(f"store_probe_grouped: no kernel for device "
+                         f"{keys.device}")
+    if meta is None:
+        meta = torch.from_numpy(grouped_meta(tables, offsets, vout,
+                                             cout)).to(keys.device)
+    elif meta.dtype != torch.int64 or meta.shape[0] != 5 * g + 1:
+        raise ValueError("store_probe_grouped: meta must be the (5G+1,) "
+                         "int64 grouped_meta")
+    err = _build.library("store_probe", _SIGS).store_probe_grouped(
+        g, meta.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+        None if cnts is None else cnts.data_ptr(), keys.shape[0],
+        _build.stream_ptr(keys.device))
+    _build.check(err, "store_probe_grouped")
+    LAUNCHES["store_probe"] += 1
+    return None

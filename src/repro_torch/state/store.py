@@ -329,10 +329,11 @@ class ArrayStateStore:
 class DeviceStateStore:
     """Device-resident backend: the sorted slot table and int32
     (value, count) accumulators live as torch tensors on ``device``, and
-    folding a reduced chunk is one probe/accumulate launch per column
-    (:func:`repro_torch.kernels.ops.store_probe` — the hand-written CUDA
-    kernel on a card, its plain PyTorch version on the CPU; two launches
-    because the kernel accumulates one value column at a time).  A sorted
+    folding reduced chunks is one probe/accumulate launch for any number
+    of stores (:meth:`merge_many` →
+    :func:`repro_torch.kernels.store_probe.store_probe_grouped` — the
+    hand-written CUDA kernel on a card, its plain PyTorch version on the
+    CPU; both columns of each merge in the same launch).  A sorted
     host int64 key mirror keeps membership checks, sizing and ``items``
     ordering off-device; inserting unseen keys rebuilds the device table
     around them (the open-addressing slow path — rare once the key set is
@@ -372,83 +373,136 @@ class DeviceStateStore:
     def size_bytes(self) -> int:
         return int(self._host_keys.shape[0]) * ENTRY_BYTES
 
-    def update_batch(self, keys: np.ndarray, values: np.ndarray) -> None:
+    @staticmethod
+    def reduce_chunk(keys: np.ndarray, values: np.ndarray):
+        """Per-key (sorted unique keys, Σ value, tuple count) of a raw
+        chunk, int64 — what :meth:`merge_many` folds."""
         uniq, inv = np.unique(np.asarray(keys, dtype=np.int64),
                               return_inverse=True)
         vsum = np.zeros(uniq.shape[0], dtype=np.int64)
         np.add.at(vsum, inv, np.asarray(values, dtype=np.int64))
         csum = np.bincount(inv, minlength=uniq.shape[0]).astype(np.int64)
-        self._merge(uniq, vsum, csum)
+        return uniq, vsum, csum
+
+    def update_batch(self, keys: np.ndarray, values: np.ndarray) -> None:
+        self.merge_many([self], [self.reduce_chunk(keys, values)])
 
     def merge_entries(self, keys: np.ndarray, values: np.ndarray,
                       counts: np.ndarray, own: bool = False) -> None:
-        self._merge(np.asarray(keys, dtype=np.int64),
-                    np.asarray(values, dtype=np.int64),
-                    np.asarray(counts, dtype=np.int64))
+        self.merge_many([self], [(keys, values, counts)])
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host int column → device int32 (the caller range-checked it)."""
         return torch.from_numpy(arr.astype(np.int32)).to(self.device)
 
-    def _merge(self, uniq: np.ndarray, vsum: np.ndarray,
-               csum: np.ndarray) -> None:
-        """Fold per-key reduced (value, count) columns into the device
-        table.  ``uniq`` must be sorted unique (both callers guarantee
-        it)."""
-        from ..kernels import ops
+    @staticmethod
+    def merge_many(stores, chunks) -> None:
+        """Fold one reduced chunk into each of ``stores`` — a whole pane
+        sync — with one packed upload and one probe launch.
 
-        n = uniq.shape[0]
-        if n == 0:
-            return
+        ``chunks[g]`` is ``(keys, values, counts)`` for ``stores[g]``: int
+        columns, keys sorted unique (every caller guarantees it); each
+        store appears at most once.  Each store's host bookkeeping runs
+        first: range checks, the young generation's spill guard, the sorted
+        mirror and the rebuild around unseen keys.  Then one copy moves
+        every new table (fresh and rebuilt stores) with its zeroed young
+        columns, the chunks' keys, values and counts, and the kernel's pair
+        description to the device, and one ``store_probe_grouped`` launch
+        adds both columns of every merge into the young generation.  The
+        new tables and young columns are views into that one allocation."""
+        from ..kernels.store_probe import grouped_meta, store_probe_grouped
+
         lim = 2 ** 31 - 1
-        if uniq[0] < 0 or uniq[-1] > lim:
-            raise ValueError(
-                "DeviceStateStore keys must fit int32 (got range "
-                f"[{uniq[0]}, {uniq[-1]}])")
-        chunk_bound = int(max(np.abs(vsum).max(initial=0),
-                              np.abs(csum).max(initial=0)))
-        if chunk_bound > lim:
-            raise ValueError(
-                "DeviceStateStore accumulates in int32; chunk aggregates "
-                "exceed its range")
-        # spill young → base before this chunk could push any young
-        # element past int32 (each merge adds ≤ chunk_bound per element)
-        if self._young_bound + chunk_bound > lim:
-            self._spill()
-        pos = np.searchsorted(self._host_keys, uniq)
-        k = self._host_keys.shape[0]
-        posc = np.clip(pos, 0, max(k - 1, 0))
-        present = ((pos < k) & (self._host_keys[posc] == uniq)) if k else (
-            np.zeros(n, dtype=bool))
-        missing = uniq[~present]
-        if missing.shape[0]:
-            union = np.sort(np.concatenate([self._host_keys, missing]))
-            nv = torch.zeros(union.shape[0], dtype=torch.int32,
-                             device=self.device)
-            nc = torch.zeros_like(nv)
-            nbv = np.zeros(union.shape[0], dtype=np.int64)
-            nbc = np.zeros(union.shape[0], dtype=np.int64)
-            if k:
-                old_pos = np.searchsorted(union, self._host_keys)
-                idx = torch.from_numpy(old_pos).to(self.device)
-                nv[idx] = self._v
-                nc[idx] = self._c
-                nbv[old_pos] = self._base_v
-                nbc[old_pos] = self._base_c
-            self._host_keys = union
-            self._keys = self._upload(union)
-            self._v = nv
-            self._c = nc
-            self._base_v = nbv
-            self._base_c = nbc
-        keys32 = self._upload(uniq)
-        vacc, _, _ = ops.store_probe(self._keys, keys32, self._upload(vsum))
-        cacc, _, _ = ops.store_probe(self._keys, keys32, self._upload(csum))
-        # in-place young-generation adds, bounded by the _young_bound spill
-        # guard above — lifetime totals live in the int64 base
-        self._v.add_(vacc)
-        self._c.add_(cacc)
-        self._young_bound += chunk_bound
+        work = []  # (store, keys, values, counts, new table or None)
+        for st, (keys, values, counts) in zip(stores, chunks):
+            uniq = np.asarray(keys, dtype=np.int64)
+            n = uniq.shape[0]
+            if n == 0:
+                continue
+            vsum = np.asarray(values, dtype=np.int64)
+            csum = np.asarray(counts, dtype=np.int64)
+            if uniq[0] < 0 or uniq[-1] > lim:
+                raise ValueError(
+                    "DeviceStateStore keys must fit int32 (got range "
+                    f"[{uniq[0]}, {uniq[-1]}])")
+            chunk_bound = int(max(np.abs(vsum).max(initial=0),
+                                  np.abs(csum).max(initial=0)))
+            if chunk_bound > lim:
+                raise ValueError(
+                    "DeviceStateStore accumulates in int32; chunk "
+                    "aggregates exceed its range")
+            # spill young → base before this chunk could push any young
+            # element past int32 (each merge adds ≤ chunk_bound per element)
+            if st._young_bound + chunk_bound > lim:
+                st._spill()
+            st._young_bound += chunk_bound
+            hk = st._host_keys
+            k = hk.shape[0]
+            pos = np.searchsorted(hk, uniq)
+            present = ((pos < k) & (hk[np.clip(pos, 0, max(k - 1, 0))]
+                                    == uniq)) if k else np.zeros(n, bool)
+            union = None
+            if not present.all():
+                union = np.sort(np.concatenate([hk, uniq[~present]]))
+            work.append((st, uniq, vsum, csum, union))
+        if not work:
+            return
+        device = work[0][0].device
+        if any(w[0].device != device for w in work):
+            raise ValueError("merge_many: stores on more than one device")
+
+        # one int32 buffer: [table | young v | young c] per new table, then
+        # the chunks' keys | values | counts, then the int64 pair meta
+        g = len(work)
+        n_new = sum(3 * w[4].shape[0] for w in work if w[4] is not None)
+        n_tok = sum(w[1].shape[0] for w in work)
+        at_meta = n_new + 3 * n_tok
+        at_meta += at_meta % 2  # 8-byte aligned
+        buf = torch.empty(at_meta + 2 * (5 * g + 1), dtype=torch.int32,
+                          device=device)
+        host = np.zeros(buf.shape[0], dtype=np.int32)
+        at = 0
+        rebuilt = []  # (new table, new v, new c, old table, old v, old c)
+        for st, _, _, _, union in work:
+            if union is None:
+                continue
+            kn = union.shape[0]
+            host[at:at + kn] = union
+            tab, nv, nc = (buf[at + j * kn:at + (j + 1) * kn]
+                           for j in range(3))
+            at += 3 * kn
+            nbv = np.zeros(kn, dtype=np.int64)
+            nbc = np.zeros(kn, dtype=np.int64)
+            if st._host_keys.shape[0]:
+                old_pos = np.searchsorted(union, st._host_keys)
+                nbv[old_pos] = st._base_v
+                nbc[old_pos] = st._base_c
+                rebuilt.append((tab, nv, nc, st._keys, st._v, st._c))
+            st._host_keys = union
+            st._keys, st._v, st._c = tab, nv, nc
+            st._base_v, st._base_c = nbv, nbc
+        offsets = [0]
+        for _, uniq, vsum, csum, _ in work:
+            lo, n = offsets[-1], uniq.shape[0]
+            host[at + lo:at + lo + n] = uniq
+            host[at + n_tok + lo:at + n_tok + lo + n] = vsum
+            host[at + 2 * n_tok + lo:at + 2 * n_tok + lo + n] = csum
+            offsets.append(lo + n)
+        keys_d, vals_d, cnts_d = (buf[at + j * n_tok:at + (j + 1) * n_tok]
+                                  for j in range(3))
+        tables = [w[0]._keys for w in work]
+        vout = [w[0]._v for w in work]
+        cout = [w[0]._c for w in work]
+        host[at_meta:] = grouped_meta(tables, offsets, vout,
+                                      cout).view(np.int32)
+        buf.copy_(torch.from_numpy(host))
+        # a warm store that met unseen keys carries its young columns over
+        for tab, nv, nc, old_tab, old_v, old_c in rebuilt:
+            idx = torch.searchsorted(tab, old_tab)
+            nv[idx] = old_v
+            nc[idx] = old_c
+        store_probe_grouped(tables, keys_d, vals_d, cnts_d, offsets, vout,
+                            cout, meta=buf[at_meta:].view(torch.int64))
 
     def _young(self):
         """The young generation read back as host int64 columns."""

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .migration import MigrationStats, apply_membership_change
-from .store import ENTRY_BYTES, STORE_BACKENDS, make_store
+from .store import ENTRY_BYTES, STORE_BACKENDS, DeviceStateStore, make_store
 
 __all__ = [
     "WindowOp",
@@ -306,6 +306,7 @@ class KeyedStateManager:
             ws = wc[order]
             seg = np.concatenate([[0], np.flatnonzero(ws[1:] != ws[:-1]) + 1,
                                   [take]])
+            device_stores, device_chunks = [], []
             for s, e in zip(seg[:-1].tolist(), seg[1:].tolist()):
                 w = int(ws[s])
                 sl = order[s:e]
@@ -313,9 +314,15 @@ class KeyedStateManager:
                 st = pane.stores.get(w)
                 if st is None:
                     st = pane.stores[w] = make_store(backend, self.device)
-                st.update_batch(kc[sl], vc[sl])
+                if backend == "device":  # every worker's chunk in one launch
+                    device_stores.append(st)
+                    device_chunks.append(st.reduce_chunk(kc[sl], vc[sl]))
+                else:
+                    st.update_batch(kc[sl], vc[sl])
                 if last > pane.last_idx.get(w, -1):
                     pane.last_idx[w] = last
+            if device_stores:
+                DeviceStateStore.merge_many(device_stores, device_chunks)
             self.idx += take
             pos += take
 
@@ -348,6 +355,7 @@ class KeyedStateManager:
         if pane is None:
             pane = self._panes[block] = _Pane(block, block + stride)
         backend = self.op.backend
+        device_stores, device_chunks = [], []
         for w, ks, vs, cs, last in entries:
             if ks.shape[0] == 0:
                 continue
@@ -356,11 +364,17 @@ class KeyedStateManager:
             st = pane.stores.get(w)
             if st is None:
                 st = pane.stores[w] = make_store(backend, self.device)
-            # the fused flush builds these columns fresh per sync — the
-            # store may keep them without a defensive copy
-            st.merge_entries(ks, vs, cs, own=True)
+            if backend == "device":  # the whole sync in one launch
+                device_stores.append(st)
+                device_chunks.append((ks, vs, cs))
+            else:
+                # the fused flush builds these columns fresh per sync — the
+                # store may keep them without a defensive copy
+                st.merge_entries(ks, vs, cs, own=True)
             if last > pane.last_idx.get(w, -1):
                 pane.last_idx[w] = int(last)
+        if device_stores:
+            DeviceStateStore.merge_many(device_stores, device_chunks)
         self.idx += n_tuples
 
     def _seen_count(self) -> int:

@@ -55,14 +55,17 @@ def test_cuda_store_probe_matches_plain(k, n):
             sp.store_probe(args[0].flip(0), args[1], args[2], validate=True)
 
 
-def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8):
+def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8,
+             z=1.4):
     rng = np.random.default_rng(seed)
     keys = np.full(n_pad, kcap, np.int32)
-    keys[:m] = zipf_time_evolving(m, num_keys=kcap, z=1.4, seed=seed)
+    keys[:m] = zipf_time_evolving(m, num_keys=kcap, z=z, seed=seed)
     ring = ConsistentHashRing(range(workers), virtual_nodes=16)
-    pts, cands = ff._build_ring_table(ring, workers)
+    pts, cands = ff._build_ring_table(ring, max(workers, 2))
+    hashes = np.asarray([hash32(int(k)) for k in np.unique(keys[:m])],
+                        np.uint32)
     h = np.zeros(n_pad, np.uint32)
-    h[:m] = [hash32(int(k)) for k in keys[:m]]
+    h[:m] = hashes[np.searchsorted(np.unique(keys[:m]), keys[:m])]
     w1 = workers + 1
     return dict(
         m=m, n_pad=n_pad, kcap=kcap, w1=w1, keys=keys, pts=pts, cands=cands,
@@ -77,64 +80,154 @@ def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8):
                      0).astype(np.int32))
 
 
+def _run_segment(scheme, s, where):
+    """ring_rows, tracker_count/fold, route_scan, fifo_workers and
+    pane_update of one segment on ``where``; every output and every
+    state tensor they update."""
+    m, n_pad, kcap, w1 = s["m"], s["n_pad"], s["kcap"], s["w1"]
+    width = {"fg": 1, "pkg": 2}.get(scheme, s["cands"].shape[1])
+    d = torch.device(where)
+    up = (lambda a: T(np.ascontiguousarray(a)).to(d))
+    kw = {}
+    fixed = {}
+    rows = None
+    if scheme != "sg":
+        rows = ff.ring_rows(up(ff._u32_bits(s["pts"])), up(s["cands"]),
+                            up(ff._u32_bits(s["h"])), None, m, width, n_pad)
+    else:
+        a_live = s.get("a_live", w1 - 1)
+        fixed.update(act=up(np.arange(w1, dtype=np.int32)), a_live=a_live,
+                     rr=2)
+    if scheme in ("dc", "wc", "fish"):
+        trk = torch.zeros(kcap + 1, dtype=torch.float32, device=d)
+        tk = (dict(g0=300, epoch=500, pre=0, ne=-(-(m + 300) // 500),
+                   alpha=0.2)
+              if scheme == "fish" else dict(ne=1))
+        cnt = torch.zeros((tk["ne"], kcap + 1), dtype=torch.int32, device=d)
+        snap = (torch.empty((tk["ne"], kcap + 1), device=d)
+                if tk["ne"] > 1 else None)
+        psum, pmax = ff.tracker_update(trk, cnt, up(s["keys"]), m,
+                                       snap=snap, **tk)
+        kw.update(trk=trk, snap=snap, psum=psum, pmax=pmax,
+                  g0=tk.get("g0", 0), epoch=tk.get("epoch", 0),
+                  theta=0.25 / (w1 - 1), wnum=float(w1 - 1),
+                  act_mask=up(s["act_mask"]))
+    if scheme == "fish":
+        kw.update(m_k=up(s["m_k"]), d_min=2, ebl=up(s["ebl"]),
+                  eas=up(s["eas"]), ecaps=up(s["ecaps"]), do_tick=1,
+                  elapsed=0.3)
+    busy, counts = up(s["busy"]), up(s["counts"])
+    fifo = dict(t=up(s["t"]), busy=busy, caps=up(s["caps"]), counts=counts)
+    if scheme in ("sg", "fg"):
+        workers, fin = ff.fifo_workers(scheme, m, rows=rows, **fifo, **fixed)
+    else:
+        workers = ff.route_scan(scheme, m, keys=up(s["keys"]), counts=counts,
+                                rows=rows, **kw)
+        workers, fin = ff.fifo_workers(scheme, m, workers=workers, **fifo)
+    tab = torch.zeros((w1, kcap + 1, 2), dtype=torch.int32, device=d)
+    cntp = torch.zeros((w1, kcap + 1), dtype=torch.int32, device=d)
+    last = torch.zeros((w1,), dtype=torch.int32, device=d)
+    repl = torch.zeros((kcap + 1, w1), dtype=torch.bool, device=d)
+    ff.pane_update(up(s["keys"]), workers, m, repl=repl, vals=up(s["keys"]),
+                   seg_base=7, pane_tab=tab, pane_cnt=cntp, pane_last=last,
+                   reset=True)
+    outs = [workers[:m], fin[:m], busy, counts, tab, cntp, last, repl]
+    outs += [kw[k] for k in ("trk", "snap", "psum", "pmax", "m_k", "ebl",
+                             "eas") if kw.get(k) is not None]
+    if rows is not None:
+        outs.append(rows)
+    return outs
+
+
+def _assert_card_equals_plain(scheme, s):
+    before = dict(ff.LAUNCHES)
+    card = _run_segment(scheme, s, "cuda")
+    plain = _run_segment(scheme, s, "cpu")
+    for c, p in zip(card, plain):
+        assert torch.equal(c.cpu(), p), scheme
+    routed = scheme not in ("sg", "fg")
+    assert ff.LAUNCHES["route_scan"] == before["route_scan"] + routed
+    assert ff.LAUNCHES["fifo_workers"] == before["fifo_workers"] + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
 def test_cuda_segment_kernels_match_plain(scheme):
-    """One whole segment — ring_rows, tracker_count/fold, route_fifo and
-    pane_update — on the card and through the plain versions."""
+    """One whole segment — ring_rows, tracker_count/fold, route_scan,
+    fifo_workers and pane_update — on the card and through the plain
+    versions."""
+    _card()
+    _assert_card_equals_plain(scheme, _segment())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
+def test_cuda_segment_kernels_match_plain_at_main_path_shapes(scheme):
+    """The main path's segment: 16,384 tuples of a z = 1.2 stream over a
+    100,000-key table, 128 workers (w1 = 129), candidate width 128."""
+    _card()
+    _assert_card_equals_plain(scheme, _segment(
+        seed=12, m=16_384, n_pad=16_384, kcap=100_000, workers=128, z=1.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sg", "pkg", "fish"])
+def test_cuda_segment_kernels_match_plain_one_worker(scheme):
+    """Every tuple on one worker: SG with one live worker, PKG and FISH on
+    a ring of one — fifo_workers' longest possible run."""
+    _card()
+    s = _segment(seed=13, m=3_000, n_pad=4_096, workers=1)
+    s["a_live"] = 1
+    _assert_card_equals_plain(scheme, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["pkg", "dc", "wc", "fish"])
+def test_cuda_route_scan_ties_match_plain(scheme):
+    """All-equal counts and estimator state: every argmin is a tie, broken
+    to the first candidate (PKG, DC, FISH) or the lowest worker id (WC hot
+    keys)."""
+    _card()
+    s = _segment(seed=14, m=2_000, n_pad=2_048, workers=16)
+    s["counts"][:] = 0
+    s["ebl"][:] = 0.0
+    s["eas"][:] = 0.0
+    s["ecaps"][:] = 1.0
+    _assert_card_equals_plain(scheme, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 256])
+def test_cuda_store_probe_grouped_matches_plain(g):
+    """G pairs in one launch, some with empty chunks or empty tables,
+    adding into preset columns: bit for bit the plain version per pair."""
     dev = _card()
-    s = _segment()
-    m, n_pad, kcap, w1 = s["m"], s["n_pad"], s["kcap"], s["w1"]
-    width = {"fg": 1, "pkg": 2}.get(scheme, s["cands"].shape[1])
-    outs = {}
-    for where in ("cuda", "cpu"):
-        d = torch.device(where)
-        up = (lambda a: T(np.ascontiguousarray(a)).to(d))
-        kw = {}
-        rows = None
-        if scheme != "sg":
-            rows = ff.ring_rows(up(ff._u32_bits(s["pts"])), up(s["cands"]),
-                                up(ff._u32_bits(s["h"])), None, m, width,
-                                n_pad)
-        else:
-            kw.update(act=up(np.arange(w1, dtype=np.int32)), a_live=w1 - 1,
-                      rr=2)
-        if scheme in ("dc", "wc", "fish"):
-            trk = torch.zeros(kcap + 1, dtype=torch.float32, device=d)
-            tk = (dict(g0=300, epoch=500, pre=0, ne=4, alpha=0.2)
-                  if scheme == "fish" else dict(ne=1))
-            cnt = torch.zeros((tk["ne"], kcap + 1), dtype=torch.int32,
-                              device=d)
-            snap = (torch.empty((tk["ne"], kcap + 1), device=d)
-                    if tk["ne"] > 1 else None)
-            psum, pmax = ff.tracker_update(trk, cnt, up(s["keys"]), m,
-                                           snap=snap, **tk)
-            kw.update(trk=trk, snap=snap, psum=psum, pmax=pmax,
-                      g0=tk.get("g0", 0), epoch=tk.get("epoch", 0),
-                      theta=0.25 / 8, wnum=8.0, act_mask=up(s["act_mask"]))
-        if scheme == "fish":
-            kw.update(m_k=up(s["m_k"]), d_min=2, ebl=up(s["ebl"]),
-                      eas=up(s["eas"]), ecaps=up(s["ecaps"]), do_tick=1,
-                      elapsed=0.3)
-        busy, counts = up(s["busy"]), up(s["counts"])
-        workers, fin = ff.route_fifo(
-            scheme, m, keys=up(s["keys"]), t=up(s["t"]), busy=busy,
-            caps=up(s["caps"]), counts=counts, rows=rows, **kw)
-        tab = torch.zeros((w1, kcap + 1, 2), dtype=torch.int32, device=d)
-        cntp = torch.zeros((w1, kcap + 1), dtype=torch.int32, device=d)
-        last = torch.zeros((w1,), dtype=torch.int32, device=d)
-        repl = torch.zeros((kcap + 1, w1), dtype=torch.bool, device=d)
-        ff.pane_update(up(s["keys"]), workers, m, repl=repl,
-                       vals=up(s["keys"]), seg_base=7, pane_tab=tab,
-                       pane_cnt=cntp, pane_last=last, reset=True)
-        outs[where] = [workers[:m], fin[:m], busy, counts, tab, cntp, last,
-                       repl] + [kw[k] for k in ("trk", "snap", "psum",
-                                                "pmax", "m_k", "ebl", "eas")
-                                if kw.get(k) is not None]
-        if rows is not None:
-            outs[where].append(rows)
-    for c, p in zip(outs["cuda"], outs["cpu"]):
-        assert torch.equal(c.cpu(), p), scheme
+    rng = np.random.default_rng(g)
+    tables, keys, vals, cnts, offsets = [], [], [], [], [0]
+    for j in range(g):
+        k = int(rng.integers(0, 300)) if j % 7 else 0
+        n = int(rng.integers(0, 500)) if j % 5 else 0
+        if g == 1:
+            k, n = 300, 5_000
+        tables.append(np.sort(rng.choice(4 * k + 10, size=k,
+                                         replace=False)).astype(np.int32))
+        keys.append(rng.integers(0, 4 * k + 10, n).astype(np.int32))
+        vals.append(rng.integers(-50, 50, n).astype(np.int32))
+        cnts.append(rng.integers(1, 9, n).astype(np.int32))
+        offsets.append(offsets[-1] + n)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        up = (lambda a: T(np.concatenate(a) if isinstance(a, list)
+                          else a).to(d))
+        vout = [torch.full((t.shape[0],), 3, dtype=torch.int32, device=d)
+                for t in tables]
+        cout = [torch.full((t.shape[0],), 4, dtype=torch.int32, device=d)
+                for t in tables]
+        sp.store_probe_grouped([up(t) for t in tables], up(keys), up(vals),
+                               up(cnts), offsets, vout, cout)
+        outs.append(vout + cout)
+    for c, p in zip(*outs):
+        assert torch.equal(c.cpu(), p)
 
 
 @pytest.mark.cuda

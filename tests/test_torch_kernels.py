@@ -4,8 +4,9 @@ Each kernel wrapper takes its plain PyTorch version for a CPU tensor; here
 those plain versions meet the reference's own pieces on the same numpy-
 seeded inputs: ``store_probe`` against the Pallas kernel (interpret mode)
 and ``ops._store_probe_sorted``; the fused segment's parts against
-``_build_ring_table``, ``_ring_rows``, ``_tracker_update``,
-``_route_pkg``, ``_route_dcwc``, ``_route_fish`` and ``_fifo_scan``.
+``_build_ring_table``, ``_ring_rows``, ``_tracker_update``, ``_route_pkg``,
+``_route_dcwc``, ``_route_fish`` (against ``route_scan``) and
+``_fifo_scan`` (against ``fifo_workers``).
 Integers must match exactly.  Floats: the DC/WC trackers hold integer
 counts and match exactly; FISH's tracker folds its decay per epoch
 (Horner) where the reference sums decayed weights in tuple order, so it
@@ -207,11 +208,19 @@ def test_tracker_matches_reference(scheme):
 
 
 def _route(s, scheme, rows, **kw):
+    """route_scan (PKG/DC/WC/FISH) then fifo_workers, as ``run_segment``
+    chains them; SG/FG route inside fifo_workers."""
     busy = T(s.busy.astype(np.float64))
     counts = T(s.counts.copy())
-    workers, fin = ff.route_fifo(
-        scheme, s.m, keys=T(s.keys), t=T(s.t.astype(np.float64)), busy=busy,
-        caps=T(s.caps.astype(np.float64)), counts=counts, rows=rows, **kw)
+    fifo = dict(t=T(s.t.astype(np.float64)), busy=busy,
+                caps=T(s.caps.astype(np.float64)), counts=counts)
+    if scheme in ("sg", "fg"):
+        workers, fin = ff.fifo_workers(scheme, s.m, rows=rows, **fifo, **kw)
+    else:
+        routed = ff.route_scan(scheme, s.m, keys=T(s.keys), counts=counts,
+                               rows=rows, **kw)
+        workers, fin = ff.fifo_workers(scheme, s.m, workers=routed, **fifo)
+        assert workers is routed
     return workers[:s.m].numpy(), fin[:s.m].numpy(), busy.numpy(), \
         counts.numpy()
 
@@ -340,3 +349,36 @@ def test_pane_update_plain_matches_numpy():
     np.maximum.at(want_last, w, 500 + np.arange(s.m))
     np.testing.assert_array_equal(last.numpy(), want_last)
     np.testing.assert_array_equal(repl.numpy(), (want_c > 0).T)
+
+
+@pytest.mark.parametrize("sizes", [[(64, 300)], [(40, 200), (0, 30), (16, 0),
+                                                  (128, 500), (1, 9)]])
+def test_store_probe_grouped_matches_pallas(sizes):
+    """Each pair of a grouped probe — packed chunks, a count column, empty
+    tables and empty chunks among them — against the Pallas kernel."""
+    from repro_torch.kernels import store_probe as sp
+
+    tables, keys, vals, cnts, offsets = [], [], [], [], [0]
+    for g, (k, n) in enumerate(sizes):
+        table, ks, vs = _probe_inputs(20 + g, max(k, 1), n)
+        tables.append(table[:k])
+        keys.append(ks)
+        vals.append(vs)
+        cnts.append(np.random.default_rng(g).integers(1, 9, n).astype(
+            np.int32))
+        offsets.append(offsets[-1] + n)
+    cat = (lambda xs: T(np.concatenate(xs).astype(np.int32)))
+    vout = [torch.full((t.shape[0],), 5, dtype=torch.int32) for t in tables]
+    cout = [torch.full((t.shape[0],), 7, dtype=torch.int32) for t in tables]
+    sp.store_probe_grouped([T(t) for t in tables], cat(keys), cat(vals),
+                           cat(cnts), offsets, vout, cout)
+    for g, table in enumerate(tables):
+        if table.shape[0] == 0 or keys[g].shape[0] == 0:  # nothing to add
+            assert (vout[g] == 5).all() and (cout[g] == 7).all()
+            continue
+        vr, _, _ = pallas_store_probe(jnp.asarray(table), jnp.asarray(keys[g]),
+                                      jnp.asarray(vals[g]), interpret=True)
+        cr, _, _ = pallas_store_probe(jnp.asarray(table), jnp.asarray(keys[g]),
+                                      jnp.asarray(cnts[g]), interpret=True)
+        np.testing.assert_array_equal(vout[g].numpy(), 5 + np.asarray(vr))
+        np.testing.assert_array_equal(cout[g].numpy(), 7 + np.asarray(cr))

@@ -102,3 +102,41 @@ def test_direct_aggregate_and_topk_match_reference():
         op_r = RS.WindowOp(agg=agg, value=value, size=500, k=5)
         assert PS.direct_aggregate(keys, op_p, values=vals) == \
             RS.direct_aggregate(keys, op_r, values=vals)
+
+
+def test_merge_many_matches_per_store_merges():
+    """One grouped merge over a pane — fresh and warm stores, a warm store
+    meeting unseen keys, an empty chunk, and a store whose young
+    generation spills past 2^31 — equals the reference package's device
+    store fed one merge_entries per store."""
+    rng = np.random.default_rng(11)
+    big = 2 ** 30
+    pre = {1: np.array([3, 9, 40]), 2: np.array([5, 6]), 4: np.array([7])}
+    ours = {w: DeviceStateStore(device=CPU) for w in range(5)}
+    refs = {w: RS.make_store("device") for w in range(5)}
+    for w, ks in pre.items():  # warm stores
+        v = np.full(ks.shape[0], big if w == 4 else 3)
+        for st in (ours[w], refs[w]):
+            st.merge_entries(ks, v, v)
+    chunks = {0: np.array([2, 8, 11]),      # fresh
+              1: np.array([3, 9, 40]),      # warm, all keys known
+              2: np.array([1, 5, 70, 71]),  # warm, unseen keys
+              3: np.array([], dtype=np.int64),  # empty chunk
+              4: np.array([7])}             # 2^30 + 1.5 * 2^30: spills
+    cols = {}
+    for w, ks in chunks.items():
+        n = ks.shape[0]
+        v = (np.full(n, 3 * big // 2) if w == 4
+             else rng.integers(-40, 40, n))
+        c = np.full(n, 3 * big // 2) if w == 4 else rng.integers(1, 9, n)
+        cols[w] = (ks, v, c)
+    DeviceStateStore.merge_many([ours[w] for w in chunks],
+                                [cols[w] for w in chunks])
+    for w, (ks, v, c) in cols.items():
+        refs[w].merge_entries(ks, v, c)
+    for w in chunks:
+        for a, b in zip(ours[w].items(), refs[w].items()):
+            np.testing.assert_array_equal(a, b)
+    assert ours[4].items()[1].tolist() == [5 * big // 2]
+    assert ours[4]._base_v.max() > INT32_MAX // 2
+    assert ours[3].num_entries == 0
