@@ -24,9 +24,11 @@ C. **mamba2-780m at full width** (48 layers, d_model 1536, bf16, random
    ``ModelReplica``s with ``launch/serve.py``'s defaults.
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
-per source, started together), and at the end each kernel's wrapper is
-called on the inputs its path gave it, held against its plain PyTorch
-version and timed beside it.
+per source, started together; ptxas's registers and spills per kernel and
+the tensor-core instructions in the SSD library's SASS are printed), and
+at the end each kernel's wrapper is called on the inputs its path gave
+it, held against its plain PyTorch version and timed beside it; path C
+also prints where one prefill layer's time goes.
 
 Usage: ``python3 chip_smoke.py [--tuples N] [--seed S]`` from the root of
 a checkout (``--tuples`` cuts the stream of paths A and B).  Needs one
@@ -58,6 +60,8 @@ F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
+TF32_OPS = 495e12    # H100 SXM dense TF32 on the tensor cores
+SSD_OPS = TF32_OPS / 3   # the SSD kernels: 3 TF32 products (3xTF32) each
 # dependency-chain bounds, in SM cycles per dependent step on one warp, as
 # tools/chain_probe.py measures them on the H100: a shared-memory
 # read-compare-write (two loads, a select, a store: route_scan's least
@@ -308,17 +312,23 @@ def time_host(fn, reps, torch):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bytes_,
-               ops, library_ms=None):
+               ops, library_ms=None, ops_rate=F32_OPS):
     """One entry of the ``kernels`` line; the bound is the larger of the
-    bytes over the memory rate and the operations over the float32 rate."""
+    bytes over the memory rate and the operations over ``ops_rate``: the
+    float32 rate of the CUDA cores, or for the SSD kernels, whose products
+    run on the tensor cores in three TF32 passes, a third of the TF32 rate
+    (those rows also keep the CUDA-core bound, ``bound_f32_ms``)."""
     bound_b = bytes_ / HBM_BPS * 1e3
-    bound_o = ops / F32_OPS * 1e3
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": library_ms}
+    bound_o = ops / ops_rate * 1e3
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches[name],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations",
+           "library_ms": library_ms}
+    if ops_rate != F32_OPS:
+        row["bound_f32_ms"] = max(bound_b, ops / F32_OPS * 1e3)
+    return row
 
 
 def kernel_checks(cap, torch, np, launches):
@@ -585,10 +595,11 @@ def fish_path(keys, dev, torch, np):
     seq.update_many(keys)
     top_seq = top_keys(seq.counts, FISH_TOP)
     captured = {}
+    cap_epoch = min(FISH_CAPTURE, n_epochs - 1)  # a cut stream has fewer
 
     def capturing(name, fn, epoch_box):
         def call(*args, **kwargs):
-            if epoch_box[0] == FISH_CAPTURE and name not in captured:
+            if epoch_box[0] == cap_epoch and name not in captured:
                 captured[name] = (tuple(a.clone() for a in args),
                                   dict(kwargs))
             return fn(*args, **kwargs)
@@ -716,18 +727,26 @@ def mamba_path(seed, dev, torch, np):
         f"{MT.num_params(params):,} parameters, random init (seed {seed}) "
         f"in {time.perf_counter() - t0:.2f} s")
 
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
     captured = {}
     real_state, real_output = ssd.ssd_chunk_state, ssd.ssd_chunk_output
+    real_block, real_scan = ssm.mamba2_block, ops.ssd_scan
 
     def cap(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             if name not in captured:  # layer 0 of the first prefill
-                captured[name] = tuple(a.clone() for a in args)
-            return fn(*args)
+                captured[name] = (
+                    tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args), kwargs)
+            return fn(*args, **kwargs)
         return call
 
     ssd.ssd_chunk_state = cap("ssd_chunk_state", real_state)
     ssd.ssd_chunk_output = cap("ssd_chunk_output", real_output)
+    ssm.mamba2_block = cap("mamba2_block", real_block)
+    ops.ssd_scan = cap("ssd_scan", real_scan)
     ssd.LAUNCHES.update(dict.fromkeys(ssd.LAUNCHES, 0))
     vocab = cfg.vocab_size
     gen = np.random.default_rng(seed)
@@ -749,7 +768,11 @@ def mamba_path(seed, dev, torch, np):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
         # prefill-then-decode: decode token S after a prefill of S-1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         c2, _ = MT.prefill(params, {"tokens": toks[:, :prompt_len - 1]}, cfg)
+        torch.cuda.synchronize()
+        captured["prefill2_s"] = time.perf_counter() - t0
         step, _ = MT.decode_step(params, c2, toks[:, prompt_len - 1:
                                                   prompt_len], cfg)
         del c2
@@ -804,11 +827,14 @@ def mamba_path(seed, dev, torch, np):
             f"({serve_s / max(steps, 1) * 1e3:.2f} ms per step)")
     finally:
         ssd.ssd_chunk_state, ssd.ssd_chunk_output = real_state, real_output
+        ssm.mamba2_block, ops.ssd_scan = real_block, real_scan
     launches = dict(ssd.LAUNCHES)
     log(f"launches on the mamba path: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the mamba path: {missing}")
+    captured["prefill_s"] = prefill_s
+    captured["layers"] = cfg.num_layers
     return captured, launches
 
 
@@ -828,7 +854,7 @@ def ssd_kernel_checks(captured, launches, torch):
 
     rows = []
     src = "src/repro_torch/csrc/ssd.cu"
-    x, b, a_cum = captured["ssd_chunk_state"]
+    (x, b, a_cum), _ = captured["ssd_chunk_state"]
     bc, q, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     st_k, at_k = ssd.ssd_chunk_state(x, b, a_cum)
@@ -841,11 +867,12 @@ def ssd_kernel_checks(captured, launches, torch):
               + at_k.numel())
     rows.append(kernel_row(
         "ssd_chunk_state", src, "src/repro/kernels/ssd.py:51", launches, err,
-        ms, pms, nb, bc * h * (2 * q * n * p + q * n + q)))
+        ms, pms, nb, bc * h * (2 * q * n * p + q * n + q),
+        ops_rate=SSD_OPS))
     log(f"ssd_chunk_state BC={bc} Q={q} H={h} P={p} G={g} N={n}: kernel "
         f"{ms:.4f} ms, plain {pms:.4f} ms, max|err| {err:.3e}")
 
-    x, b, c, a_cum, prev = captured["ssd_chunk_output"]
+    (x, b, c, a_cum, prev), _ = captured["ssd_chunk_output"]
     y_k = ssd.ssd_chunk_output(x, b, c, a_cum, prev)
     y_p = ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev)
     err = ssd_compare("ssd_chunk_output", y_k, y_p)
@@ -856,13 +883,61 @@ def ssd_kernel_checks(captured, launches, torch):
     pairs = q * (q + 1) // 2
     nb = 4 * (x.numel() + b.numel() + c.numel() + a_cum.numel()
               + prev.numel() + y_k.numel())
-    ops = bc * h * (pairs * (2 * n + 2 * p + 2) + 2 * q * n * p + q * n + q)
+    # the scores C.B^T depend on the (chunk, group) only: counted once each
+    ops = (bc * h * (pairs * (2 * p + 2) + 2 * q * n * p + q * n + q)
+           + bc * g * pairs * 2 * n)
     rows.append(kernel_row(
         "ssd_chunk_output", src, "src/repro/kernels/ssd.py:108", launches,
-        err, ms, pms, nb, ops))
+        err, ms, pms, nb, ops, ops_rate=SSD_OPS))
     log(f"ssd_chunk_output BC={bc} Q={q} H={h} P={p}: kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms, max|err| {err:.3e}")
     return rows
+
+
+def prefill_split(captured, rows, torch):
+    """Where one prefill layer's time goes, with CUDA events on the inputs
+    layer 0 of the prefill gave each piece: ``mamba2_block`` whole, its
+    ``ssd_scan``, K4 and K5 (their rows), and the scan once more with K4
+    and K5 answered from a cache: the rest of the scan (the cross-chunk
+    combine loop of ``kernels/ops.py::ssd_scan``, the padding, casts and
+    cumsum).  The rest of the block is the projections, the causal conv,
+    the float32 elementwise passes and the norm."""
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.models import ssm
+
+    (p, x_in, cfg_ssm), _ = captured["mamba2_block"]
+    args, kw = captured["ssd_scan"]
+    block = time_cuda(lambda: ssm.mamba2_block(p, x_in, cfg_ssm), 10, torch)
+    scan = time_cuda(lambda: ops.ssd_scan(*args, **kw), 10, torch)
+    k4 = next(r["ms"] for r in rows if r["name"] == "ssd_chunk_state")
+    k5 = next(r["ms"] for r in rows if r["name"] == "ssd_chunk_output")
+    real = ssd.ssd_chunk_state, ssd.ssd_chunk_output
+    states = real[0](*captured["ssd_chunk_state"][0])
+    y = real[1](*captured["ssd_chunk_output"][0])
+    ssd.ssd_chunk_state = lambda *a: states
+    ssd.ssd_chunk_output = lambda *a: y
+    try:
+        rest = time_cuda(lambda: ops.ssd_scan(*args, **kw), 10, torch)
+    finally:
+        ssd.ssd_chunk_state, ssd.ssd_chunk_output = real
+    split = {"layer_ms": block, "ssd_scan_ms": scan,
+             "ssd_chunk_state_ms": k4, "ssd_chunk_output_ms": k5,
+             "scan_without_k4_k5_ms": rest, "block_rest_ms": block - scan,
+             "chunks": -(-args[0].shape[1] // kw["chunk"]),
+             "prefill_ms_per_layer": captured["prefill_s"] * 1e3
+             / captured["layers"],
+             "second_prefill_ms_per_layer": captured["prefill2_s"] * 1e3
+             / captured["layers"]}
+    log(f"prefill per layer (CUDA events, layer 0's inputs, "
+        f"{split['chunks']} chunks): mamba2_block {block:.3f} ms = ssd_scan "
+        f"{scan:.3f} (K4 {k4:.3f}, K5 {k5:.3f}; without them {rest:.3f}: "
+        f"the combine loop, casts, cumsum) + the rest of the block "
+        f"{split['block_rest_ms']:.3f} (projections, conv, elementwise, "
+        f"norm); the prefill's wall per layer "
+        f"{split['prefill_ms_per_layer']:.3f} ms cold, the second "
+        f"prefill's {split['second_prefill_ms_per_layer']:.3f}")
+    log(f"prefill split: {json.dumps(split)}")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -909,10 +984,22 @@ def main() -> int:
     built = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s wall, one nvcc per source "
         f"in parallel (built: {', '.join(built) or 'none, cached'})")
-    for name, rec in _build.BUILD_LOG.items():
-        for line in rec.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+    for name in _build.BUILD_LOG:
+        for kern, r in _build.ptxas_report(name).items():
+            log(f"  ptxas[{name}] {kern}: {r['registers']} registers, spill "
+                f"stores {r['spill_stores']} B, spill loads "
+                f"{r['spill_loads']} B")
+    sass = _build.sass_counts("ssd", ("HMMA", "HGMMA"))
+    if sass is None:
+        log("  sass[ssd]: tensor-core instruction counts not available (no "
+            "cuobjdump)")
+    else:
+        for kern, counts in sass.items():
+            log(f"  sass[ssd] {kern}: HMMA {counts['HMMA']}, HGMMA "
+                f"{counts['HGMMA']}")
+        bare = [k for k, c in sass.items() if not c["HMMA"]]
+        if bare or not sass:
+            fail(f"SSD kernels without tensor-core instructions: {bare}")
 
     dev = torch.device("cuda")
     n = args.tuples - args.tuples % FEED if args.tuples >= FEED else args.tuples
@@ -1020,6 +1107,7 @@ def main() -> int:
     # -- path C: mamba2-780m at full width ------------------------------------------
     ssd_cap, ssd_launches = mamba_path(args.seed, dev, torch, np)
     rows += ssd_kernel_checks(ssd_cap, ssd_launches, torch)
+    prefill_split(ssd_cap, rows, torch)
     log(f"path C (mamba2-780m) done; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

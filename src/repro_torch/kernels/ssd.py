@@ -8,9 +8,12 @@ state's contribution, ``y = ((C·Bᵀ)∘L)·X + (C·exp(a_cum))·S_prev``).
 :func:`repro_torch.kernels.ops.ssd_scan` runs them with the cross-chunk
 combine between.
 
-* **Kernels** (``csrc/ssd.cu``): float32 on CUDA cores; K4 one block per
-  (chunk, head), K5 one block per (chunk, head, 32 rows of the score
-  matrix), operands staged through shared-memory tiles.
+* **Kernels** (``csrc/ssd.cu``): every product on the tensor cores
+  (``mma.sync`` m16n8k8, each float32 operand split into two TF32 parts,
+  three passes, float32 accumulation), operands staged by ``cp.async``
+  into double-buffered shared-memory tiles; K4 one block per (chunk,
+  head), K5 one block per (chunk, 64 rows of y, up to 8 heads of one
+  group, which share the scores C·Bᵀ).
 * **Plain versions**: the same chunk algebra as einsums.
 
 For a CUDA tensor a wrapper launches its kernel (or raises); only a CPU
@@ -26,13 +29,15 @@ import torch
 from . import _build
 
 __all__ = ["ssd_chunk_state", "ssd_chunk_output", "ssd_chunk_state_plain",
-           "ssd_chunk_output_plain", "LAUNCHES", "MAX_Q", "MAX_N", "MAX_P"]
+           "ssd_chunk_output_plain", "check_kernel_shape", "LAUNCHES",
+           "MAX_Q", "MAX_N", "MAX_P"]
 
 #: kernel launches, counted where the wrappers launch
 LAUNCHES = {"ssd_chunk_state": 0, "ssd_chunk_output": 0}
 
-#: the kernels' limits (``csrc/ssd.cu``): chunk, state size, head dim (a
-#: divisor of 256)
+#: the kernels' limits (``csrc/ssd.cu``): chunk, state size (a multiple
+#: of 16: K4's warps own 16-row strips), head dim (a multiple of 8: the
+#: MMA's column tile)
 MAX_Q, MAX_N, MAX_P = 256, 128, 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -60,14 +65,29 @@ def _check(name, x, b, a_cum, c=None, prev=None):
             raise ValueError(f"{name}: all tensors on one device")
     if g < 1 or h % g:
         raise ValueError(f"{name}: {h} heads do not split into {g} groups")
-    if x.device.type == "cuda" and (q > MAX_Q or n > MAX_N or p > MAX_P
-                                    or 256 % p):
-        raise ValueError(f"{name}: the kernel takes chunk <= {MAX_Q}, "
-                         f"d_state <= {MAX_N} and a head dim dividing 256 "
-                         f"up to {MAX_P}; got Q={q} N={n} P={p}")
+    if x.device.type == "cuda":
+        check_kernel_shape(name, q, n, p)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
     return bc, q, h, p, g, n
+
+
+def check_kernel_shape(name, q, n, p):
+    """Raise unless the CUDA kernels take chunk ``q``, state size ``n`` and
+    head dim ``p``."""
+    if not (1 <= q <= MAX_Q and 16 <= n <= MAX_N and n % 16 == 0
+            and 8 <= p <= MAX_P and p % 8 == 0):
+        raise ValueError(f"{name}: the kernel takes 1 <= chunk <= {MAX_Q}, "
+                         f"d_state a multiple of 16 up to {MAX_N} and a head"
+                         f" dim a multiple of 8 up to {MAX_P}; got Q={q} "
+                         f"N={n} P={p}")
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels stage rows by
+    16-byte copies); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _per_head(t, h):
@@ -110,7 +130,7 @@ def ssd_chunk_state(x, b, a_cum):
     bc, q, h, p, g, n = _check("ssd_chunk_state", x, b, a_cum)
     if x.device.type == "cpu":
         return ssd_chunk_state_plain(x, b, a_cum)
-    x, b, a_cum = x.contiguous(), b.contiguous(), a_cum.contiguous()
+    x, b, a_cum = _aligned(x), _aligned(b), a_cum.contiguous()
     states = torch.empty((bc, h, n, p), dtype=torch.float32, device=x.device)
     a_tot = torch.empty((bc, h), dtype=torch.float32, device=x.device)
     lib = _build.library("ssd", _SIGS)
@@ -133,8 +153,8 @@ def ssd_chunk_output(x, b, c, a_cum, prev_states):
                                prev_states)
     if x.device.type == "cpu":
         return ssd_chunk_output_plain(x, b, c, a_cum, prev_states)
-    x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
-    a_cum, prev_states = a_cum.contiguous(), prev_states.contiguous()
+    x, b, c = _aligned(x), _aligned(b), _aligned(c)
+    a_cum, prev_states = a_cum.contiguous(), _aligned(prev_states)
     y = torch.empty((bc, q, h, p), dtype=torch.float32, device=x.device)
     lib = _build.library("ssd", _SIGS)
     err = lib.ssd_chunk_output(x.data_ptr(), b.data_ptr(), c.data_ptr(),

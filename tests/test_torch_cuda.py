@@ -8,8 +8,9 @@ JAX package, so it runs on a machine with the card alone:
 Integer outputs must match exactly; so must the float ones of the stream
 and FISH kernels, since both versions round the same float32/float64
 operations in the same order (the kernels build with ``-fmad=false``).
-The SSD kernels sum their dot products in another order than the plain
-einsums: within 3e-4 (``tests/test_kernels.py``'s bound).
+The SSD kernels run their products on the tensor cores in 3xTF32 and sum
+in another order than the plain einsums: within 3e-4
+(``tests/test_kernels.py``'s bound).
 """
 
 import numpy as np
@@ -361,6 +362,77 @@ def test_cuda_ssd_chunk_kernels_match_plain(bc, q, h, p, g, n):
     assert torch.equal(at, at_p)
     _ssd_close(ssd.ssd_chunk_output(x, b, c, a_cum, prev),
                ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev))
+
+
+def _ssd_inputs(bc, q, h, p, g, n, step, dev):
+    """x, b, c, a_cum, prev on the card; a_cum falls by ``step`` x |N(0,1)|
+    a row (0.8 step on average)."""
+    rng = np.random.default_rng(q + h + g)
+    up = (lambda a: T(a.astype(np.float32)).to(dev))
+    x = up(rng.normal(size=(bc, q, h, p)))
+    b = up(rng.normal(size=(bc, q, g, n)) * 0.3)
+    c = up(rng.normal(size=(bc, q, g, n)) * 0.3)
+    a_cum = up(np.cumsum(-np.abs(rng.normal(size=(bc, q, h))) * step,
+                         axis=1))
+    prev = up(rng.normal(size=(bc, h, n, p)))
+    return x, b, c, a_cum, prev
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bc,q,h,p,g,n,step", [
+    # ~20 a step: exp(a_i - a_j) above the diagonal would overflow to inf,
+    # and inf * 0 is NaN; below it most weights underflow to 0
+    ("steep_decay", 2, 128, 8, 64, 1, 128, 25.0),
+    ("ragged_q100", 2, 100, 4, 32, 1, 32, 0.5),   # 64-row blocks, 32-row tiles
+    ("two_groups", 2, 128, 8, 64, 2, 128, 0.5),   # G = 2 at the full chunk
+    ("unaligned_views", 2, 32, 4, 16, 1, 16, 0.5),
+    ("chunk_256", 1, 256, 4, 64, 1, 128, 0.5),    # the largest chunk taken
+    ("ragged_q200", 1, 200, 4, 64, 1, 128, 0.5),  # four 64-row blocks
+    ("p24_n48_g3", 2, 72, 6, 24, 3, 48, 0.5),     # odd tile counts, G = 3
+])
+def test_cuda_ssd_chunk_kernels_edge_cases_match_plain(case, bc, q, h, p, g,
+                                                       n, step):
+    """The SSD kernels beyond the main path's inputs, against their plain
+    versions: finite where the plain version is, within 3e-4."""
+    dev = _card()
+    x, b, c, a_cum, prev = _ssd_inputs(bc, q, h, p, g, n, step, dev)
+    want_st, want_at = ssd.ssd_chunk_state_plain(x, b, a_cum)
+    want_y = ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev)
+    if case == "unaligned_views":  # the wrapper copies them to alignment
+        x, b, c, prev = map(_unaligned, (x, b, c, prev))
+    st, at = ssd.ssd_chunk_state(x, b, a_cum)
+    y = ssd.ssd_chunk_output(x, b, c, a_cum, prev)
+    for got, want in ((st, want_st), (y, want_y)):
+        assert bool(torch.isfinite(want).all())
+        assert bool(torch.isfinite(got).all())
+        _ssd_close(got, want)
+    assert torch.equal(at, want_at)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernels_refuse_shapes_they_do_not_take():
+    """A CUDA shape outside the kernels' limits raises before any launch;
+    nothing falls back to the plain version."""
+    dev = _card()
+    x, b, c, a_cum, prev = _ssd_inputs(1, 16, 4, 16, 1, 16, 0.5, dev)
+    before = dict(ssd.LAUNCHES)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ssd.ssd_chunk_state(x[..., :12].contiguous(), b, a_cum)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ssd.ssd_chunk_output(x, b[..., :8].contiguous(),
+                             c[..., :8].contiguous(), a_cum,
+                             prev[:, :, :8].contiguous())
+    assert ssd.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ with the Pallas kernels (interpret mode) and the sequential oracle
 ``ssd_ref`` on the same numpy-seeded inputs, within 3e-4
 (``tests/test_kernels.py``'s bound: the chunked form sums in another order
 than the recurrence).  The CUDA kernels are held against the plain versions
-on the card by ``tests/test_torch_cuda.py``.
+on the card by ``tests/test_torch_cuda.py``; here their arithmetic (split
+TF32 on the tensor cores) is held against float64.
 """
 
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ssd as rssd
 from repro.kernels.ref import ssd_ref as jax_ssd_ref
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
 from repro_torch.kernels import ssd as pssd
@@ -117,3 +119,130 @@ def test_ssd_wrappers_reject_bad_input():
         pssd.ssd_chunk_state(x, b, torch.zeros(2, 16, 4))
     with pytest.raises(TypeError, match="float32"):
         pssd.ssd_chunk_state(x.double(), b, torch.zeros(2, 16, 4))
+
+
+# -- the CUDA kernels' arithmetic: 3xTF32 on the tensor cores -----------------
+
+
+def _tf32(v):
+    """float32 → TF32 as the kernels make it: the low 13 mantissa bits
+    cleared."""
+    bits = np.asarray(v, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)
+    return bits.view(np.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)  # v - hi is exact in float32
+
+
+def _mma(acc, a, b, passes):
+    """acc (..., M, P) float32 += a (..., M, K) @ b (..., K, P) as the
+    kernels' m16n8k8 MMAs do it: K in steps of 8, each step's TF32 products
+    summed exactly and added to the float32 accumulator, for each pass
+    (three: lo·hi, hi·lo, hi·hi; or one: hi·hi)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k in range(0, a.shape[-1], 8):
+        for u, v in terms:
+            part = (u[..., k:k + 8].astype(np.float64)
+                    @ v[..., k:k + 8, :].astype(np.float64))
+            acc = (acc + part).astype(np.float32)
+    return acc
+
+
+def _tc_state(x, b, a_cum, passes):
+    """K4 on the tensor cores (states) and in float64."""
+    h, g = x.shape[2], b.shape[2]
+    w = np.exp(a_cum[:, -1:, :] - a_cum).astype(np.float32)
+    bw = (np.repeat(b, h // g, axis=2) * w[..., None]).astype(np.float32)
+    lhs = bw.transpose(0, 2, 3, 1)   # (BC, H, N, Q)
+    rhs = x.transpose(0, 2, 1, 3)    # (BC, H, Q, P)
+    want = lhs.astype(np.float64) @ rhs.astype(np.float64)
+    got = _mma(np.zeros(want.shape, np.float32), lhs, rhs, passes)
+    return got, want
+
+
+def _tc_output(x, b, c, a_cum, prev, passes):
+    """K5 on the tensor cores (y, in the kernel's order: the carried state,
+    then the masked, decayed scores times x) and in float64."""
+    q, h, g = x.shape[1], x.shape[2], b.shape[2]
+    bh = np.repeat(b, h // g, axis=2).transpose(0, 2, 1, 3)  # (BC, H, Q, N)
+    ch = np.repeat(c, h // g, axis=2).transpose(0, 2, 1, 3)
+    at = a_cum.transpose(0, 2, 1)                             # (BC, H, Q)
+    mask = np.tril(np.ones((q, q), bool))
+    rel = np.where(mask, at[..., :, None] - at[..., None, :], 0.0)
+    l_mat = np.where(mask, np.exp(rel.astype(np.float32)), 0.0).astype(
+        np.float32)
+    c_dec = (ch * np.exp(at)[..., None]).astype(np.float32)
+    xt = x.transpose(0, 2, 1, 3)
+    scores = ch.astype(np.float64) @ bh.astype(np.float64).swapaxes(-1, -2)
+    want = ((scores * l_mat) @ xt
+            + c_dec.astype(np.float64) @ prev.astype(np.float64))
+    got = _mma(np.zeros(want.shape, np.float32), c_dec, prev, passes)
+    s = _mma(np.zeros(scores.shape, np.float32), ch,
+             np.ascontiguousarray(bh.swapaxes(-1, -2)), passes)
+    got = _mma(got, (s * l_mat).astype(np.float32), xt, passes)
+    return got, want
+
+
+def _worst(got, want):
+    """Largest |got - want| over its allowance atol + rtol·|want|."""
+    gap = np.abs(got.astype(np.float64) - want)
+    return float((gap / (TOL["atol"] + TOL["rtol"] * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("bc,q,h,p,g,n", [
+    (2, 128, 48, 64, 1, 128),   # mamba2-780m's tile
+    (3, 32, 4, 16, 2, 16),      # a small one, grouped heads
+])
+def test_split_tf32_products_hold_the_ssd_bound(bc, q, h, p, g, n):
+    """The CUDA kernels' arithmetic: each float32 operand split into TF32
+    hi and lo parts, three tensor-core passes, float32 accumulation.
+
+    On the inputs of ``test_cuda_ssd_chunk_kernels_match_plain`` (same
+    shapes and seeds) that stays within rtol = atol = 3e-4 of float64 at
+    about 1 % of the allowance.  A single TF32 pass does not: K4 and K5
+    miss by 4.7x and 12.5x at mamba2-780m's tile (2.8x and 5.4x at the
+    small one).  That is why the kernels pay for three passes."""
+    rng = np.random.default_rng(q + h)
+    f32 = (lambda a: a.astype(np.float32))
+    x = f32(rng.normal(size=(bc, q, h, p)))
+    b = f32(rng.normal(size=(bc, q, g, n)) * 0.3)
+    c = f32(rng.normal(size=(bc, q, g, n)) * 0.3)
+    a_cum = f32(np.cumsum(-np.abs(rng.normal(size=(bc, q, h))) * 0.5,
+                          axis=1))
+    prev = f32(rng.normal(size=(bc, h, n, p)))
+    for passes, holds in ((3, True), (1, False)):
+        worst_state = _worst(*_tc_state(x, b, a_cum, passes))
+        worst_out = _worst(*_tc_output(x, b, c, a_cum, prev, passes))
+        if holds:
+            assert worst_state < 0.05 and worst_out < 0.05
+        else:
+            assert worst_state > 1.0 and worst_out > 1.0
+    # the plain version (float32 einsums) sits inside the bound too
+    st, _ = pssd.ssd_chunk_state_plain(*map(torch.from_numpy, (x, b, a_cum)))
+    assert _worst(st.numpy(), _tc_state(x, b, a_cum, 3)[1]) < 1.0
+
+
+@pytest.mark.parametrize("q,n,p", [
+    (128, 128, 72),   # head dim past 64
+    (128, 136, 64),   # state past 128
+    (128, 24, 64),    # state not a multiple of 16
+    (128, 128, 12),   # head dim not a multiple of 8
+    (257, 128, 64),   # chunk past 256
+])
+def test_ssd_kernel_shape_limits(q, n, p):
+    """The shapes the CUDA kernels refuse raise before any launch; every
+    shape the port runs passes: each config's chunk, state size and head
+    dim, full and reduced, and the card tests' cases."""
+    with pytest.raises(ValueError, match="kernel takes"):
+        pssd.check_kernel_shape("ssd_chunk_state", q, n, p)
+    runs = {(128, 128, 64), (16, 16, 16), (32, 16, 16), (48, 32, 32),
+            (100, 32, 32), (1, 16, 8), (256, 128, 64)}
+    for arch in list_archs():
+        for cfg in (get_config(arch), reduced_config(get_config(arch))):
+            runs.add((cfg.ssm.chunk, cfg.ssm.d_state, cfg.ssm.head_dim))
+    for shape in sorted(runs):
+        pssd.check_kernel_shape("ssd_chunk_state", *shape)
