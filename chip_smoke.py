@@ -13,10 +13,16 @@ A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
    give bit-identical reports.
 B. **The device FISH tracker** — the same stream, one ``epoch_update`` per
    epoch at the paper's ``FishParams()``, once through ``fish_epoch_count``
-   (``fused_fn``) and once through ``fish_count`` (``match_fn``), then
-   ``classify_hot_keys`` at 128 workers.  Each path equals the kernels'
-   plain versions on the CPU over the whole stream, and its top-20 hot set
-   meets the sequential ``EpochFrequencyTracker``'s with Jaccard >= 0.6.
+   (``fused_fn``), once through ``fish_count`` (``match_fn``) and once
+   under each tie rule through ``fish_epoch_update`` (``epoch_fn``, the
+   whole epoch in one launch), then ``classify_hot_keys`` at 128 workers.
+   Each path equals the kernels' plain versions on the CPU over the whole
+   stream, each ``epoch_fn`` run equals the run with its tie rule
+   (``fused_fn`` or ``match_fn``), and each top-20 hot set meets the
+   sequential ``EpochFrequencyTracker``'s with Jaccard >= 0.6.  The ms per
+   epoch of all four runs is printed; the FISH kernels' rows also carry a
+   device-only time (``torch.profiler``, else CUDA events around single
+   launches) beside an empty launch's.
 C. **mamba2-780m at full width** (48 layers, d_model 1536, bf16, random
    weights from a seed): a prefill of 4 prompts of 4,096 tokens (the
    ``prefill_32k`` shape, 32 x 32,768, cut for time), 32 decode steps, the
@@ -582,9 +588,13 @@ def top_keys(counts_by_key, k):
 
 
 def fish_path(keys, dev, torch, np):
-    """One ``epoch_update`` per epoch over the stream, on each path, on the
-    card and on the CPU's plain versions; CHK at 128 workers.  Returns the
-    captured kernel inputs and the launch counts."""
+    """One ``epoch_update`` per epoch over the stream, on each of four
+    paths — ``fused_fn`` (K1b), ``match_fn`` (K1a) and ``epoch_fn``
+    (``fish_epoch_update``, the whole epoch in one launch) under each tie
+    rule — on the card and on the CPU's plain versions; CHK at 128
+    workers.  Returns the captured kernel inputs and the launch counts."""
+    import functools
+
     from repro_torch.core import fish as F
     from repro_torch.kernels import fish_count as fc
     from repro_torch.kernels import ops
@@ -605,13 +615,25 @@ def fish_path(keys, dev, torch, np):
             return fn(*args, **kwargs)
         return call
 
-    paths = {"fused_fn": ops.fish_epoch_count, "match_fn": ops.fish_count}
+    # path: (epoch_update keyword, capture name, function); "epoch_fn
+    # first" must end where "fused_fn" does, "epoch_fn key" where
+    # "match_fn" does (the same tie rules)
+    paths = {
+        "fused_fn": ("fused_fn", "fish_epoch_count", ops.fish_epoch_count),
+        "match_fn": ("match_fn", "fish_count", ops.fish_count),
+        "epoch_fn first": ("epoch_fn", "fish_epoch_update first",
+                           functools.partial(ops.fish_epoch_update,
+                                             ties="first")),
+        "epoch_fn key": ("epoch_fn", "fish_epoch_update key",
+                         functools.partial(ops.fish_epoch_update,
+                                           ties="key"))}
+    same_as = {"epoch_fn first": "fused_fn", "epoch_fn key": "match_fn"}
     fc.LAUNCHES.update(dict.fromkeys(fc.LAUNCHES, 0))
     states, epoch_ms = {}, {}
     keys_dev = torch.from_numpy(keys).to(dev)
-    for path, fn in paths.items():
+    for path, (kw_name, cap_name, fn) in paths.items():
         box = [0]
-        kw = {path: capturing(fn.__name__, fn, box)}
+        kw = {kw_name: capturing(cap_name, fn, box)}
         st = F.init_fish_state(p.k_max, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -624,24 +646,34 @@ def fish_path(keys, dev, torch, np):
         states[path] = st
     launches = dict(fc.LAUNCHES)
     log(f"fish tracker: {n_epochs} epochs of {p.epoch}, k_max {p.k_max}, "
-        f"alpha {p.alpha}: fused_fn {epoch_ms['fused_fn']:.3f} ms/epoch, "
-        f"match_fn {epoch_ms['match_fn']:.3f} ms/epoch (host wall); "
-        f"launches {json.dumps(launches)}")
+        f"alpha {p.alpha}, ms/epoch (host wall, synchronized, one run): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in epoch_ms.items())
+        + f"; launches {json.dumps(launches)}")
+    log(f"fish tracker ms/epoch: {json.dumps(epoch_ms)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the FISH tracker path: {missing}")
+    if launches["fish_epoch_update"] != 2 * n_epochs:
+        fail(f"fish_epoch_update launched {launches['fish_epoch_update']} "
+             f"times, not 2 x {n_epochs}")
 
     # the same epochs through the plain versions on the CPU
     keys_cpu = torch.from_numpy(keys)
-    for path, fn in paths.items():
+    for path, (kw_name, _, fn) in paths.items():
         st = F.init_fish_state(p.k_max, device="cpu")
         for e in range(n_epochs):
             st = F.epoch_update(st, keys_cpu[e * p.epoch:(e + 1) * p.epoch],
-                                alpha=p.alpha, **{path: fn})
+                                alpha=p.alpha, **{kw_name: fn})
         got = states[path]
         if not (torch.equal(got["keys"].cpu(), st["keys"])
                 and torch.equal(got["counts"].cpu(), st["counts"])):
             fail(f"fish tracker ({path}): card != plain versions on the CPU")
+        twin = states.get(same_as.get(path))
+        if twin is not None and not (
+                torch.equal(got["keys"], twin["keys"])
+                and torch.equal(got["counts"], twin["counts"])):
+            fail(f"fish tracker ({path}): table != the {same_as[path]} "
+                 "path's (same tie rule)")
         order = torch.sort(got["counts"], descending=True,
                            stable=True).indices[:FISH_TOP]
         top_dev = set(got["keys"][order].tolist())
@@ -662,44 +694,156 @@ def fish_path(keys, dev, torch, np):
         if n_hot == 0 or int(d[hot].max()) > FISH_WORKERS:
             fail(f"fish tracker ({path}): CHK gave {n_hot} hot keys")
         log(f"check fish tracker {path}: ok (card == plain over the whole "
-            f"stream; top-{FISH_TOP} Jaccard {jac:.2f} vs sequential; "
+            f"stream{'' if twin is None else ' == ' + same_as[path]}; "
+            f"top-{FISH_TOP} Jaccard {jac:.2f} vs sequential; "
             f"{n_hot} hot keys at {FISH_WORKERS} workers, d up to "
             f"{int(d[hot].max())})")
     return captured, launches
 
 
+def device_ms(fn, reps, torch):
+    """Device-only time of one call of ``fn``: the summed durations of the
+    device operations (kernels, memsets) it issues, from
+    ``torch.profiler``'s trace over ``reps`` calls; where the trace shows
+    no device time, the median of CUDA events around single calls after a
+    sync.  Returns (ms, how, {device op name: count})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.time_range.elapsed_us()
+            names[e.name[:40]] = names.get(e.name[:40], 0) + 1
+    if total > 0:
+        return total / reps / 1e3, "profiler", names
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[reps // 2], "events", names
+
+
+def bitonic_stages(n):
+    """Barrier-separated stages of a bitonic sort of n entries padded to a
+    power of two n': log2 n' (log2 n' + 1) / 2."""
+    lg = max(n - 1, 0).bit_length()
+    return lg * (lg + 1) // 2
+
+
 def fish_kernel_checks(captured, launches, torch):
+    import ctypes
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels import fish_count as fc
 
     rows = []
     src = "src/repro_torch/csrc/fish_count.cu"
+    lib = _build.library("fish_count", fc._SIGS)
+    stream = _build.stream_ptr(torch.device("cuda"))
+
+    def noop():
+        _build.check(lib.fish_noop(stream), "fish_noop")
+
+    floor_ms, floor_how, _ = device_ms(noop, 200, torch)
+    log(f"empty launch: device {floor_ms:.5f} ms ({floor_how}), issue "
+        f"{time_cuda(noop, 200, torch):.5f} ms")
+
+    def timed(name, call, reps=200):
+        ms = time_cuda(call, reps, torch)
+        dms, how, names = device_ms(call, reps, torch)
+        log(f"  {name}: device ops per call {json.dumps(names)} / {reps}")
+        return ms, dms, how
+
     (tbl, ks), _ = captured["fish_count"]
     outs_k = fc.fish_count(tbl, ks)
     err = compare(outs_k, fc.fish_count_plain(tbl, ks),
                   ("counts", "matched"))
-    ms = time_cuda(lambda: fc.fish_count(tbl, ks), 200, torch)
+    ms, dms, how = timed("fish_count", lambda: fc.fish_count(tbl, ks))
     pms = time_host(lambda: fc.fish_count_plain(tbl, ks), 5, torch)
     k_, n_ = tbl.shape[0], ks.shape[0]
     rows.append(kernel_row(
         "fish_count", src, "src/repro/kernels/fish_count.py:50", launches,
         err, ms, pms, 4 * k_ + 4 * n_ + 4 * k_ + n_, n_ * k_))
-    log(f"fish_count    K={k_} N={n_}: kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, max|err| {err}")
+    rows[-1].update(device_ms=dms, device_by=how, empty_launch_ms=floor_ms)
+    log(f"fish_count    K={k_} N={n_}: kernel {ms:.4f} ms (issue-bound "
+        f"loop), device {dms:.5f} ms ({how}), plain {pms:.4f} ms, "
+        f"max|err| {err}")
 
     (tbl, cnt, ks), kw = captured["fish_epoch_count"]
     outs_k = fc.fish_epoch_count(tbl, cnt, ks, **kw)
     err = compare(outs_k, fc.fish_epoch_count_plain(tbl, cnt, ks, **kw),
                   ("counts", "matched", "cand", "first"))
-    ms = time_cuda(lambda: fc.fish_epoch_count(tbl, cnt, ks, **kw), 200,
-                   torch)
+    ms, dms, how = timed("fish_epoch_count",
+                         lambda: fc.fish_epoch_count(tbl, cnt, ks, **kw))
     pms = time_host(lambda: fc.fish_epoch_count_plain(tbl, cnt, ks, **kw),
                     5, torch)
     rows.append(kernel_row(
         "fish_epoch_count", src, "src/repro/kernels/fish_count.py:133",
         launches, err, ms, pms, 8 * k_ + 4 * n_ + 4 * k_ + 6 * n_,
         n_ * k_ + n_ * n_ + 2 * k_))
-    log(f"fish_epoch_count K={k_} N={n_}: kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, max|err| {err}")
+    rows[-1].update(device_ms=dms, device_by=how, empty_launch_ms=floor_ms)
+    log(f"fish_epoch_count K={k_} N={n_}: kernel {ms:.4f} ms (issue-bound "
+        f"loop), device {dms:.5f} ms ({how}), plain {pms:.4f} ms, "
+        f"max|err| {err}")
+
+    # fish_epoch_update: its chain of sort stages, each a measured barrier
+    # round trip of a block of its width
+    probe = torch.zeros(2, dtype=torch.int64, device="cuda")
+    mhz = sm_clock_mhz()
+
+    for ties in fc.TIES:
+        (tbl, cnt, ks), kw = captured[f"fish_epoch_update {ties}"]
+        k_, n_ = tbl.shape[0], ks.shape[0]
+        call = (lambda t=ties: fc.fish_epoch_update(tbl, cnt, ks, ties=t,
+                                                    **kw))
+        err = compare(call(), fc.fish_epoch_update_plain(
+            tbl, cnt, ks, ties=ties, **kw), ("keys", "counts"))
+        ms, dms, how = timed(f"fish_epoch_update {ties}", call)
+        pms = time_host(lambda t=ties: fc.fish_epoch_update_plain(
+            tbl, cnt, ks, ties=t, **kw), 5, torch)
+        kp = 1 << max(k_ - 1, 0).bit_length()
+        np_ = 1 << max(n_ - 1, 0).bit_length()
+        stages = (bitonic_stages(kp) + bitonic_stages(np_)
+                  + bitonic_stages(max(kp, np_)))
+        threads = min(1024, max(32, max(kp, np_) // 2))
+        reps = 10_000
+        _build.check(lib.fish_barrier_probe(threads, reps, probe.data_ptr(),
+                                            stream), "fish_barrier_probe")
+        torch.cuda.synchronize()
+        stage_cycles = int(probe[0]) / reps
+        chain = stages * stage_cycles / (mhz * 1e3)
+        compares = (kp // 2) * 2 * bitonic_stages(kp) \
+            + (np_ // 2) * 2 * bitonic_stages(np_) \
+            + n_ * max(kp - 1, 1).bit_length() + n_
+        rows.append(kernel_row(
+            "fish_epoch_update", src, "src/repro/kernels/fish_count.py:133",
+            launches, err, ms, pms, 16 * k_ + 4 * n_, compares))
+        rows[-1].update(also_replaces=[
+            "src/repro/kernels/fish_count.py:50",
+            "src/repro/core/fish.py:319 (epoch_update after the kernel)"],
+            ties=ties, device_ms=dms, device_by=how,
+            empty_launch_ms=floor_ms, chain_bound_ms=chain,
+            sort_stages=stages, barrier_round_trip_cycles=stage_cycles)
+        log(f"fish_epoch_update ties={ties} K={k_} N={n_} max_new="
+            f"{kw['max_new']}: kernel {ms:.4f} ms (issue-bound loop), "
+            f"device {dms:.5f} ms ({how}), empty launch {floor_ms:.5f} ms, "
+            f"plain {pms:.4f} ms, max|err| {err}; chain bound {stages} "
+            f"stages x {stage_cycles:.1f} cycles (a barrier round trip of "
+            f"{threads} threads) at {mhz:.0f} MHz = {chain:.5f} ms; "
+            f"launches {launches['fish_epoch_update']}")
     return rows
 
 
@@ -1101,14 +1245,18 @@ def main() -> int:
 
     # -- path B: the device FISH tracker ------------------------------------------
     fish_cap, fish_launches = fish_path(keys, dev, torch, np)
-    rows += fish_kernel_checks(fish_cap, fish_launches, torch)
     log(f"path B (FISH tracker) done at {time.perf_counter() - t_start:.1f} s")
 
     # -- path C: mamba2-780m at full width ------------------------------------------
     ssd_cap, ssd_launches = mamba_path(args.seed, dev, torch, np)
-    rows += ssd_kernel_checks(ssd_cap, ssd_launches, torch)
-    prefill_split(ssd_cap, rows, torch)
-    log(f"path C (mamba2-780m) done; elapsed "
+    ssd_rows = ssd_kernel_checks(ssd_cap, ssd_launches, torch)
+    prefill_split(ssd_cap, ssd_rows, torch)
+    log(f"path C (mamba2-780m) done at {time.perf_counter() - t_start:.1f} s")
+
+    # path B's kernels last: their device times come from torch.profiler,
+    # whose tracing is kept away from the timed paths
+    rows += fish_kernel_checks(fish_cap, fish_launches, torch) + ssd_rows
+    log(f"FISH kernel checks done; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

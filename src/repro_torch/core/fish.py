@@ -9,7 +9,8 @@ the evicted minimum, Alg. 1 lines 19-22) and per-epoch time decay
 The device form: :class:`FishState` (the bounded counter table as torch
 tensors), :func:`epoch_update` (one whole epoch through the table, its
 match-count through the ``fish_count`` or ``fish_epoch_count`` kernel of
-:mod:`repro_torch.kernels.ops`) and :func:`classify_hot_keys`
+:mod:`repro_torch.kernels.ops`, or the whole epoch through
+``fish_epoch_update``) and :func:`classify_hot_keys`
 (CHK over the whole table).  The fused engine keeps its own dense device
 tracker (:mod:`repro_torch.kernels.feed_fused`).
 """
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.fish_count import compose_epoch
 from ..kernels.ops import fish_count
 
 __all__ = [
@@ -300,13 +302,6 @@ def init_fish_state(k_max: int, device=None) -> FishState:
         counts=torch.zeros((k_max,), dtype=torch.float32, device=dev))
 
 
-def _top(scores: torch.Tensor, k: int):
-    """``jax.lax.top_k``: the k largest, ties to the lower index (a stable
-    descending sort; ``torch.topk`` leaves the tie order open)."""
-    vals, idx = torch.sort(scores, descending=True, stable=True)
-    return vals[:k], idx[:k]
-
-
 def epoch_update(
     state: FishState,
     batch_keys: torch.Tensor,
@@ -315,6 +310,7 @@ def epoch_update(
     max_new: int = 64,
     match_fn=None,
     fused_fn=None,
+    epoch_fn=None,
 ) -> FishState:
     """Process one epoch of keys through the bounded counter table.
 
@@ -334,59 +330,28 @@ def epoch_update(
     1-2 *and* the candidate histogram in one launch.  The two paths break
     ties among equally frequent candidates as the reference's do: the fused
     one by the token position of a key's first occurrence, the unfused one
-    by ascending key.
+    by ascending key (:func:`repro_torch.kernels.fish_count.compose_epoch`).
+
+    ``epoch_fn`` (``repro_torch.kernels.ops.fish_epoch_update``, which
+    breaks ties as the fused path; bind ``ties="key"`` with
+    ``functools.partial`` for the unfused path's rule) is the whole epoch:
+    ``epoch_fn(keys, counts, batch_keys, alpha=, max_new=)`` returns the
+    new table.  It excludes ``match_fn`` and ``fused_fn``.
 
     ``batch_keys``: (n,) int32 key ids (>= 0).  Returns a new state.
     """
-    table_keys = state["keys"]
-    n = batch_keys.shape[0]
-    # a partial final epoch may carry fewer tuples than max_new, and more
-    # than k_max inserts per epoch can never land
-    max_new = min(max_new, int(table_keys.shape[0]), n)
-
-    if fused_fn is not None:
-        counts, matched, cand_count, is_first = fused_fn(
-            table_keys, state["counts"], batch_keys, alpha=alpha)
-        scores = torch.where(is_first & ~matched, cand_count, 0.0)
-        top_len, top_idx = _top(scores, max_new)
-        top_key = batch_keys[top_idx]
+    if epoch_fn is not None:
+        if match_fn is not None or fused_fn is not None:
+            raise TypeError("epoch_update: epoch_fn is the whole epoch; it "
+                            "takes no match_fn or fused_fn")
+        keys, counts = epoch_fn(state["keys"], state["counts"], batch_keys,
+                                alpha=alpha, max_new=max_new)
     else:
-        if match_fn is None:
-            match_fn = fish_count
-        a = torch.tensor(alpha, dtype=torch.float32, device=table_keys.device)
-        counts_delta, matched = match_fn(table_keys, batch_keys)
-        counts = state["counts"] * a + counts_delta  # TimeDecayingUpdate
-
-        # candidate new keys: sort the unmatched keys so equal ids are
-        # adjacent, then count each run
-        cand_keys = torch.where(matched, -1, batch_keys)
-        sorted_keys = torch.sort(cand_keys).values
-        new_run = torch.ones(n, dtype=torch.bool, device=table_keys.device)
-        new_run[1:] = sorted_keys[1:] != sorted_keys[:-1]
-        run_id = torch.cumsum(new_run.to(torch.int64), 0) - 1
-        run_len = torch.zeros(n, dtype=torch.float32,
-                              device=table_keys.device).index_add_(
-            0, run_id, torch.ones(n, dtype=torch.float32,
-                                  device=table_keys.device))
-        run_key = torch.full((n,), torch.iinfo(torch.int32).min,
-                             dtype=torch.int32, device=table_keys.device
-                             ).scatter_reduce_(0, run_id, sorted_keys,
-                                               "amax")
-        run_len = torch.where(run_key >= 0, run_len, 0.0)  # drop the -1 run
-        top_len, top_idx = _top(run_len, max_new)
-        top_key = run_key[top_idx]
-
-    # batched ReplaceMin: the bottom max_new slots (ascending by counter,
-    # empty slots as free minima) take the top max_new candidates
-    empty = table_keys < 0
-    eff = torch.where(empty, 0.0, counts)
-    bottom = torch.sort(eff, stable=True).indices[:max_new]
-    do = top_len > 0.0
-    table_keys = table_keys.clone()
-    table_keys[bottom] = torch.where(do, top_key, table_keys[bottom])
-    counts = counts.clone()
-    counts[bottom] = torch.where(do, eff[bottom] + top_len, counts[bottom])
-    return FishState(keys=table_keys, counts=counts)
+        keys, counts = compose_epoch(state["keys"], state["counts"],
+                                     batch_keys, alpha=alpha,
+                                     max_new=max_new, fused_fn=fused_fn,
+                                     match_fn=match_fn or fish_count)
+    return FishState(keys=keys, counts=counts)
 
 
 def classify_hot_keys(

@@ -3,7 +3,8 @@
 Each dispatches on the tensors' device: the CUDA kernel on a card, its
 plain PyTorch version on the CPU.  ``store_probe`` is the keyed-state
 probe (:mod:`.store_probe`); ``fish_count`` / ``fish_epoch_count`` the
-Alg. 1 epoch pass (:mod:`.fish_count`); ``ssd_scan`` the Mamba-2 layer
+Alg. 1 epoch pass and ``fish_epoch_update`` the whole epoch
+(:mod:`.fish_count`); ``ssd_scan`` the Mamba-2 layer
 scan around the SSD chunk kernels (:mod:`.ssd`).
 """
 
@@ -15,7 +16,8 @@ from . import fish_count as _fish_count
 from . import ssd as _ssd
 from .store_probe import store_probe
 
-__all__ = ["fish_count", "fish_epoch_count", "ssd_scan", "store_probe"]
+__all__ = ["fish_count", "fish_epoch_count", "fish_epoch_update",
+           "ssd_scan", "store_probe"]
 
 
 def fish_count(table_keys: torch.Tensor, batch_keys: torch.Tensor):
@@ -33,6 +35,21 @@ def fish_epoch_count(table_keys: torch.Tensor, table_counts: torch.Tensor,
     as :func:`fish_count`."""
     return _fish_count.fish_epoch_count(table_keys, table_counts,
                                         batch_keys, alpha=alpha)
+
+
+def fish_epoch_update(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                      batch_keys: torch.Tensor, *, alpha: float,
+                      max_new: int = 64, ties: str = "first"):
+    """One whole Alg. 1 epoch in one launch: the new table (keys, counts).
+    The ``epoch_fn`` of :func:`repro_torch.core.fish.epoch_update`; ties go
+    as on the fused path (``ties="first"``) or, bound with
+    ``functools.partial(..., ties="key")``, as on the match path.  Epochs
+    of up to 8,192 keys, tables up to 4,480 slots at that epoch (the one
+    block's shared memory, ``fish_count.check_epoch_shape``); larger ones
+    raise ``ValueError``."""
+    return _fish_count.fish_epoch_update(table_keys, table_counts,
+                                         batch_keys, alpha=alpha,
+                                         max_new=max_new, ties=ties)
 
 
 def ssd_scan(x, a, b, c, *, chunk: int = 128, initial_state=None):

@@ -13,6 +13,8 @@ in another order than the plain einsums: within 3e-4
 (``tests/test_kernels.py``'s bound).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -333,6 +335,92 @@ def test_cuda_epoch_update_matches_plain(path):
     for g, w in zip(*chk):
         assert torch.equal(g.cpu(), w)
     assert fc.LAUNCHES[fn.__name__] == before[fn.__name__] + 16
+
+
+def _epoch_case(k, n, seed):
+    """A table with a quarter of its slots empty and an epoch whose first
+    quarter repeats table keys: matches, repeats and new keys."""
+    table, counts = _fish_table(k, seed)
+    keys = zipf_time_evolving(n, num_keys=4 * k + 10, z=1.2, seed=seed)
+    keys[: n // 4] = np.resize(table[: k * 3 // 4], n // 4)
+    return table, counts, keys.astype(np.int32)
+
+
+def _assert_epoch_update_equals_plain(table, counts, keys, ties, max_new):
+    dev = _card()
+    before = fc.LAUNCHES["fish_epoch_update"]
+    got = fc.fish_epoch_update(T(table).to(dev), T(counts).to(dev),
+                               T(keys).to(dev), alpha=0.2, max_new=max_new,
+                               ties=ties)
+    torch.cuda.synchronize()
+    want = fc.fish_epoch_update_plain(T(table), T(counts), T(keys),
+                                      alpha=0.2, max_new=max_new, ties=ties)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert fc.LAUNCHES["fish_epoch_update"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", ["first", "key"])
+@pytest.mark.parametrize("k,n", [(1_000, 1_000), (256, 1_000), (1, 7),
+                                 (4_480, 8_192), (300, 0)])
+def test_cuda_fish_epoch_update_matches_plain(k, n, ties):
+    """The whole epoch in one launch, bit for bit, at the paper's size, a
+    table smaller than the epoch, one slot, the size limit (exactly the
+    232,448 B of shared memory a block may use) and an empty epoch (decay
+    only)."""
+    table, counts, keys = _epoch_case(k, n, seed=k + n)
+    _assert_epoch_update_equals_plain(table, counts, keys, ties,
+                                      max_new=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties,want", [("first", 30), ("key", 20)])
+def test_cuda_fish_epoch_update_tie_rules(ties, want):
+    """Unmatched 30 and 20 twice each, 30 first, 20 the lower key."""
+    table = np.array([5, -1, 7, 9], np.int32)
+    counts = np.array([3.0, 0.0, 0.5, 2.0], np.float32)
+    keys = np.array([30, 20, 20, 30, 10, 5, 5, 7], np.int32)
+    _assert_epoch_update_equals_plain(table, counts, keys, ties, max_new=1)
+    got = fc.fish_epoch_update(T(table).cuda(), T(counts).cuda(),
+                               T(keys).cuda(), alpha=0.2, max_new=1,
+                               ties=ties)[0].cpu().tolist()
+    assert want in got and 50 - want not in got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", ["first", "key"])
+def test_cuda_epoch_update_epoch_fn_matches_plain(ties):
+    """16 epochs of a ZF stream through ``epoch_update(epoch_fn=)`` on the
+    card and on the CPU: identical tables, one launch an epoch."""
+    dev = _card()
+    keys = zipf_time_evolving(16_000, num_keys=2_000, z=1.4, seed=7)
+    fn = functools.partial(ops.fish_epoch_update, ties=ties)
+    before = fc.LAUNCHES["fish_epoch_update"]
+    states = []
+    for d in (dev, torch.device("cpu")):
+        st = F.init_fish_state(256, device=d)
+        for i in range(0, 16_000, 1_000):
+            st = F.epoch_update(st, T(keys[i:i + 1_000]).to(d), alpha=0.2,
+                                epoch_fn=fn)
+        states.append(st)
+    assert torch.equal(states[0]["keys"].cpu(), states[1]["keys"])
+    assert torch.equal(states[0]["counts"].cpu(), states[1]["counts"])
+    assert fc.LAUNCHES["fish_epoch_update"] == before + 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(4_481, 8_192), (1_000, 8_193)])
+def test_cuda_fish_epoch_update_refuses_past_the_limit(k, n):
+    dev = _card()
+    before = fc.LAUNCHES["fish_epoch_update"]
+    with pytest.raises(ValueError, match="one-block limit"):
+        fc.fish_epoch_update(torch.full((k,), -1, dtype=torch.int32,
+                                        device=dev),
+                             torch.zeros(k, device=dev),
+                             torch.zeros(n, dtype=torch.int32, device=dev),
+                             alpha=0.2, max_new=64)
+    assert fc.LAUNCHES["fish_epoch_update"] == before
 
 
 def _ssd_close(got, want):

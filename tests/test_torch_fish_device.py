@@ -14,7 +14,15 @@ epoch over the JAX tests' own ZF stream: keys identical, counts
 bit-identical (within that ulp against the interpret-mode kernel).  The
 CUDA kernels are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
+
+``fish_epoch_update`` (the whole epoch in one launch, ``epoch_fn=``) runs
+its plain version here, the port's composition under one of the two tie
+rules: "first" is held against the reference's fused path with its own
+oracle as ``fused_fn`` (the arithmetic the port keeps), "key" against its
+match path with the Pallas ``fish_count`` (integer counts, exact).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -214,3 +222,144 @@ def test_device_tracker_hot_set_tracks_sequential_oracle():
     order = torch.sort(st["counts"], descending=True, stable=True).indices
     top_dev = set(st["keys"][order[:20]].tolist())
     assert len(top_seq & top_dev) / len(top_seq | top_dev) >= 0.6
+
+
+# -- the whole epoch in one launch (epoch_fn=) ----------------------------------
+
+#: the reference's epoch_update path each tie rule follows
+REF_PATH = {"first": {"fused_fn": rref.fish_epoch_count_ref},
+            "key": {"match_fn": rops.fish_count}}
+
+
+def _epoch_fn(ties):
+    return functools.partial(pops.fish_epoch_update, ties=ties)
+
+
+def _one_epoch_both(ties, table, counts, keys, max_new):
+    """One epoch through the reference's path of ``ties`` and through the
+    port's ``epoch_fn`` and plain version: keys equal, counts bit-equal.
+    Returns the port's new keys."""
+    rs = rfish.FishState(keys=jnp.asarray(table), counts=jnp.asarray(counts))
+    rs = rfish.epoch_update(rs, jnp.asarray(keys), alpha=0.2,
+                            max_new=max_new, **REF_PATH[ties])
+    ps = pfish.epoch_update(pfish.FishState(T(table), T(counts)), T(keys),
+                            alpha=0.2, max_new=max_new,
+                            epoch_fn=_epoch_fn(ties))
+    pk, pc = pfc.fish_epoch_update_plain(T(table), T(counts), T(keys),
+                                         alpha=0.2, max_new=max_new,
+                                         ties=ties)
+    _eq(ps["keys"], rs["keys"])
+    _eq(ps["counts"], rs["counts"])
+    assert torch.equal(pk, ps["keys"]) and torch.equal(pc, ps["counts"])
+    return ps["keys"]
+
+
+@pytest.mark.parametrize("ties", ["first", "key"])
+def test_epoch_fn_follows_reference_bit_for_bit(ties):
+    """16 epochs of the ZF stream through ``epoch_update(epoch_fn=)``
+    against the reference's path with the same tie rule: after every epoch
+    the keys are identical and the counts bit-identical."""
+    p = pfish.FishParams(alpha=0.2, epoch=1000, k_max=256)
+    keys = _zf_keys()
+    rs = rfish.init_fish_state(p.k_max)
+    ps = pfish.init_fish_state(p.k_max, device="cpu")
+    for i in range(0, keys.shape[0], p.epoch):
+        ep = keys[i:i + p.epoch]
+        rs = rfish.epoch_update(rs, jnp.asarray(ep), alpha=p.alpha,
+                                max_new=64, **REF_PATH[ties])
+        ps = pfish.epoch_update(ps, T(ep), alpha=p.alpha, max_new=64,
+                                epoch_fn=_epoch_fn(ties))
+        _eq(ps["keys"], rs["keys"])
+        _eq(ps["counts"], rs["counts"])
+
+
+def _tie_epoch():
+    """Unmatched keys 30 and 20 both twice, 30 first in the epoch but 20
+    the lower key; 10 once; 5 matched.  One insert (max_new 1)."""
+    table = np.array([5, -1, 7, 9], np.int32)
+    counts = np.array([3.0, 0.0, 0.5, 2.0], np.float32)
+    keys = np.array([30, 20, 20, 30, 10, 5, 5, 7], np.int32)
+    return table, counts, keys
+
+
+@pytest.mark.parametrize("ties,want", [("first", 30), ("key", 20)])
+def test_epoch_fn_tie_rules_pick_the_references_key(ties, want):
+    table, counts, keys = _tie_epoch()
+    got = _one_epoch_both(ties, table, counts, keys, max_new=1)
+    assert want in got.tolist() and (50 - want) not in got.tolist()
+
+
+def _edge_epoch(case):
+    rng = np.random.default_rng(len(case))
+    table, counts = _table(64, 40, 500, seed=3)
+    if case == "few_candidates":  # 5 distinct unmatched keys < max_new
+        keys = np.concatenate([np.resize(table[:40], 190),
+                               np.repeat(np.arange(1000, 1005), 2)])
+        return table, counts, rng.permutation(keys).astype(np.int32), 64
+    if case == "all_matched":
+        return table, counts, rng.choice(table[:40], 300).astype(np.int32), 16
+    if case == "empty_table":
+        keys = zipf_time_evolving(300, num_keys=200, z=1.2, seed=5)
+        return (np.full(64, -1, np.int32), np.zeros(64, np.float32),
+                keys.astype(np.int32), 16)
+    # partial: a final epoch of 10 keys, shorter than max_new
+    keys = np.concatenate([table[:3], [700, 701, 701, 702, 702, 702, 703]])
+    return table, counts, keys.astype(np.int32), 64
+
+
+@pytest.mark.parametrize("ties", ["first", "key"])
+@pytest.mark.parametrize("case", ["few_candidates", "all_matched",
+                                  "empty_table", "partial"])
+def test_epoch_fn_edge_epochs_match_reference(case, ties):
+    table, counts, keys, max_new = _edge_epoch(case)
+    got = _one_epoch_both(ties, table, counts, keys, max_new)
+    live = set(got[got >= 0].tolist())
+    unmatched = set(keys.tolist()) - set(table[table >= 0].tolist())
+    if case == "all_matched":
+        assert torch.equal(got, T(table))
+    elif case == "empty_table":  # more candidates than inserts
+        assert len(live) == max_new
+    else:  # fewer unmatched keys than inserts: every one lands
+        assert unmatched <= live
+
+
+@pytest.mark.parametrize("k,n,ok", [
+    (4_480, 8_192, True),     # exactly the 232,448 B a block may use
+    (4_481, 8_192, False),
+    (1, 8_193, False),        # N' = 16,384: past the limit at any K
+    (10_624, 1_000, True),    # a larger table beside a paper-sized epoch
+    (0, 0, True)])
+def test_epoch_update_size_limit(k, n, ok):
+    """The one-block limit: a shape at the limit is taken, one past it on
+    either axis is refused with the limit named, by the helper and by the
+    wrapper on either device (no fallback)."""
+    assert (pfc.epoch_smem_bytes(k, n) <= pfc.EPOCH_SMEM_LIMIT) == ok
+    if ok:
+        pfc.check_epoch_shape(k, n)
+        keys, counts = pops.fish_epoch_update(
+            torch.full((k,), -1, dtype=torch.int32), torch.zeros(k),
+            torch.arange(n, dtype=torch.int32), alpha=0.2, max_new=64)
+        assert keys.shape == counts.shape == (k,)
+        assert int((keys >= 0).sum()) == min(64, k, n)
+        return
+    with pytest.raises(ValueError, match="one-block limit of 232,448 B"):
+        pfc.check_epoch_shape(k, n)
+    with pytest.raises(ValueError, match="one-block limit"):
+        pops.fish_epoch_update(torch.full((k,), -1, dtype=torch.int32),
+                               torch.zeros(k), torch.zeros(n,
+                                                           dtype=torch.int32),
+                               alpha=0.2)
+
+
+@pytest.mark.parametrize("other", ["match_fn", "fused_fn"])
+def test_epoch_fn_excludes_the_other_paths(other):
+    st = pfish.init_fish_state(8, device="cpu")
+    fn = {"match_fn": pops.fish_count,
+          "fused_fn": pops.fish_epoch_count}[other]
+    with pytest.raises(TypeError, match="epoch_fn"):
+        pfish.epoch_update(st, torch.arange(4, dtype=torch.int32), alpha=0.2,
+                           epoch_fn=pops.fish_epoch_update, **{other: fn})
+    with pytest.raises(ValueError, match="ties"):
+        pops.fish_epoch_update(st["keys"], st["counts"],
+                               torch.arange(4, dtype=torch.int32), alpha=0.2,
+                               ties="last")
