@@ -33,8 +33,11 @@ Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
 the tensor-core instructions in the SSD library's SASS are printed), and
 at the end each kernel's wrapper is called on the inputs its path gave
-it, held against its plain PyTorch version and timed beside it; path C
-also prints where one prefill layer's time goes.
+it, held against its plain PyTorch version and timed beside it (the
+stream's and the FISH tracker's kernels last, after path C, with a
+device-only time from ``torch.profiler`` beside the CUDA-event time of
+back-to-back calls); path C also prints where one prefill layer's time
+goes.
 
 Usage: ``python3 chip_smoke.py [--tuples N] [--seed S]`` from the root of
 a checkout (``--tuples`` cuts the stream of paths A and B).  Needs one
@@ -158,8 +161,23 @@ def install_capture(cap: Capture):
                              lambda a, k: a[1] == FEED)
     ff.fifo_workers = cap.wrap("fifo_workers", ff.fifo_workers,
                                lambda a, k: a[1] == FEED)
-    ff.pane_update = cap.wrap("pane_update", ff.pane_update,
-                              lambda a, k: a[2] == FEED and not k["reset"])
+    # pane_update: a steady call and the first segment of a pane (reset)
+    ff.pane_update = cap.wrap(
+        "pane_update reset",
+        cap.wrap("pane_update", ff.pane_update,
+                 lambda a, k: a[2] == FEED and not k["reset"]),
+        lambda a, k: a[2] == FEED and k["reset"])
+    # the pane flush: the runner's open pane as the first flush finds it
+    real_flush = ff.FusedEdgeRunner.flush_pane
+
+    def flush(runner, sink):
+        key = ("flush", cap.scheme)
+        if key not in cap.calls and runner.pane_fed:
+            cap.calls[key] = ((runner.pane_tab.clone(),
+                               runner.pane_cnt.clone(),
+                               runner.pane_last.clone()), {})
+        return real_flush(runner, sink)
+    ff.FusedEdgeRunner.flush_pane = flush
     # the store's grouped probe: keep the first whole pane sync (one
     # chunk per worker store of a window)
     sp.store_probe_grouped = cap.wrap("store_probe", sp.store_probe_grouped,
@@ -347,12 +365,21 @@ def kernel_checks(cap, torch, np, launches):
     src_ff = "src/repro_torch/csrc/feed_fused.cu"
 
     def row(name, source, replaces, err, ms, plain_ms, bytes_, ops,
-            library_ms=None, chain_bound_ms=None):
+            library_ms=None, chain_bound_ms=None, device=None, **extra):
         r = kernel_row(name, source, replaces, launches, err, ms, plain_ms,
                        bytes_, ops, library_ms)
+        if device is not None:
+            r.update(device_ms=device[0], device_by=device[1])
         if chain_bound_ms is not None:
             r["chain_bound_ms"] = chain_bound_ms
+        r.update(extra)
         rows.append(r)
+
+    def dtime(name, fn, reps=50):
+        """(device ms of one call, how), the device ops logged."""
+        dms, how, names = device_ms(fn, reps, torch)
+        log(f"  {name}: device ops per call {json.dumps(names)} / {reps}")
+        return dms, how
 
     # -- store_probe: the first pane sync, grouped; and G = 1 ----------------
     call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
@@ -379,6 +406,8 @@ def kernel_checks(cap, torch, np, launches):
     meta = torch.from_numpy(sp.grouped_meta(tables, offsets, vo, co)).to(dev)
     ms = time_cuda(lambda: sp.store_probe_grouped(
         tables, keys, vals, cnts, offsets, vo, co, meta=meta), 50, torch)
+    dev_sp = dtime("store_probe", lambda: sp.store_probe_grouped(
+        tables, keys, vals, cnts, offsets, vo, co, meta=meta))
     pms = time_host(lambda: sp.store_probe_grouped_plain(
         tables, keys, vals, cnts, offsets), 3, torch)
     g_, n_ = len(tables), keys.shape[0]
@@ -386,9 +415,11 @@ def kernel_checks(cap, torch, np, launches):
     row("store_probe", "src/repro_torch/csrc/store_probe.cu",
         "src/repro/kernels/store_probe.py:56", err, ms, pms,
         12 * n_ + 4 * k_ + 8 * k_ + 8 * (5 * g_ + 1),
-        n_ * (max(g_, 2).bit_length() + max(k_ // g_, 2).bit_length()))
+        n_ * (max(g_, 2).bit_length() + max(k_ // g_, 2).bit_length()),
+        device=dev_sp)
     log(f"store_probe   grouped G={g_} (one pane sync) K={k_} N={n_}: "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, max|err| {err}")
+        f"kernel {ms:.4f} ms, device {dev_sp[0]:.5f} ms, plain {pms:.4f} "
+        f"ms, max|err| {err}")
 
     # -- the segment kernels, every scheme's captured segment ----------------
     seg = {}
@@ -414,13 +445,16 @@ def kernel_checks(cap, torch, np, launches):
         err = max(err, compare((ff.ring_rows(*a2),), (ff.ring_rows_plain(*a2),),
                                (f"rows[{s}]",)))
     ms = time_cuda(lambda: ff.ring_rows(*args), 50, torch)
+    dev_rr = dtime("ring_rows", lambda: ff.ring_rows(*args))
     pms = time_host(lambda: ff.ring_rows_plain(*args), 5, torch)
     rows_touched = min(pts.shape[0], m)
     row("ring_rows", src_ff, "src/repro/kernels/feed_fused.py:217", err, ms,
         pms, 4 * pts.shape[0] + 4 * rows_touched * width + 8 * m
-        + 4 * n_pad * width, m * 2 * pts.shape[0].bit_length())
+        + 4 * n_pad * width, m * 2 * pts.shape[0].bit_length(),
+        device=dev_rr)
     log(f"ring_rows     n_pad={n_pad} width={width} R={pts.shape[0]}: "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, max|err| {err}")
+        f"kernel {ms:.4f} ms, device {dev_rr[0]:.5f} ms, plain {pms:.4f} "
+        f"ms, max|err| {err}")
 
     # tracker (count + fold), FISH; DC and WC checked too
     def run_tracker(fn, call):
@@ -456,6 +490,14 @@ def kernel_checks(cap, torch, np, launches):
     ms_count = time_cuda(count_only, 50, torch)
     cnt_k.zero_()
     ms_fold = max(ms_both - ms_count, 0.0)
+    # device-only: the two kernels of one tracker_update, by name
+    t_ops = device_ops(lambda: ff.tracker_update(trk, cnt_k, keys, m, **kw),
+                       50, torch)
+    log(f"  tracker_update: device ops {json.dumps(t_ops)} / 50")
+    dev_tc = (sum(v for k_, (_, v) in t_ops.items()
+                  if "tracker_count" in k_) / 50, "profiler")
+    dev_tf = (sum(v for k_, (_, v) in t_ops.items()
+                  if "tracker_fold" in k_) / 50, "profiler")
     uniq = int(torch.unique(keys[:m]).shape[0])
     # library yardstick: the same int scatter as one index_add_ (one epoch)
     ones = torch.ones(m, dtype=torch.int32, device=keys.device)
@@ -464,13 +506,14 @@ def kernel_checks(cap, torch, np, launches):
     cnt_k.zero_()
     nb = -(-kcap1 // 256)
     row("tracker_count", src_ff, "src/repro/kernels/feed_fused.py:251", err,
-        ms_count, pms, 4 * m + 8 * uniq, m, lib_ms)
+        ms_count, pms, 4 * m + 8 * uniq, m, lib_ms, device=dev_tc)
     row("tracker_fold", src_ff, "src/repro/kernels/feed_fused.py:251", err,
         ms_fold, pms, 8 * kcap1 + 8 * uniq + 4 * ne * kcap1 + 8 * ne * nb,
-        kcap1 * 2 * ne + 2 * ne * kcap1)
+        kcap1 * 2 * ne + 2 * ne * kcap1, device=dev_tf)
     log(f"tracker       kcap1={kcap1} epochs={ne} m={m}: count {ms_count:.4f}"
-        f" ms + fold {ms_fold:.4f} ms, plain (both) {pms:.4f} ms, "
-        f"index_add_ {lib_ms:.4f} ms, max|err| {err}")
+        f" ms + fold {ms_fold:.4f} ms, device count {dev_tc[0]:.5f} + fold "
+        f"{dev_tf[0]:.5f} ms, plain (both) {pms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, max|err| {err}")
 
     # route_scan (PKG/DC/WC/FISH) and fifo_workers (every scheme)
     def run_scan(fn, call):
@@ -513,6 +556,8 @@ def kernel_checks(cap, torch, np, launches):
     # the rows: FISH's segment, the widest chain
     args, kw = clone_call(seg["route_scan"]["fish"])
     m = args[1]
+    dev_rs = dtime("route_scan", lambda: ff.route_scan(*args, **kw), 10)
+    args, kw = clone_call(seg["route_scan"]["fish"])
     pms = time_host(lambda: ff.route_scan_plain(*args, **kw), 1, torch)
     width = kw["rows"].shape[1]
     w1 = kw["counts"].shape[0]
@@ -527,13 +572,16 @@ def kernel_checks(cap, torch, np, launches):
     chain = m * SMEM_STEP_CYCLES / (clock * 1e3)
     row("route_scan", src_ff, "src/repro/kernels/feed_fused.py:237,276,307",
         err_r, route_ms["fish"], pms, 4 * d_sum + 20 * m + 4 * 8 * w1,
-        3 * d_sum + 2 * m, chain_bound_ms=chain)
-    log(f"route_scan    fish: {wide} of {m} tuples take the wide argmin, "
+        3 * d_sum + 2 * m, chain_bound_ms=chain, device=dev_rs)
+    log(f"route_scan    fish: device {dev_rs[0]:.4f} ms; {wide} of {m} "
+        f"tuples take the wide argmin, "
         f"Σ min(d, width) = {d_sum}; chain bound {chain:.4f} ms ({m} x "
         f"{SMEM_STEP_CYCLES} cycles at {clock:.0f} MHz); plain {pms:.1f} ms "
         f"(host loop)")
     # fifo_workers' row: FG's segment, whose hottest worker holds the
     # longest per-worker run of the six schemes
+    args, kw = clone_call(seg["fifo_workers"]["fg"])
+    dev_fw = dtime("fifo_workers", lambda: ff.fifo_workers(*args, **kw), 20)
     args, kw = clone_call(seg["fifo_workers"]["fg"])
     pms = time_host(lambda: ff.fifo_workers_plain(*args, **kw), 1, torch)
     runs = torch.bincount(kw["rows"][:m, 0].long(), minlength=w1)
@@ -541,8 +589,9 @@ def kernel_checks(cap, torch, np, launches):
     chain = longest * F64_STEP_CYCLES / (clock * 1e3)
     row("fifo_workers", src_ff, "src/repro/kernels/feed_fused.py:175",
         err_f, fifo_ms["fg"], pms, 20 * m + 3 * 8 * w1, 2 * m,
-        chain_bound_ms=chain)
-    log(f"fifo_workers  fg: longest per-worker run {longest} of {m}; chain "
+        chain_bound_ms=chain, device=dev_fw)
+    log(f"fifo_workers  fg: device {dev_fw[0]:.4f} ms; longest per-worker "
+        f"run {longest} of {m}; chain "
         f"bound {chain:.4f} ms ({longest} x {F64_STEP_CYCLES} cycles); plain "
         f"{pms:.1f} ms (host loop)")
 
@@ -562,18 +611,53 @@ def kernel_checks(cap, torch, np, launches):
                 kw["repl"]), call),
             (f"repl[{s}]", f"pane_tab[{s}]", f"pane_cnt[{s}]",
              f"pane_last[{s}]")))
+    # the first segment of a pane: the dense tables are zeroed first
+    err = max(err, compare(
+        run_pane(ff.pane_update, seg["pane_update reset"]["fish"]),
+        run_pane(lambda k, w, m, **kw: ff.pane_update_plain(
+            True, kw["reset"], k, w, kw["vals"], m, kw["seg_base"],
+            kw["pane_tab"], kw["pane_cnt"], kw["pane_last"], kw["repl"]),
+            seg["pane_update reset"]["fish"]),
+        ("repl[reset]", "pane_tab[reset]", "pane_cnt[reset]",
+         "pane_last[reset]")))
     (keys, workers, m), kw = clone_call(seg["pane_update"]["fish"])
     ms = time_cuda(lambda: ff.pane_update(keys, workers, m, **kw), 50, torch)
+    dev_pu = dtime("pane_update", lambda: ff.pane_update(keys, workers, m,
+                                                         **kw))
+    (rk, rw, rm), rkw = clone_call(seg["pane_update reset"]["fish"])
+    ms_reset = time_cuda(lambda: ff.pane_update(rk, rw, rm, **rkw), 50,
+                         torch)
+    dev_reset = dtime("pane_update reset",
+                      lambda: ff.pane_update(rk, rw, rm, **rkw))
     pms = time_host(lambda: ff.pane_update_plain(
         True, False, keys, workers, kw["vals"], m, kw["seg_base"],
         kw["pane_tab"], kw["pane_cnt"], kw["pane_last"], kw["repl"]), 5,
         torch)
     pairs = int(torch.unique(workers[:m].long() * kcap1
                              + keys[:m].long()).shape[0])
+    pane = [kw["pane_tab"], kw["pane_cnt"], kw["pane_last"]]
+    pane_bytes = sum(t.numel() * t.element_size() for t in pane)
     row("pane_update", src_ff, "src/repro/kernels/feed_fused.py:414", err,
-        ms, pms, 12 * m + pairs * (2 * 12 + 1) + 8 * w1, 4 * m)
-    log(f"pane_update   m={m} pairs={pairs}: kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, max|err| {err}")
+        ms, pms, 12 * m + pairs * (2 * 12 + 1) + 8 * w1, 4 * m,
+        device=dev_pu, ms_reset=ms_reset, device_ms_reset=dev_reset[0],
+        pane_bytes=pane_bytes)
+    log(f"pane_update   m={m} pairs={pairs}: kernel {ms:.4f} ms, device "
+        f"{dev_pu[0]:.5f} ms; reset call {ms_reset:.4f} ms, device "
+        f"{dev_reset[0]:.5f} ms; plain {pms:.4f} ms, max|err| {err}")
+    log(f"pane bytes per edge: {pane_bytes:,} (pane_tab "
+        f"{tuple(pane[0].shape)}, pane_cnt {tuple(pane[1].shape)}, "
+        f"pane_last {tuple(pane[2].shape)})")
+
+    # the pane flush's device part, on the pane FISH's first flush found
+    (tab, cnt, _), _ = cap.calls[("flush", "fish")]
+
+    def flush_dev():
+        flat = torch.nonzero(cnt.view(-1)).squeeze(1)
+        return flat, tab.view(-1, 2)[flat]
+    dev_fl = dtime("flush", flush_dev, 20)
+    log(f"pane flush (device part: nonzero over the count plane + gather): "
+        f"device {dev_fl[0]:.5f} ms over {cnt.numel() * 4:,} bytes scanned, "
+        f"{int(flush_dev()[0].shape[0])} entries")
     return rows
 
 
@@ -701,12 +785,10 @@ def fish_path(keys, dev, torch, np):
     return captured, launches
 
 
-def device_ms(fn, reps, torch):
-    """Device-only time of one call of ``fn``: the summed durations of the
-    device operations (kernels, memsets) it issues, from
-    ``torch.profiler``'s trace over ``reps`` calls; where the trace shows
-    no device time, the median of CUDA events around single calls after a
-    sync.  Returns (ms, how, {device op name: count})."""
+def device_ops(fn, reps, torch):
+    """Per device operation (kernel, memset, copy) that ``reps`` calls of
+    ``fn`` issue, from ``torch.profiler``'s trace: {name: (count, summed
+    ms)}; empty where the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -716,13 +798,24 @@ def device_ms(fn, reps, torch):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, names = 0.0, {}
+    ops = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            total += e.time_range.elapsed_us()
-            names[e.name[:40]] = names.get(e.name[:40], 0) + 1
-    if total > 0:
-        return total / reps / 1e3, "profiler", names
+            n, us = ops.get(e.name[:40], (0, 0.0))
+            ops[e.name[:40]] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n, us / 1e3) for k, (n, us) in ops.items() if us > 0}
+
+
+def device_ms(fn, reps, torch):
+    """Device-only time of one call of ``fn``: the summed durations of the
+    device operations (kernels, memsets) it issues, from
+    ``torch.profiler``'s trace over ``reps`` calls; where the trace shows
+    no device time, the median of CUDA events around single calls after a
+    sync.  Returns (ms, how, {device op name: count})."""
+    ops = device_ops(fn, reps, torch)
+    if ops:
+        return (sum(ms for _, ms in ops.values()) / reps, "profiler",
+                {k: n for k, (n, _) in ops.items()})
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     times = []
@@ -733,7 +826,7 @@ def device_ms(fn, reps, torch):
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
-    return sorted(times)[reps // 2], "events", names
+    return sorted(times)[reps // 2], "events", {}
 
 
 def bitonic_stages(n):
@@ -1239,8 +1332,6 @@ def main() -> int:
             fail(f"{scheme}: same-seed double run is not bit-identical")
         log(f"double run {scheme}: bit-identical")
 
-    # -- kernels vs plain ---------------------------------------------------------
-    rows = kernel_checks(cap, torch, np, launches)
     log(f"path A (stream) done at {time.perf_counter() - t_start:.1f} s")
 
     # -- path B: the device FISH tracker ------------------------------------------
@@ -1253,8 +1344,10 @@ def main() -> int:
     prefill_split(ssd_cap, ssd_rows, torch)
     log(f"path C (mamba2-780m) done at {time.perf_counter() - t_start:.1f} s")
 
-    # path B's kernels last: their device times come from torch.profiler,
-    # whose tracing is kept away from the timed paths
+    # path A's and B's kernels last: their device times come from
+    # torch.profiler, whose tracing is kept away from the timed paths
+    rows = kernel_checks(cap, torch, np, launches)
+    log(f"path A kernel checks done at {time.perf_counter() - t_start:.1f} s")
     rows += fish_kernel_checks(fish_cap, fish_launches, torch) + ssd_rows
     log(f"FISH kernel checks done; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
