@@ -167,14 +167,16 @@ def install_capture(cap: Capture):
         cap.wrap("pane_update", ff.pane_update,
                  lambda a, k: a[2] == FEED and not k["reset"]),
         lambda a, k: a[2] == FEED and k["reset"])
+    # a pane table's growth mid-pane (its slots re-inserted)
+    ff.pane_grow = cap.wrap("pane_grow", ff.pane_grow, lambda a, k: True)
     # the pane flush: the runner's open pane as the first flush finds it
     real_flush = ff.FusedEdgeRunner.flush_pane
 
     def flush(runner, sink):
         key = ("flush", cap.scheme)
         if key not in cap.calls and runner.pane_fed:
-            cap.calls[key] = ((runner.pane_tab.clone(),
-                               runner.pane_cnt.clone(),
+            cap.calls[key] = ((runner.pane_keys.clone(),
+                               runner.pane_vc.clone(),
                                runner.pane_last.clone()), {})
         return real_flush(runner, sink)
     ff.FusedEdgeRunner.flush_pane = flush
@@ -376,10 +378,15 @@ def kernel_checks(cap, torch, np, launches):
         rows.append(r)
 
     def dtime(name, fn, reps=50):
-        """(device ms of one call, how), the device ops logged."""
-        dms, how, names = device_ms(fn, reps, torch)
-        log(f"  {name}: device ops per call {json.dumps(names)} / {reps}")
-        return dms, how
+        """(device ms of one call, how); each device op's count and ms
+        per call logged."""
+        ops = device_ops(fn, reps, torch)
+        if not ops:
+            dms, how, _ = device_ms(fn, reps, torch)
+            return dms, how
+        log(f"  {name}: device ops per call (count, ms) " + json.dumps(
+            {k: (n / reps, ms / reps) for k, (n, ms) in ops.items()}))
+        return sum(ms for _, ms in ops.values()) / reps, "profiler"
 
     # -- store_probe: the first pane sync, grouped; and G = 1 ----------------
     call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
@@ -595,31 +602,35 @@ def kernel_checks(cap, torch, np, launches):
         f"bound {chain:.4f} ms ({longest} x {F64_STEP_CYCLES} cycles); plain "
         f"{pms:.1f} ms (host loop)")
 
-    # pane_update (FISH, a steady-state segment of an open pane)
+    # pane_update: every scheme's steady segment, FISH's first segment of
+    # a pane (reset) and a growth, in canonical form (slot places are free)
     def run_pane(fn, call):
         (keys, workers, m), kw = clone_call(call)
         fn(keys, workers, m, **kw)
-        return [kw["repl"], kw["pane_tab"], kw["pane_cnt"], kw["pane_last"]]
+        pairs, vc = ff.pane_canonical(kw["pane_keys"], kw["pane_vc"])
+        return [pairs, vc, kw["pane_last"], kw["repl"]]
+
+    def plain_pane(k, w, m, **kw):
+        ff.pane_update_plain(True, kw["reset"], k, w, kw["vals"], m,
+                             kw["seg_base"], kw["pane_keys"], kw["pane_vc"],
+                             kw["pane_last"], kw["repl"])
     err = 0.0
-    for s in SCHEMES:
-        call = seg["pane_update"][s]
+    for s, name in [(s, "pane_update") for s in SCHEMES] + [
+            ("fish", "pane_update reset")]:
+        call = seg[name][s]
+        tag = s if name == "pane_update" else "reset"
         err = max(err, compare(
-            run_pane(ff.pane_update, call),
-            run_pane(lambda k, w, m, **kw: ff.pane_update_plain(
-                True, kw["reset"], k, w, kw["vals"], m, kw["seg_base"],
-                kw["pane_tab"], kw["pane_cnt"], kw["pane_last"],
-                kw["repl"]), call),
-            (f"repl[{s}]", f"pane_tab[{s}]", f"pane_cnt[{s}]",
-             f"pane_last[{s}]")))
-    # the first segment of a pane: the dense tables are zeroed first
+            run_pane(ff.pane_update, call), run_pane(plain_pane, call),
+            (f"pairs[{tag}]", f"sums[{tag}]", f"pane_last[{tag}]",
+             f"repl[{tag}]")))
+    (gk, gvc, gcap), _ = seg["pane_grow"]["fish"]
+    grown = ff.pane_canonical(*ff.pane_grow(gk, gvc, gcap))
     err = max(err, compare(
-        run_pane(ff.pane_update, seg["pane_update reset"]["fish"]),
-        run_pane(lambda k, w, m, **kw: ff.pane_update_plain(
-            True, kw["reset"], k, w, kw["vals"], m, kw["seg_base"],
-            kw["pane_tab"], kw["pane_cnt"], kw["pane_last"], kw["repl"]),
-            seg["pane_update reset"]["fish"]),
-        ("repl[reset]", "pane_tab[reset]", "pane_cnt[reset]",
-         "pane_last[reset]")))
+        grown, ff.pane_canonical(*ff.pane_grow(gk.cpu(), gvc.cpu(), gcap)),
+        ("pairs[grow]", "sums[grow]")))
+    old = ff.pane_canonical(gk, gvc)
+    if not (torch.equal(grown[0], old[0]) and torch.equal(grown[1], old[1])):
+        fail("pane_grow: the grown table differs from the one it grew from")
     (keys, workers, m), kw = clone_call(seg["pane_update"]["fish"])
     ms = time_cuda(lambda: ff.pane_update(keys, workers, m, **kw), 50, torch)
     dev_pu = dtime("pane_update", lambda: ff.pane_update(keys, workers, m,
@@ -629,35 +640,36 @@ def kernel_checks(cap, torch, np, launches):
                          torch)
     dev_reset = dtime("pane_update reset",
                       lambda: ff.pane_update(rk, rw, rm, **rkw))
-    pms = time_host(lambda: ff.pane_update_plain(
-        True, False, keys, workers, kw["vals"], m, kw["seg_base"],
-        kw["pane_tab"], kw["pane_cnt"], kw["pane_last"], kw["repl"]), 5,
-        torch)
-    pairs = int(torch.unique(workers[:m].long() * kcap1
-                             + keys[:m].long()).shape[0])
-    pane = [kw["pane_tab"], kw["pane_cnt"], kw["pane_last"]]
+    ms_grow = time_cuda(lambda: ff.pane_grow(gk, gvc, gcap), 50, torch)
+    dev_grow = dtime("pane_grow", lambda: ff.pane_grow(gk, gvc, gcap))
+    pms = time_host(lambda: plain_pane(keys, workers, m, **kw), 5, torch)
+    pairs = int(torch.unique(ff.pane_pairs(workers[:m], keys[:m])).shape[0])
+    # the pane state of the edge: its tables as FISH's first flush found
+    # them (a whole pane's)
+    pane = list(cap.calls[("flush", "fish")][0])
     pane_bytes = sum(t.numel() * t.element_size() for t in pane)
+    # bytes: the tuples' (key, worker, value) read; per pair its slot key
+    # and sums read and written, its replica byte; pane_last read, written
     row("pane_update", src_ff, "src/repro/kernels/feed_fused.py:414", err,
-        ms, pms, 12 * m + pairs * (2 * 12 + 1) + 8 * w1, 4 * m,
+        ms, pms, 12 * m + pairs * (2 * 16 + 1) + 8 * w1, 4 * m,
         device=dev_pu, ms_reset=ms_reset, device_ms_reset=dev_reset[0],
-        pane_bytes=pane_bytes)
+        ms_grow=ms_grow, device_ms_grow=dev_grow[0], pane_bytes=pane_bytes,
+        pane_slots=pane[0].shape[0])
     log(f"pane_update   m={m} pairs={pairs}: kernel {ms:.4f} ms, device "
         f"{dev_pu[0]:.5f} ms; reset call {ms_reset:.4f} ms, device "
-        f"{dev_reset[0]:.5f} ms; plain {pms:.4f} ms, max|err| {err}")
-    log(f"pane bytes per edge: {pane_bytes:,} (pane_tab "
-        f"{tuple(pane[0].shape)}, pane_cnt {tuple(pane[1].shape)}, "
+        f"{dev_reset[0]:.5f} ms; growth to {gcap} slots {ms_grow:.4f} ms, "
+        f"device {dev_grow[0]:.5f} ms; plain {pms:.4f} ms, max|err| {err}")
+    log(f"pane bytes per edge: {pane_bytes:,} (pane_keys "
+        f"{tuple(pane[0].shape)}, pane_vc {tuple(pane[1].shape)}, "
         f"pane_last {tuple(pane[2].shape)})")
 
     # the pane flush's device part, on the pane FISH's first flush found
-    (tab, cnt, _), _ = cap.calls[("flush", "fish")]
-
-    def flush_dev():
-        flat = torch.nonzero(cnt.view(-1)).squeeze(1)
-        return flat, tab.view(-1, 2)[flat]
-    dev_fl = dtime("flush", flush_dev, 20)
-    log(f"pane flush (device part: nonzero over the count plane + gather): "
-        f"device {dev_fl[0]:.5f} ms over {cnt.numel() * 4:,} bytes scanned, "
-        f"{int(flush_dev()[0].shape[0])} entries")
+    fk, fvc = pane[:2]
+    dev_fl = dtime("flush", lambda: ff.pane_canonical(fk, fvc), 20)
+    log(f"pane flush (device part: the occupied slots compacted and sorted "
+        f"by pair key): device {dev_fl[0]:.5f} ms over "
+        f"{fk.numel() * 8 + fvc.numel() * 4:,} bytes scanned, "
+        f"{int(ff.pane_canonical(fk, fvc)[0].shape[0])} entries")
     return rows
 
 

@@ -4,8 +4,9 @@
 edge — its ``FusedEdgeRunner``, grouper and ``EdgeState`` — reads them as
 numpy (``np.asarray`` on a JAX array needs no JAX import here) and builds
 the port's grouper, ``EdgeState`` and runner around the same state: the
-device tracker, CHK memory, replica matrix and open pane tables, the ring
-table and hash cache, per-worker counts, the round-robin cursor, the
+device tracker, CHK memory, replica matrix and open pane (its dense
+table's nonzero cells, inserted into the port's compact pane table), the
+ring table and hash cache, per-worker counts, the round-robin cursor, the
 estimator and the FIFO backlog.  :func:`manager_from_reference` does the
 same for the edge's keyed window state (the host ``KeyedStateManager``
 and its per-worker stores).  Feeding the returned state, and manager as
@@ -37,7 +38,8 @@ from .core.chash import ConsistentHashRing
 from ._device import resolve_device
 from .core.fish import EpochFrequencyTracker, FishParams, FishState
 from .core.stream import EdgeState
-from .kernels.feed_fused import FusedEdgeRunner, _u32_bits
+from .kernels.feed_fused import (FusedEdgeRunner, _u32_bits,
+                                 pane_capacity, pane_insert)
 from .state.migration import MigrationStats
 from .state.store import make_store
 from .state.window import KeyedStateManager, WindowOp, WindowPartial, _Pane
@@ -163,8 +165,17 @@ def runner_from_reference(ref_runner, ref_grouper, ref_state, sink=None,
     run._repl_synced = up(np.asarray(ref_runner._repl_synced, dtype=bool))
     run._repl_dirty = bool(ref_runner._repl_dirty)
     if run.has_pane and run.pane_fed and ref_runner.pane_tab is not None:
-        run.pane_tab = up(np.asarray(ref_runner.pane_tab, dtype=np.int32))
-        run.pane_cnt = up(np.asarray(ref_runner.pane_cnt, dtype=np.int32))
+        # the reference's dense worker-major (w1, kcap1, 2) pane: its
+        # nonzero cells, inserted into a compact table with their value
+        # and count
+        tab = np.asarray(ref_runner.pane_tab, dtype=np.int32)
+        ws, ks = np.nonzero(tab[:, :, 1])
+        cap = pane_capacity(run.pane_fed)
+        run.pane_keys = torch.empty(cap, dtype=torch.int64, device=dev)
+        run.pane_vc = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        pane_insert(run.pane_keys, run.pane_vc,
+                    up((ws.astype(np.int64) << 32) | ks.astype(np.int64)),
+                    up(tab[ws, ks, 0]), up(tab[ws, ks, 1]), reset=True)
         run.pane_last = up(np.asarray(ref_runner.pane_last, dtype=np.int32))
     state.device = run
     return grouper, state

@@ -16,8 +16,9 @@
 //                               chain (SG/FG routes are fixed: no launch)
 //   fifo_workers   (a warp per  the per-worker FIFO; SG/FG gather their
 //                   worker)     fixed routes here
-//   pane_update    (parallel)   pane (value, count) scatter, count plane,
-//                               replica matrix, pane_last
+//   pane_update    (parallel)   pane (value, count) sums into a compact
+//                               open-addressing table, replica matrix,
+//                               pane_last
 //
 // The FIFO runs in float64 relative to the feed's first arrival (the
 // reference runs it in float32 because a TPU has no f64; at the paper's
@@ -119,31 +120,109 @@ enum Scheme { SG = 0, FG = 1, PKG = 2, DC = 3, WC = 4, FISH = 5 };
 // ---------------------------------------------------------------------------
 // ring_rows: upper_bound of the key hash over the sorted ring points
 // (searchsorted side="right", then % R), then the candidate row.
+//
+// One search per tuple, in two levels: every 32nd ring point (a splitter)
+// is staged in shared memory and binary-searched there; the run of 32
+// points after the last splitter <= h is then settled by one coalesced
+// 128-byte read and a warp vote (a warp per tuple, width >= 32) or by a
+// 5-step search in the run (a thread per tuple below width 32: FG's 1,
+// PKG's 2).
+// The row is then copied from cands in 16-byte vectors where width and
+// alignment allow.  The kernel is bound by writing the (n_pad, width)
+// rows; the searches are dependent loads, hidden by many tuples in flight.
 // ---------------------------------------------------------------------------
 
-__global__ void ring_rows_kernel(const unsigned int* __restrict__ pts, int r_n,
-                                 const int* __restrict__ cands, int dmax,
-                                 int width,
-                                 const unsigned int* __restrict__ hashes,
-                                 const int* __restrict__ keys, int n_pad,
-                                 int m, int* __restrict__ rows) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n_pad * width) return;
-  const int i = (int)(idx / width);
-  const int j = (int)(idx % width);
-  if (i >= m) {
-    // padding lanes carry key id kcap, one past the hash cache: never read
-    rows[idx] = -1;
-    return;
-  }
-  const unsigned int h = keys ? hashes[keys[i]] : hashes[i];
-  int lo = 0, hi = r_n;
+constexpr int kRingThreads = 256;   // ring_rows: block
+constexpr int kRun = 32;            // ring points per splitter (a warp read)
+constexpr int kBlocksPerSm = 8;     // ring_rows / pane_update grid cap
+
+// the number of splitters s[j] = pts[32 j] that are <= h
+__device__ __forceinline__ int splitter_rank(const unsigned int* s_spl,
+                                             int n_spl, unsigned int h) {
+  int lo = 0, hi = n_spl;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (pts[mid] <= h) lo = mid + 1; else hi = mid;
+    if (s_spl[mid] <= h) lo = mid + 1; else hi = mid;
   }
-  if (lo == r_n) lo = 0;  // wrap around the ring
-  rows[idx] = cands[(long long)lo * dmax + j];
+  return lo;
+}
+
+__device__ __forceinline__ unsigned int tuple_hash(
+    const unsigned int* __restrict__ hashes, const int* __restrict__ keys,
+    int i) {
+  return keys ? hashes[keys[i]] : hashes[i];
+}
+
+__global__ void __launch_bounds__(kRingThreads)
+ring_rows_kernel(const unsigned int* __restrict__ pts, int r_n,
+                 const int* __restrict__ cands, int dmax, int width,
+                 int vec, const unsigned int* __restrict__ hashes,
+                 const int* __restrict__ keys, int n_pad, int m,
+                 int* __restrict__ rows) {
+  extern __shared__ unsigned int s_spl[];
+  const int n_spl = (r_n + kRun - 1) / kRun;
+  for (int j = threadIdx.x; j < n_spl; j += kRingThreads) {
+    s_spl[j] = pts[j * kRun];
+  }
+  __syncthreads();
+  if (width >= 32) {
+    // a warp per tuple: every branch below is uniform across the warp
+    const int lane = threadIdx.x & 31;
+    const int warps = gridDim.x * (kRingThreads / 32);
+    for (int i = blockIdx.x * (kRingThreads / 32) + (threadIdx.x >> 5);
+         i < n_pad; i += warps) {
+      int* out = rows + (long long)i * width;
+      const int* src = nullptr;
+      if (i < m) {
+        const unsigned int h = tuple_hash(hashes, keys, i);
+        const int spl = splitter_rank(s_spl, n_spl, h);
+        int ub = 0;  // no point <= h: the ring's first position
+        if (spl > 0) {
+          const int base = (spl - 1) * kRun;
+          const int q = base + lane;
+          const bool le = q < r_n && pts[q] <= h;
+          ub = base + __popc(__ballot_sync(0xffffffffu, le));
+        }
+        src = cands + (long long)(ub == r_n ? 0 : ub) * dmax;
+      }
+      // padding lanes carry key id kcap, one past the hash cache: never
+      // read; their rows are -1
+      if (vec) {
+        int4* o4 = reinterpret_cast<int4*>(out);
+        const int4* s4 = reinterpret_cast<const int4*>(src);
+        for (int q = lane; q < width / 4; q += 32) {
+          o4[q] = src ? __ldg(s4 + q) : make_int4(-1, -1, -1, -1);
+        }
+      } else {
+        for (int j = lane; j < width; j += 32) out[j] = src ? src[j] : -1;
+      }
+    }
+    return;
+  }
+  // a thread per tuple
+  for (int i = blockIdx.x * kRingThreads + threadIdx.x; i < n_pad;
+       i += gridDim.x * kRingThreads) {
+    int* out = rows + (long long)i * width;
+    if (i >= m) {
+      for (int j = 0; j < width; ++j) out[j] = -1;
+      continue;
+    }
+    const unsigned int h = tuple_hash(hashes, keys, i);
+    const int spl = splitter_rank(s_spl, n_spl, h);
+    int ub = 0;
+    if (spl > 0) {
+      // pts[base] <= h: the upper bound lies in (base, base + 32]
+      int lo = (spl - 1) * kRun + 1;
+      int hi = min(lo - 1 + kRun, r_n);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (pts[mid] <= h) lo = mid + 1; else hi = mid;
+      }
+      ub = lo;
+    }
+    const int* src = cands + (long long)(ub == r_n ? 0 : ub) * dmax;
+    for (int j = 0; j < width; ++j) out[j] = src[j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -661,36 +740,127 @@ fifo_workers_kernel(int scheme, int m, int w1, int width,
 }
 
 // ---------------------------------------------------------------------------
-// pane_update: exact int32 scatters of the routed segment
+// pane_update: the routed segment folded into a compact pane table
+//
+// The open pane is an open-addressing table of C slots (a power of two the
+// runner keeps >= 2 x the pane's tuples, so the load stays <= 1/2): a slot
+// holds a 64-bit pair key (worker << 32) | key, or kEmptySlot, and int32
+// value and count sums in two planes.  At path A's 65,536-tuple panes that
+// is 2 MB, resident in L2, against the 203 MB of a dense (workers x key
+// capacity) table; a reset clears C slots.  Lanes of a warp that hold the
+// same pair find each other (__match_any_sync), sum in the warp, and only
+// the group's lowest lane inserts: a CAS on the slot key with linear
+// probing, then two int32 atomicAdds.  pane_last is kept per block in
+// shared memory (one global atomicMax per (block, worker) seen).  Integer
+// atomics make every sum exact in any order; the slot a pair lands in may
+// differ from run to run, so readers take the table in canonical form
+// (occupied slots sorted by pair key).  The kernel is bound by reading the
+// segment's tuples; the table's atomics resolve in L2.
 // ---------------------------------------------------------------------------
 
-__global__ void pane_update_kernel(int has_pane, const int* __restrict__ keys,
-                                   const int* __restrict__ workers,
-                                   const int* __restrict__ vals, int m,
-                                   int w1, int kcap1, int seg_base,
-                                   int* __restrict__ pane_tab,
-                                   int* __restrict__ pane_cnt,
-                                   int* __restrict__ pane_last,
-                                   unsigned char* __restrict__ repl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int w = workers[i];
-  const int k = keys[i];
-  if (has_pane) {
-    // worker-major flat index: the host flush's nonzero scan then yields
-    // entries grouped per worker with keys ascending
-    const long long flat = (long long)w * kcap1 + k;
-    atomicAdd(pane_tab + 2 * flat, vals[i]);
-    atomicAdd(pane_tab + 2 * flat + 1, 1);
-    atomicAdd(pane_cnt + flat, 1);
-    atomicMax(pane_last + w, seg_base + i);
+constexpr int kPaneThreads = 256;
+constexpr unsigned long long kEmptySlot = ~0ull;
+enum PaneMode { kPaneNone = 0, kPaneTuples = 1, kPaneWeighted = 2 };
+
+// the slot of pair p, claimed by CAS if the pair is new to the table
+__device__ __forceinline__ long long pane_slot(
+    unsigned long long* slot_keys, int log2c, unsigned long long p) {
+  const unsigned long long mask = (1ull << log2c) - 1;
+  unsigned long long s = (p * 0x9E3779B97F4A7C15ull) >> (64 - log2c);
+  while (true) {
+    // a slot's key goes from empty to its pair once and never changes
+    // again, so a stale read can only say "empty" and fall to the CAS
+    unsigned long long cur = __ldcg(slot_keys + s);
+    if (cur == kEmptySlot) cur = atomicCAS(slot_keys + s, kEmptySlot, p);
+    if (cur == kEmptySlot || cur == p) return (long long)s;
+    s = (s + 1) & mask;
   }
-  // the replica matrix is (kcap1, w1): transposed against the pane table
-  repl[(long long)k * w1 + w] = 1;
+}
+
+__global__ void __launch_bounds__(kPaneThreads)
+pane_update_kernel(int mode, const int* __restrict__ keys,
+                   const int* __restrict__ workers,
+                   const unsigned long long* __restrict__ pairs,
+                   const int* __restrict__ vals, const int* __restrict__ cnts,
+                   int n, int w1, int seg_base, int log2c,
+                   unsigned long long* __restrict__ slot_keys,
+                   int* __restrict__ slot_val, int* __restrict__ slot_cnt,
+                   int* __restrict__ pane_last,
+                   unsigned char* __restrict__ repl) {
+  extern __shared__ int s_last[];  // tuple mode: (w1,) block maxima
+  const bool tuples = mode == kPaneTuples;
+  if (tuples) {
+    for (int w = threadIdx.x; w < w1; w += kPaneThreads) s_last[w] = -1;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kPaneThreads;
+  // whole warps walk 32-tuple strides, lanes past n present for the votes
+  for (int base = blockIdx.x * kPaneThreads + (threadIdx.x & ~31); base < n;
+       base += stride) {
+    const int i = base + lane;
+    unsigned long long p = kEmptySlot;
+    int v = 0, c = 0, w = 0, k = 0;
+    if (i < n) {
+      if (mode == kPaneWeighted) {
+        p = pairs[i];  // an empty slot of the old table stays empty
+        v = vals[i];
+        c = cnts[i];
+      } else {
+        w = workers[i];
+        k = keys[i];
+        p = ((unsigned long long)(unsigned)w << 32) | (unsigned)k;
+        v = vals ? vals[i] : 0;
+        c = 1;
+      }
+    }
+    const unsigned grp = __match_any_sync(0xffffffffu, p);
+    if (p == kEmptySlot) continue;  // no warp-wide step follows
+    const bool leader = (__ffs(grp) - 1) == lane;
+    if (mode != kPaneNone) {
+      // the group's sums: one redux.sync over the group's own mask (each
+      // lane waits only for the lanes of its mask); a tuple counts 1
+      const int vs = __reduce_add_sync(grp, v);
+      const int cs =
+          mode == kPaneWeighted ? __reduce_add_sync(grp, c) : __popc(grp);
+      if (leader) {
+        const long long s = pane_slot(slot_keys, log2c, p);
+        atomicAdd(slot_val + s, vs);
+        atomicAdd(slot_cnt + s, cs);
+      }
+    }
+    if (tuples && leader) {
+      // the group's last tuple is its highest lane
+      atomicMax(s_last + w, seg_base + base + 31 - __clz(grp));
+    }
+    // the replica matrix is (kcap1, w1); the weighted re-insert of a grown
+    // table adds no tuples and leaves it alone
+    if (mode != kPaneWeighted && leader) repl[(long long)k * w1 + w] = 1;
+  }
+  if (tuples) {
+    __syncthreads();
+    for (int w = threadIdx.x; w < w1; w += kPaneThreads) {
+      if (s_last[w] >= 0) atomicMax(pane_last + w, s_last[w]);
+    }
+  }
 }
 
 inline int blocks_for(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
+}
+
+// blocks for n items, at most kBlocksPerSm on each of the device's SMs
+// (read once): a grid-stride loop covers the rest
+inline int capped_blocks(long long n, int per_block) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const int b = blocks_for(n, per_block);
+  return b < sms * kBlocksPerSm ? b : sms * kBlocksPerSm;
 }
 
 }  // namespace
@@ -700,11 +870,25 @@ extern "C" {
 int ring_rows(const unsigned int* pts, int r_n, const int* cands, int dmax,
               int width, const unsigned int* hashes, const int* keys,
               int n_pad, int m, int* rows, cudaStream_t stream) {
-  const long long n = (long long)n_pad * width;
-  if (n > 0) {
-    ring_rows_kernel<<<blocks_for(n, kThreads), kThreads, 0, stream>>>(
-        pts, r_n, cands, dmax, width, hashes, keys, n_pad, m, rows);
+  if (n_pad <= 0 || width <= 0) return (int)cudaGetLastError();
+  if (r_n <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(unsigned int) * ((r_n + kRun - 1) / kRun);
+  if (smem > 48 * 1024) {
+    // above 48 KB a block's dynamic shared memory must be asked for; a
+    // refused size surfaces here or as the launch's error
+    cudaError_t e = cudaFuncSetAttribute(
+        ring_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  // 16-byte row copies: whole int4s per row, rows on 16-byte boundaries
+  const int vec = width % 4 == 0 && dmax % 4 == 0 &&
+                  reinterpret_cast<unsigned long long>(cands) % 16 == 0 &&
+                  reinterpret_cast<unsigned long long>(rows) % 16 == 0;
+  const int per_block = width >= 32 ? kRingThreads / 32 : kRingThreads;
+  const int blocks = capped_blocks(n_pad, per_block);
+  ring_rows_kernel<<<blocks, kRingThreads, smem, stream>>>(
+      pts, r_n, cands, dmax, width, vec, hashes, keys, n_pad, m, rows);
   return (int)cudaGetLastError();
 }
 
@@ -764,22 +948,32 @@ int fifo_workers(int scheme, int m, int w1, int width, const int* rows,
   return (int)cudaGetLastError();
 }
 
-int pane_update(int has_pane, int reset, const int* keys, const int* workers,
-                const int* vals, int m, int w1, int kcap1, int seg_base,
-                int* pane_tab, int* pane_cnt, int* pane_last,
+int pane_update(int mode, int reset, const int* keys, const int* workers,
+                const unsigned long long* pairs, const int* vals,
+                const int* cnts, int n, int w1, int seg_base, int log2c,
+                unsigned long long* slot_keys, int* slot_vc, int* pane_last,
                 unsigned char* repl, cudaStream_t stream) {
-  if (has_pane && reset) {
-    // first segment of a pane: the tables start from zeros, pane_last
-    // from -1 (all bytes 0xff)
-    const size_t cells = (size_t)w1 * kcap1;
-    cudaMemsetAsync(pane_tab, 0, sizeof(int) * 2 * cells, stream);
-    cudaMemsetAsync(pane_cnt, 0, sizeof(int) * cells, stream);
-    cudaMemsetAsync(pane_last, 0xff, sizeof(int) * (size_t)w1, stream);
+  if (mode != kPaneNone && (log2c < 6 || log2c > 31)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (m > 0) {
-    pane_update_kernel<<<blocks_for(m, kThreads), kThreads, 0, stream>>>(
-        has_pane, keys, workers, vals, m, w1, kcap1, seg_base, pane_tab,
-        pane_cnt, pane_last, repl);
+  const size_t cap = mode == kPaneNone ? 0 : (size_t)1 << log2c;
+  if (mode != kPaneNone && reset) {
+    // a fresh table: every slot empty (all bytes 0xff), sums zero; and
+    // with tuples pane_last from -1
+    cudaMemsetAsync(slot_keys, 0xff, sizeof(unsigned long long) * cap,
+                    stream);
+    cudaMemsetAsync(slot_vc, 0, sizeof(int) * 2 * cap, stream);
+    if (pane_last) {
+      cudaMemsetAsync(pane_last, 0xff, sizeof(int) * (size_t)w1, stream);
+    }
+  }
+  if (n > 0) {
+    const size_t smem = mode == kPaneTuples ? sizeof(int) * (size_t)w1 : 0;
+    const int blocks = capped_blocks(n, kPaneThreads);
+    pane_update_kernel<<<blocks, kPaneThreads, smem, stream>>>(
+        mode, keys, workers, pairs, vals, cnts, n, w1, seg_base, log2c,
+        slot_keys, slot_vc, slot_vc ? slot_vc + cap : nullptr, pane_last,
+        repl);
   }
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@ b. **FIFO** — the per-worker recurrence ``f = max(busy[w], t) + caps[w]``
    in the reference scan's operation order, in float64 relative to the
    feed's first arrival (the reference's float32, forced by the TPU, drifts
    past its own 1e-4 contract on a hot worker at the paper's scale);
-c. **keyed-state update** — per-(key, worker) pane aggregate tables
-   updated by scatter-add; panes sync to the host
+c. **keyed-state update** — per-(worker, key) pane sums in an
+   open-addressing table sized by the pane's tuples (not workers x key
+   capacity), warp-aggregated then inserted; panes sync to the host
    :class:`~repro_torch.state.window.KeyedStateManager` only at pane
    boundaries and membership events.
 
@@ -36,8 +37,9 @@ kernel          shape        computes
 ``route_scan``  one block    PKG/DC/WC/FISH: the sequential routing chain
 ``fifo_workers`` warp/worker the per-worker FIFO (SG/FG gather their
                              fixed routes here)
-``pane_update`` tuple        pane (value, count), count plane, replicas,
-                             ``pane_last``
+``pane_update`` tuple        pane (value, count) sums into a compact
+                             open-addressing table of pair keys,
+                             replicas, ``pane_last``
 =============== ============ ==============================================
 
 SG runs ``fifo_workers`` + ``pane_update``; FG adds ``ring_rows``; PKG
@@ -79,8 +81,9 @@ __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
            "MIN_BUCKET", "KEY_CAP_LIMIT", "ring_rows", "ring_rows_plain",
            "tracker_update", "tracker_update_plain", "route_scan",
            "route_scan_plain", "fifo_workers", "fifo_workers_plain",
-           "route_prologue", "pane_update",
-           "pane_update_plain", "SCHEME_IDS"]
+           "route_prologue", "pane_update", "pane_update_plain",
+           "pane_insert", "pane_grow", "pane_canonical", "pane_capacity",
+           "pane_pairs", "PANE_EMPTY", "SCHEME_IDS"]
 
 #: kernel launches on CUDA tensors, counted where each wrapper launches
 LAUNCHES = {"ring_rows": 0, "tracker_count": 0, "tracker_fold": 0,
@@ -100,6 +103,10 @@ _ROUTE_THREADS = 256  # csrc kRouteThreads: route_scan's block
 _TILE_INTS = 8192     # csrc kTileInts: route_scan's staged tile
 _TILE_MAX = 1024      # csrc kTileMax
 _SMEM_LIMIT = 232_448  # a Hopper block's dynamic shared memory (227 KB)
+_RING_RUN = 32        # csrc kRun: ring points per staged splitter
+_PANE_SMEM = 48 * 1024  # pane_update's (w1,) block maxima, default limit
+PANE_EMPTY = -1       # an empty pane slot's pair key (csrc kEmptySlot)
+MIN_PANE_SLOTS = 1024  # smallest pane table (csrc: 2^6 at least)
 
 
 def _bucket(n: int) -> int:
@@ -227,7 +234,8 @@ _SIGS = {
     "route_scan": (ctypes.POINTER(_RouteArgs), _P),
     "fifo_workers": (_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P),
-    "pane_update": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "pane_update": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                    _P, _P),
 }
 
 
@@ -265,7 +273,8 @@ def _need(what: str, device, dtype, **tensors) -> None:
 # -- ring_rows ----------------------------------------------------------------
 
 
-def ring_rows_plain(pts, cands, hashes, keys, m: int, width: int, n_pad: int):
+def ring_rows_plain(pts, cands, hashes, keys, m: int, width: int,
+                    n_pad: int):
     r_n = pts.shape[0]
     h = _as_u64(hashes)
     hv = h[keys[:m].long()] if keys is not None else h[:m]
@@ -280,7 +289,9 @@ def ring_rows(pts: torch.Tensor, cands: torch.Tensor, hashes: torch.Tensor,
               keys: Optional[torch.Tensor], m: int, width: int,
               n_pad: int) -> torch.Tensor:
     """(n_pad, width) candidate rows: row i is ``cands[upper_bound(pts,
-    h_i) % R, :width]`` for tuple i < m (-1 past m).
+    h_i) % R, :width]`` for tuple i < m (-1 past m).  One search per
+    tuple: every 32nd point staged in shared memory, then the run of 32
+    settled by one read (a warp per tuple at width >= 32, else a thread).
 
     pts:    (R,) ring points, uint32 bit patterns in int32.
     cands:  (R, dmax) int32 first-distinct-owner rows.
@@ -294,6 +305,9 @@ def ring_rows(pts: torch.Tensor, cands: torch.Tensor, hashes: torch.Tensor,
           hashes=hashes, keys=keys)
     if width > cands.shape[1]:
         raise ValueError("ring_rows: width exceeds the candidate rows")
+    if pts.shape[0] == 0 or 4 * -(-pts.shape[0] // _RING_RUN) > _SMEM_LIMIT:
+        raise ValueError(f"ring_rows: {pts.shape[0]} ring points do not fit "
+                         "the block's splitter array")
     rows = torch.empty((n_pad, width), dtype=torch.int32, device=pts.device)
     err = _lib().ring_rows(pts.data_ptr(), pts.shape[0], cands.data_ptr(),
                            cands.shape[1], width, hashes.data_ptr(),
@@ -666,59 +680,157 @@ def fifo_workers(scheme: str, m: int, *, t, busy, caps, counts, workers=None,
 # -- pane_update ------------------------------------------------------------------
 
 
+def pane_capacity(tuples: int) -> int:
+    """Slots of a pane table that ``tuples`` tuples keep at load <= 1/2:
+    the smallest power of two >= 2 x tuples, at least MIN_PANE_SLOTS."""
+    return max(MIN_PANE_SLOTS, _pow2_at_least(2 * int(tuples)))
+
+
+def pane_pairs(workers: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Pane pair keys, ``(worker << 32) | key`` as int64: sorted pair keys
+    are grouped per worker with keys ascending."""
+    return (workers.long() << 32) | keys.long()
+
+
+def pane_canonical(pane_keys: torch.Tensor, pane_vc: torch.Tensor):
+    """The pane in canonical form, on the table's device: its occupied
+    slots sorted by pair key — ``(pairs (n,) int64, (2, n) int32 value and
+    count sums)``.  A slot's place depends on the order its pair arrived
+    in, so every reader of a pane table reads this form."""
+    occ = torch.nonzero(pane_keys != PANE_EMPTY).squeeze(1)
+    pairs, order = torch.sort(pane_keys[occ])
+    return pairs, pane_vc[:, occ[order]]
+
+
+def _pane_merge_plain(pane_keys, pane_vc, pairs, vals, cnts) -> None:
+    """Weighted insert, plain: the table's entries plus (pairs, vals,
+    cnts), empty pairs skipped, written back as a sorted prefix of the
+    slots (the plain version's layout)."""
+    p0, vc0 = pane_canonical(pane_keys, pane_vc)
+    keep = pairs != PANE_EMPTY
+    uniq, inv = torch.unique(torch.cat([p0, pairs[keep]]), sorted=True,
+                             return_inverse=True)
+    n = uniq.shape[0]
+    if 2 * n > pane_keys.shape[0]:
+        raise ValueError(f"pane table of {pane_keys.shape[0]} slots past "
+                         f"half load ({n} pairs)")
+    sums = torch.zeros((2, n), dtype=torch.int32, device=pane_keys.device)
+    sums[0].index_add_(0, inv, torch.cat([vc0[0], vals[keep]]))
+    sums[1].index_add_(0, inv, torch.cat([vc0[1], cnts[keep]]))
+    pane_keys.fill_(PANE_EMPTY)
+    pane_keys[:n] = uniq
+    pane_vc.zero_()
+    pane_vc[:, :n] = sums
+
+
 def pane_update_plain(has_pane, reset, keys, workers, vals, m, seg_base,
-                      pane_tab, pane_cnt, pane_last, repl):
+                      pane_keys, pane_vc, pane_last, repl):
     w1 = repl.shape[1]
     k = keys[:m].long()
     w = workers[:m].long()
     if has_pane:
-        kcap1 = pane_cnt.shape[1]
         if reset:
-            pane_tab.zero_()
-            pane_cnt.zero_()
+            pane_keys.fill_(PANE_EMPTY)
+            pane_vc.zero_()
             pane_last.fill_(-1)
-        flat = w * kcap1 + k
-        ones = torch.ones(m, dtype=torch.int32, device=keys.device)
-        pane_tab.view(-1).index_add_(0, 2 * flat, vals[:m])
-        pane_tab.view(-1).index_add_(0, 2 * flat + 1, ones)
-        pane_cnt.view(-1).index_add_(0, flat, ones)
+        _pane_merge_plain(pane_keys, pane_vc, pane_pairs(w, k), vals[:m],
+                          torch.ones(m, dtype=torch.int32,
+                                     device=keys.device))
         gidx = seg_base + torch.arange(m, dtype=torch.int32,
                                        device=keys.device)
         pane_last.scatter_reduce_(0, w, gidx, reduce="amax")
     repl.view(-1)[k * w1 + w] = True
 
 
+def _pane_log2(pane_keys, pane_vc, what: str) -> int:
+    cap = pane_keys.shape[0]
+    if (pane_keys.dim() != 1 or cap < 64 or cap > 2 ** 31
+            or cap & (cap - 1) or tuple(pane_vc.shape) != (2, cap)):
+        raise ValueError(f"{what}: a pane table is (C,) int64 keys and "
+                         f"(2, C) int32 sums, C a power of two >= 64")
+    return cap.bit_length() - 1
+
+
 def pane_update(keys: torch.Tensor, workers: torch.Tensor, m: int, *,
                 repl: torch.Tensor, vals: Optional[torch.Tensor] = None,
-                seg_base: int = 0, pane_tab=None, pane_cnt=None,
+                seg_base: int = 0, pane_keys=None, pane_vc=None,
                 pane_last=None, reset: bool = False) -> None:
     """Fold tuples [0, m) of a routed segment into the device state, in
-    place: ``repl[key, worker] = True``, and with a pane the worker-major
-    (w1, kcap1, 2) (value, count) table, its contiguous (w1, kcap1) count
-    plane and ``pane_last`` (w1,) — zeroed first when ``reset``."""
-    has_pane = pane_tab is not None
+    place: ``repl[key, worker] = True``, and with a pane the pair
+    ``(worker << 32) | key``'s value and count sums in the open-addressing
+    table ``pane_keys`` (C,) int64 / ``pane_vc`` (2, C) int32, and
+    ``pane_last`` (w1,) — all cleared first when ``reset``.  The caller
+    keeps C >= 2 x the pane's tuples (:func:`pane_capacity`); read the
+    table through :func:`pane_canonical`."""
+    has_pane = pane_keys is not None
     if not _on_card(keys, "pane_update"):
         return pane_update_plain(has_pane, reset, keys, workers, vals, m,
-                                 seg_base, pane_tab, pane_cnt, pane_last,
+                                 seg_base, pane_keys, pane_vc, pane_last,
                                  repl)
-    _need("pane_update", keys.device, torch.int32, keys=keys,
-          workers=workers, vals=vals, pane_tab=pane_tab, pane_cnt=pane_cnt,
-          pane_last=pane_last)
-    _need("pane_update", keys.device, torch.bool, repl=repl)
+    dev = keys.device
+    _need("pane_update", dev, torch.int32, keys=keys, workers=workers,
+          vals=vals, pane_vc=pane_vc, pane_last=pane_last)
+    _need("pane_update", dev, torch.int64, pane_keys=pane_keys)
+    _need("pane_update", dev, torch.bool, repl=repl)
     w1 = repl.shape[1]
-    kcap1 = repl.shape[0]
-    if has_pane and (tuple(pane_tab.shape) != (w1, kcap1, 2)
-                     or tuple(pane_cnt.shape) != (w1, kcap1)
-                     or vals is None):
-        raise ValueError("pane_update: pane tables do not match repl")
-    err = _lib().pane_update(int(has_pane), int(reset), keys.data_ptr(),
-                             workers.data_ptr(), _ptr(vals), m, w1, kcap1,
-                             seg_base, _ptr(pane_tab), _ptr(pane_cnt),
-                             _ptr(pane_last), repl.data_ptr(),
-                             _build.stream_ptr(keys.device))
+    log2c = 0
+    if has_pane:
+        log2c = _pane_log2(pane_keys, pane_vc, "pane_update")
+        if vals is None or pane_last is None or pane_last.shape != (w1,):
+            raise ValueError("pane_update: a pane needs vals and a (w1,) "
+                             "pane_last")
+        if 4 * w1 > _PANE_SMEM:
+            raise ValueError(f"pane_update: {w1} worker lanes exceed the "
+                             "block's pane_last maxima")
+    err = _lib().pane_update(1 if has_pane else 0, int(reset),
+                             keys.data_ptr(), workers.data_ptr(), None,
+                             _ptr(vals), None, m, w1, seg_base, log2c,
+                             _ptr(pane_keys), _ptr(pane_vc), _ptr(pane_last),
+                             repl.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "pane_update")
     LAUNCHES["pane_update"] += 1
     return None
+
+
+def pane_insert(pane_keys: torch.Tensor, pane_vc: torch.Tensor,
+                pairs: torch.Tensor, vals: torch.Tensor, cnts: torch.Tensor,
+                *, reset: bool = False) -> None:
+    """Weighted insert into a pane table, in place: each pair of
+    ``pairs`` (int64, :data:`PANE_EMPTY` entries skipped) adds its own
+    value and count — ``pane_update``'s kernel without tuples, replicas or
+    ``pane_last``.  Cleared first when ``reset``."""
+    if not _on_card(pane_keys, "pane_insert"):
+        if reset:
+            pane_keys.fill_(PANE_EMPTY)
+            pane_vc.zero_()
+        return _pane_merge_plain(pane_keys, pane_vc, pairs, vals, cnts)
+    dev = pane_keys.device
+    _need("pane_insert", dev, torch.int64, pane_keys=pane_keys, pairs=pairs)
+    _need("pane_insert", dev, torch.int32, pane_vc=pane_vc, vals=vals,
+          cnts=cnts)
+    log2c = _pane_log2(pane_keys, pane_vc, "pane_insert")
+    n = pairs.shape[0]
+    if vals.shape != (n,) or cnts.shape != (n,):
+        raise ValueError("pane_insert: pairs, vals and cnts differ in length")
+    err = _lib().pane_update(2, int(reset), None, None, pairs.data_ptr(),
+                             vals.data_ptr(), cnts.data_ptr(), n, 0, 0, log2c,
+                             pane_keys.data_ptr(), pane_vc.data_ptr(), None,
+                             None, _build.stream_ptr(dev))
+    _build.check(err, "pane_update")
+    LAUNCHES["pane_update"] += 1
+    return None
+
+
+def pane_grow(pane_keys: torch.Tensor, pane_vc: torch.Tensor,
+              capacity: int):
+    """A pane table of ``capacity`` slots holding the entries of the given
+    one: its slots re-inserted, as weighted inserts, through
+    ``pane_update``'s kernel.  Returns (keys, vc)."""
+    keys = torch.empty(capacity, dtype=torch.int64, device=pane_keys.device)
+    vc = torch.empty((2, capacity), dtype=torch.int32,
+                     device=pane_keys.device)
+    pane_insert(keys, vc, pane_keys, pane_vc[0], pane_vc[1], reset=True)
+    return keys, vc
 
 
 # ---------------------------------------------------------------------------
@@ -776,9 +888,9 @@ class FusedEdgeRunner:
         self.trk = None
         self.m_k = None
         self.repl = None
-        self.pane_tab = None      # (w1, kcap1, 2): value / count planes
-        self.pane_cnt = None      # contiguous count plane for the flush scan
-        self.pane_last = None
+        self.pane_keys = None     # (C,) int64 pair keys of the open pane
+        self.pane_vc = None       # (2, C) int32 value / count sums
+        self.pane_last = None     # (w1,) last stream index per worker
         self._repl_synced = None  # replica pairs already folded to the host
         self._cnt = None          # tracker count scratch, kept all-zero
 
@@ -821,18 +933,8 @@ class FusedEdgeRunner:
         self._repl_synced = _grow_dev(self._repl_synced, (old_k, old_w),
                                       (kcap1, w1), torch.bool, dev)
         self._cnt = None  # re-made at the next tracker launch
-        if self.has_pane and self.pane_tab is not None:
-            if self.pane_fed:
-                self.pane_tab = _grow_dev(self.pane_tab,
-                                          (old_w, old_k, 2), (w1, kcap1, 2),
-                                          torch.int32, dev)
-                self.pane_cnt = _grow_dev(self.pane_cnt, (old_w, old_k),
-                                          (w1, kcap1), torch.int32, dev)
-                last = torch.full((w1,), -1, dtype=torch.int32, device=dev)
-                last[:old_w] = self.pane_last[:old_w]
-                self.pane_last = last
-            else:  # an empty pane is re-made (and reset) at the new shape
-                self.pane_tab = self.pane_cnt = self.pane_last = None
+        # the pane's pair keys do not depend on kcap1 or w1: it needs no
+        # re-layout (pane_last follows w1 at the next segment)
         grew_w = w1 != self._w1
         self._kcap = new_kcap
         self._w1 = w1
@@ -1015,13 +1117,7 @@ class FusedEdgeRunner:
             v[:m] = self._feed_vals[lo:hi]
             vals = self._up(v)
             reset = self.pane_fed == 0  # first segment of a fresh pane
-            if self.pane_tab is None:
-                self.pane_tab = torch.empty((w1, kcap1, 2), dtype=torch.int32,
-                                            device=self.device)
-                self.pane_cnt = torch.empty((w1, kcap1), dtype=torch.int32,
-                                            device=self.device)
-                self.pane_last = torch.empty((w1,), dtype=torch.int32,
-                                             device=self.device)
+            self._size_pane(m, w1, reset)
             seg_base = state.offset + lo
         prep_span.done()
 
@@ -1055,8 +1151,8 @@ class FusedEdgeRunner:
                                               **fifo)
             pane_update(keys, workers, m, repl=self.repl, vals=vals,
                         seg_base=seg_base if seg_base is not None else 0,
-                        pane_tab=self.pane_tab if self.has_pane else None,
-                        pane_cnt=self.pane_cnt, pane_last=self.pane_last,
+                        pane_keys=self.pane_keys if self.has_pane else None,
+                        pane_vc=self.pane_vc, pane_last=self.pane_last,
                         reset=reset)
         self._c_dispatches.add(1)
         if self.has_pane:
@@ -1083,6 +1179,32 @@ class FusedEdgeRunner:
             self._fish_epoch_points(grouper, state, lo, hi)
         seg_span.done()
         return fin
+
+    def _size_pane(self, m: int, w1: int, reset: bool) -> None:
+        """Keep the open pane's table at load <= 1/2 with the next ``m``
+        tuples — decided on the host from ``pane_fed``, no readback.  A
+        fresh pane keeps the last pane's table (the reset clears it), so a
+        steady stream never grows; a pane that would pass half load moves
+        to a table of ``pane_capacity`` slots, its slots re-inserted.
+        ``pane_last`` follows the worker universe."""
+        need = pane_capacity(self.pane_fed + m)
+        have = 0 if self.pane_keys is None else self.pane_keys.shape[0]
+        if need > have:
+            if reset:
+                self.pane_keys = torch.empty(need, dtype=torch.int64,
+                                             device=self.device)
+                self.pane_vc = torch.empty((2, need), dtype=torch.int32,
+                                           device=self.device)
+            else:
+                self.pane_keys, self.pane_vc = pane_grow(
+                    self.pane_keys, self.pane_vc, need)
+        if self.pane_last is None or self.pane_last.shape[0] != w1:
+            last = torch.full((w1,), -1, dtype=torch.int32,
+                              device=self.device)
+            if self.pane_last is not None and not reset:
+                n = min(w1, self.pane_last.shape[0])
+                last[:n] = self.pane_last[:n]
+            self.pane_last = last
 
     def _theta(self, grouper) -> float:
         if self.scheme == "fish":
@@ -1122,28 +1244,26 @@ class FusedEdgeRunner:
     def flush_pane(self, sink) -> None:
         """Sync the open device pane into the host KeyedStateManager and
         mark it empty (``merge_entries`` accumulates, so the pane can keep
-        filling on the device afterwards; the next segment resets it)."""
+        filling on the device afterwards; the next segment resets the
+        table and keeps its size)."""
         if not self.has_pane or self.pane_fed == 0:
             return
         self._c_pane_flushes.add(1)
         flush_span = self.tel.tracer.span("fused.pane_flush", cat="fused",
                                           pane_fed=self.pane_fed)
-        kcap1 = self.pane_cnt.shape[1]
-        # phantom row/lane never accumulate, so the nonzero cells of the
-        # contiguous count plane are every live entry — found on the
-        # device, already per-worker grouped with keys ascending because
-        # the table is worker-major; only the entries cross to the host
-        flat_d = torch.nonzero(self.pane_cnt.view(-1)).squeeze(1)
-        tab = self.pane_tab.view(-1, 2)[flat_d]
-        flat = flat_d.cpu().numpy()
-        tab = tab.cpu().numpy()
+        # the occupied slots (each with a count > 0), compacted and sorted
+        # by pair key on the device: grouped per worker with keys
+        # ascending; only the entries cross to the host (padding lanes
+        # never enter the table)
+        pairs_d, vc_d = pane_canonical(self.pane_keys, self.pane_vc)
+        pairs = pairs_d.cpu().numpy()
+        vc = vc_d.cpu().numpy().astype(np.int64)
         last = self.pane_last.cpu().numpy()
         entries = []
-        if flat.shape[0]:
-            ws, ks0 = np.divmod(flat, kcap1)
-            ks = ks0.astype(np.int64)
-            vs = tab[:, 0].astype(np.int64)
-            cs = tab[:, 1].astype(np.int64)
+        if pairs.shape[0]:
+            ws = pairs >> 32
+            ks = pairs & 0xFFFFFFFF
+            vs, cs = vc
             starts = np.concatenate(
                 [[0], np.flatnonzero(ws[1:] != ws[:-1]) + 1, [ws.shape[0]]])
             for s, e in zip(starts[:-1].tolist(), starts[1:].tolist()):

@@ -127,14 +127,17 @@ def _run_segment(scheme, s, where):
         workers = ff.route_scan(scheme, m, keys=up(s["keys"]), counts=counts,
                                 rows=rows, **kw)
         workers, fin = ff.fifo_workers(scheme, m, workers=workers, **fifo)
-    tab = torch.zeros((w1, kcap + 1, 2), dtype=torch.int32, device=d)
-    cntp = torch.zeros((w1, kcap + 1), dtype=torch.int32, device=d)
+    cap = ff.pane_capacity(m)
+    pane_keys = torch.empty(cap, dtype=torch.int64, device=d)
+    pane_vc = torch.empty((2, cap), dtype=torch.int32, device=d)
     last = torch.zeros((w1,), dtype=torch.int32, device=d)
     repl = torch.zeros((kcap + 1, w1), dtype=torch.bool, device=d)
     ff.pane_update(up(s["keys"]), workers, m, repl=repl, vals=up(s["keys"]),
-                   seg_base=7, pane_tab=tab, pane_cnt=cntp, pane_last=last,
-                   reset=True)
-    outs = [workers[:m], fin[:m], busy, counts, tab, cntp, last, repl]
+                   seg_base=7, pane_keys=pane_keys, pane_vc=pane_vc,
+                   pane_last=last, reset=True)
+    # the pane in canonical form: slot places differ between the two
+    pairs, vc = ff.pane_canonical(pane_keys, pane_vc)
+    outs = [workers[:m], fin[:m], busy, counts, pairs, vc, last, repl]
     outs += [kw[k] for k in ("trk", "snap", "psum", "pmax", "m_k", "ebl",
                              "eas") if kw.get(k) is not None]
     if rows is not None:
@@ -182,6 +185,121 @@ def test_cuda_segment_kernels_match_plain_one_worker(scheme):
     s = _segment(seed=13, m=3_000, n_pad=4_096, workers=1)
     s["a_live"] = 1
     _assert_card_equals_plain(scheme, s)
+
+
+def _pane_run(where, segs, caps, resets=(0,), w1=9, kcap=1_024):
+    """Segments into a pane table on ``where``: ``segs`` is a list of
+    (keys, workers, vals) numpy triples, ``caps`` the table's slots before
+    each (a larger one grows the table, its slots re-inserted), ``resets``
+    the segments that start a pane.  Returns the canonical pane,
+    pane_last, repl and the pane_update launches made."""
+    d = torch.device(where)
+    up = (lambda a: T(np.ascontiguousarray(a)).to(d))
+    pane_keys = torch.empty(caps[0], dtype=torch.int64, device=d)
+    pane_vc = torch.empty((2, caps[0]), dtype=torch.int32, device=d)
+    last = torch.empty((w1,), dtype=torch.int32, device=d)
+    repl = torch.zeros((kcap + 1, w1), dtype=torch.bool, device=d)
+    before = ff.LAUNCHES["pane_update"]
+    base = 0
+    for j, ((k, w, v), cap) in enumerate(zip(segs, caps)):
+        if cap > pane_keys.shape[0]:
+            pane_keys, pane_vc = ff.pane_grow(pane_keys, pane_vc, cap)
+        ff.pane_update(up(k), up(w), k.shape[0], repl=repl, vals=up(v),
+                       seg_base=base, pane_keys=pane_keys, pane_vc=pane_vc,
+                       pane_last=last, reset=j in resets)
+        base += k.shape[0]
+    pairs, vc = ff.pane_canonical(pane_keys, pane_vc)
+    return [pairs, vc, last, repl], ff.LAUNCHES["pane_update"] - before
+
+
+def _pane_seg(rng, m, kcap=1_024, workers=8, hot=0.0):
+    keys = rng.integers(0, kcap, m).astype(np.int32)
+    wk = rng.integers(0, workers, m).astype(np.int32)
+    if hot:  # one (key, worker) pair takes this share of the tuples
+        sel = rng.random(m) < hot
+        keys[sel], wk[sel] = 5, 3
+    return keys, wk, rng.integers(-5, 10, m).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot_pair", "growth", "reset_after_growth"])
+def test_cuda_pane_update_matches_plain(case):
+    """pane_update's compact table on the card against its plain version,
+    in canonical form: one pair hit by ~12,000 of a segment's 16,384
+    tuples (whole warps of one pair, and CAS races on one slot); three
+    segments whose table grows twice mid-pane; and a reset segment into
+    a table that grew in the pane before."""
+    _card()
+    rng = np.random.default_rng({"hot_pair": 1, "growth": 2,
+                                 "reset_after_growth": 3}[case])
+    if case == "hot_pair":
+        segs = [_pane_seg(rng, 16_384, hot=0.75)]
+        caps = [ff.pane_capacity(16_384)]
+    else:  # 8,192 -> 16,384 -> 32,768 slots
+        segs = [_pane_seg(rng, 3_000, hot=0.2) for _ in range(3)]
+        caps = [ff.pane_capacity(3_000 * (j + 1)) for j in range(3)]
+    card, n_card = _pane_run("cuda", segs, caps)
+    plain, _ = _pane_run("cpu", segs, caps)
+    for c, p in zip(card, plain):
+        assert torch.equal(c.cpu(), p), case
+    assert n_card == len(segs) + (2 if case != "hot_pair" else 0)
+    if case == "reset_after_growth":
+        # a new pane in the grown table: the reset clears every slot, so
+        # it holds what the segment alone gives
+        seg = [_pane_seg(rng, 3_000)]
+        card2, _ = _pane_run("cuda", segs + seg, caps + caps[-1:], (0, 3))
+        plain2, _ = _pane_run("cpu", segs + seg, caps + caps[-1:], (0, 3))
+        fresh, _ = _pane_run("cpu", seg, caps[-1:])
+        for c, p in zip(card2, plain2):
+            assert torch.equal(c.cpu(), p), case
+        for c, f in zip(card2[:2], fresh[:2]):
+            assert torch.equal(c.cpu(), f), case
+
+
+def _ring_case(seed, workers, vnodes, n_pad, m, hits):
+    rng = np.random.default_rng(seed)
+    ring = ConsistentHashRing(range(workers), virtual_nodes=vnodes)
+    pts, cands = ff._build_ring_table(ring, max(workers, 2))
+    h = rng.integers(0, 2 ** 32, n_pad, dtype=np.uint64).astype(np.uint32)
+    if hits:  # hashes at ring points, at 0, at the last point and above
+        sel = rng.integers(0, pts.shape[0], m // 4)
+        h[:m // 4] = pts[sel]
+        h[m // 4:m // 4 + 4] = [0, pts[-1], pts[-1] + 1, 2 ** 32 - 1]
+        h[m // 4 + 4:m // 2] = pts[0] - 1
+    return pts, cands, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 31, 32, 128, "dmax"])
+@pytest.mark.parametrize("per_key", [True, False])
+@pytest.mark.parametrize("ring", ["paper", "odd"])
+def test_cuda_ring_rows_match_plain(width, per_key, ring):
+    """ring_rows against ring_rows_plain: widths of FG (1), PKG (2), odd
+    and warp-edge widths, 128 (FISH/DC/WC at 128 workers) and the full
+    candidate row; 128 workers x 64 points (R = 8,192) and 37 x 7 (R =
+    259, not a multiple of 32, and a width-37 row: no 16-byte copies);
+    hashes at ring points, at 0, at the last point and above it; per-key
+    and per-tuple hashes; m < n_pad (padding rows -1)."""
+    dev = _card()
+    workers, vnodes = (128, 64) if ring == "paper" else (37, 7)
+    n_pad, m = 4_096, 3_001
+    pts, cands, h = _ring_case(5, workers, vnodes, n_pad, m, hits=True)
+    w = cands.shape[1] if width == "dmax" else min(width, cands.shape[1])
+    keys = None
+    if per_key:  # tuple i hashes as h[keys[i]]
+        keys = np.random.default_rng(6).integers(0, n_pad, n_pad).astype(
+            np.int32)
+        keys[:m // 2] = np.arange(m // 2)  # the crafted hashes stay in use
+    up = (lambda a, d: None if a is None else T(np.ascontiguousarray(a)).to(d))
+    before = ff.LAUNCHES["ring_rows"]
+    got = ff.ring_rows(up(ff._u32_bits(pts), dev), up(cands, dev),
+                       up(ff._u32_bits(h), dev), up(keys, dev), m, w, n_pad)
+    want = ff.ring_rows_plain(up(ff._u32_bits(pts), "cpu"), up(cands, "cpu"),
+                              up(ff._u32_bits(h), "cpu"), up(keys, "cpu"), m,
+                              w, n_pad)
+    assert ff.LAUNCHES["ring_rows"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert bool((want[m:] == -1).all())
 
 
 @pytest.mark.cuda

@@ -181,6 +181,71 @@ def test_jax_started_stream_continues_in_port(scheme, stream):
         assert_within_bands(_as_edge(p2), _as_edge(r2))
 
 
+def _recorded(mgr):
+    """Record every pane flush the manager is fed: (tuples, entries)."""
+    got = []
+    real = mgr.feed_aggregated
+
+    def feed_aggregated(n_tuples, entries):
+        got.append((n_tuples, entries))
+        return real(n_tuples, entries)
+    mgr.feed_aggregated = feed_aggregated
+    return got
+
+
+@pytest.mark.parametrize("scheme", EXACT)
+def test_fused_runner_pane_flushes_match_jax(scheme):
+    """The JAX package's FusedEdgeRunner and the port's (``device="cpu"``)
+    on the same seeded feeds: eight feeds of 400 into 2,000-tuple panes, so
+    a pane spans five segments; the key space grows from 64 to 1,024 ids
+    in the first pane (a key-capacity growth mid-pane), and the port's
+    compact pane table grows from 1,024 to 4,096 slots in it.  Every
+    flush hands the sink the same entries: per worker, keys ascending,
+    value and count sums, and the worker's last stream index."""
+    from repro.state import KeyedStateManager as RefManager
+    from repro.state import WindowOp as RefWindowOp
+    from repro.topology.configs import config_for as ref_config
+    from repro_torch.state import KeyedStateManager, WindowOp
+
+    rng = np.random.default_rng(21)
+    n, feed = 3_200, 400
+    keys = np.concatenate([rng.integers(0, 60, 2 * feed),
+                           rng.integers(0, 1_000, n - 2 * feed)])
+    values = rng.integers(1, 10, n).astype(np.float64)
+    ts = np.arange(n, dtype=np.float64) / 2e4
+    caps = np.full(8, 4e-4)
+    op = dict(agg="sum", value="payload", size=2_000)
+    g_ref, g_port = ref_config(scheme).build(8), PT.config_for(scheme).build(8)
+    mgr_ref = RefManager(RefWindowOp(**op))
+    mgr_port = KeyedStateManager(WindowOp(**op))
+    got_ref, got_port = _recorded(mgr_ref), _recorded(mgr_port)
+    st_ref = st_port = None
+    slots, kcaps = [], []
+    for lo in range(0, n, feed):
+        sl = slice(lo, lo + feed)
+        kw = dict(times=ts[sl], mode="fused", capacities=caps,
+                  arrival_rate=2e4, values=values[sl])
+        st_ref = ref_simulate_edge(g_ref, keys[sl], state=st_ref,
+                                   state_sink=mgr_ref, **kw).state
+        st_port = simulate_edge(g_port, keys[sl], state=st_port,
+                                state_sink=mgr_port, device=CPU,
+                                **kw).state
+        slots.append(st_port.device.pane_keys.shape[0])
+        kcaps.append(st_port.device._kcap)
+    for st, mgr in ((st_port, mgr_port), (st_ref, mgr_ref)):
+        st.device.flush_pane(mgr)
+    assert slots[0] == 1_024 and max(slots) == 4_096
+    assert kcaps[:2] == [64, 64] and kcaps[2] == 1_024  # inside pane 1
+    assert [t for t, _ in got_port] == [t for t, _ in got_ref] \
+        == [2_000, 1_200]
+    for (_, ep), (_, er) in zip(got_port, got_ref):
+        assert len(ep) == len(er)
+        for a, b in zip(ep, er):
+            assert a[0] == b[0] and a[4] == b[4]
+            for x, y in zip(a[1:4], b[1:4]):
+                np.testing.assert_array_equal(x, y)
+
+
 def _as_edge(res):
     m = res.metrics
 

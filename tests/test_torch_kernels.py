@@ -323,32 +323,53 @@ def test_route_fish_matches_reference_within_one_epoch():
                                       np.asarray(as_r)[:-1])
 
 
-def test_pane_update_plain_matches_numpy():
+@pytest.mark.parametrize("case", ["reset", "steady", "growth"])
+def test_pane_update_plain_matches_numpy(case):
+    """The pane table in canonical form (occupied slots sorted by pair
+    key), pane_last and the replica matrix against np.add.at /
+    np.maximum.at: one segment into a cleared table (reset), three into
+    one table (steady), and three into a table that grows twice in the
+    pane, its slots re-inserted (growth)."""
     s = Seg(seed=8)
     rng = np.random.default_rng(9)
-    workers = np.full(s.n_pad, s.w1 - 1, np.int32)
-    workers[:s.m] = rng.integers(0, s.w1 - 1, s.m)
-    vals = rng.integers(1, 10, s.n_pad).astype(np.int32)
     kcap1 = s.kcap + 1
-    tab = torch.full((s.w1, kcap1, 2), 99, dtype=torch.int32)
-    cnt = torch.full((s.w1, kcap1), 99, dtype=torch.int32)
+    segs = 1 if case == "reset" else 3
+    cap = ff.pane_capacity(s.m if case == "growth" else segs * s.m)
+    pane_keys = torch.full((cap,), 99, dtype=torch.int64)
+    pane_vc = torch.full((2, cap), 99, dtype=torch.int32)
     last = torch.full((s.w1,), 99, dtype=torch.int32)
     repl = torch.zeros((kcap1, s.w1), dtype=torch.bool)
-    ff.pane_update(T(s.keys), T(workers), s.m, repl=repl, vals=T(vals),
-                   seg_base=500, pane_tab=tab, pane_cnt=cnt, pane_last=last,
-                   reset=True)
-    k, w, v = s.keys[:s.m], workers[:s.m], vals[:s.m]
     want_v = np.zeros((s.w1, kcap1), np.int64)
     want_c = np.zeros((s.w1, kcap1), np.int64)
-    np.add.at(want_v, (w, k), v)
-    np.add.at(want_c, (w, k), 1)
-    np.testing.assert_array_equal(tab[:, :, 0].numpy(), want_v)
-    np.testing.assert_array_equal(tab[:, :, 1].numpy(), want_c)
-    np.testing.assert_array_equal(cnt.numpy(), want_c)
     want_last = np.full(s.w1, -1)
-    np.maximum.at(want_last, w, 500 + np.arange(s.m))
+    grew = 0
+    for j in range(segs):
+        workers = np.full(s.n_pad, s.w1 - 1, np.int32)
+        workers[:s.m] = rng.integers(0, s.w1 - 1, s.m)
+        vals = rng.integers(-3, 10, s.n_pad).astype(np.int32)
+        need = ff.pane_capacity((j + 1) * s.m)
+        if need > pane_keys.shape[0]:
+            pane_keys, pane_vc = ff.pane_grow(pane_keys, pane_vc, need)
+            grew += 1
+        ff.pane_update(T(s.keys), T(workers), s.m, repl=repl, vals=T(vals),
+                       seg_base=500 + j * s.m, pane_keys=pane_keys,
+                       pane_vc=pane_vc, pane_last=last, reset=j == 0)
+        k, w, v = s.keys[:s.m], workers[:s.m], vals[:s.m]
+        np.add.at(want_v, (w, k), v)
+        np.add.at(want_c, (w, k), 1)
+        np.maximum.at(want_last, w, 500 + j * s.m + np.arange(s.m))
+    assert grew == (2 if case == "growth" else 0)
+    pairs, vc = ff.pane_canonical(pane_keys, pane_vc)
+    ws, ks = np.nonzero(want_c)  # row-major: sorted by (worker, key)
+    np.testing.assert_array_equal(pairs.numpy(), (ws << 32) | ks)
+    np.testing.assert_array_equal(vc[0].numpy(), want_v[ws, ks])
+    np.testing.assert_array_equal(vc[1].numpy(), want_c[ws, ks])
     np.testing.assert_array_equal(last.numpy(), want_last)
     np.testing.assert_array_equal(repl.numpy(), (want_c > 0).T)
+    # every slot past the occupied ones is empty, with zero sums
+    free = pane_keys == ff.PANE_EMPTY
+    assert int((~free).sum()) == ws.shape[0]
+    assert not bool(pane_vc[:, free].any())
 
 
 @pytest.mark.parametrize("sizes", [[(64, 300)], [(40, 200), (0, 30), (16, 0),
