@@ -377,16 +377,8 @@ def kernel_checks(cap, torch, np, launches):
         r.update(extra)
         rows.append(r)
 
-    def dtime(name, fn, reps=50):
-        """(device ms of one call, how); each device op's count and ms
-        per call logged."""
-        ops = device_ops(fn, reps, torch)
-        if not ops:
-            dms, how, _ = device_ms(fn, reps, torch)
-            return dms, how
-        log(f"  {name}: device ops per call (count, ms) " + json.dumps(
-            {k: (n / reps, ms / reps) for k, (n, ms) in ops.items()}))
-        return sum(ms for _, ms in ops.values()) / reps, "profiler"
+    def dtime(name, fn, reps=50, **kw):
+        return device_time(name, fn, reps, torch, **kw)
 
     # -- store_probe: the first pane sync, grouped; and G = 1 ----------------
     call = next(v for (n, _), v in cap.calls.items() if n == "store_probe")
@@ -498,13 +490,10 @@ def kernel_checks(cap, torch, np, launches):
     cnt_k.zero_()
     ms_fold = max(ms_both - ms_count, 0.0)
     # device-only: the two kernels of one tracker_update, by name
-    t_ops = device_ops(lambda: ff.tracker_update(trk, cnt_k, keys, m, **kw),
-                       50, torch)
-    log(f"  tracker_update: device ops {json.dumps(t_ops)} / 50")
-    dev_tc = (sum(v for k_, (_, v) in t_ops.items()
-                  if "tracker_count" in k_) / 50, "profiler")
-    dev_tf = (sum(v for k_, (_, v) in t_ops.items()
-                  if "tracker_fold" in k_) / 50, "profiler")
+    dev_tc, dev_tf = (dtime(f"tracker_update ({k_})",
+                            lambda: ff.tracker_update(trk, cnt_k, keys, m,
+                                                      **kw), keep=k_)
+                      for k_ in ("tracker_count", "tracker_fold"))
     uniq = int(torch.unique(keys[:m]).shape[0])
     # library yardstick: the same int scatter as one index_add_ (one epoch)
     ones = torch.ones(m, dtype=torch.int32, device=keys.device)
@@ -632,9 +621,16 @@ def kernel_checks(cap, torch, np, launches):
     if not (torch.equal(grown[0], old[0]) and torch.equal(grown[1], old[1])):
         fail("pane_grow: the grown table differs from the one it grew from")
     (keys, workers, m), kw = clone_call(seg["pane_update"]["fish"])
+    # card ms: back-to-back calls into one table, so after the first every
+    # pair finds its slot; device ms: each call into the table as the
+    # segment found it (new pairs claim slots), the restore left out
+    tk0, tvc0 = kw["pane_keys"].clone(), kw["pane_vc"].clone()
     ms = time_cuda(lambda: ff.pane_update(keys, workers, m, **kw), 50, torch)
     dev_pu = dtime("pane_update", lambda: ff.pane_update(keys, workers, m,
-                                                         **kw))
+                                                         **kw),
+                   setup=lambda: (kw["pane_keys"].copy_(tk0),
+                                  kw["pane_vc"].copy_(tvc0)),
+                   keep="pane_update")
     (rk, rw, rm), rkw = clone_call(seg["pane_update reset"]["fish"])
     ms_reset = time_cuda(lambda: ff.pane_update(rk, rw, rm, **rkw), 50,
                          torch)
@@ -643,7 +639,9 @@ def kernel_checks(cap, torch, np, launches):
     ms_grow = time_cuda(lambda: ff.pane_grow(gk, gvc, gcap), 50, torch)
     dev_grow = dtime("pane_grow", lambda: ff.pane_grow(gk, gvc, gcap))
     pms = time_host(lambda: plain_pane(keys, workers, m, **kw), 5, torch)
-    pairs = int(torch.unique(ff.pane_pairs(workers[:m], keys[:m])).shape[0])
+    seg_pairs = torch.unique(ff.pane_pairs(workers[:m], keys[:m]))
+    pairs = int(seg_pairs.shape[0])
+    new_pairs = int((~torch.isin(seg_pairs, tk0)).sum())
     # the pane state of the edge: its tables as FISH's first flush found
     # them (a whole pane's)
     pane = list(cap.calls[("flush", "fish")][0])
@@ -654,8 +652,9 @@ def kernel_checks(cap, torch, np, launches):
         ms, pms, 12 * m + pairs * (2 * 16 + 1) + 8 * w1, 4 * m,
         device=dev_pu, ms_reset=ms_reset, device_ms_reset=dev_reset[0],
         ms_grow=ms_grow, device_ms_grow=dev_grow[0], pane_bytes=pane_bytes,
-        pane_slots=pane[0].shape[0])
-    log(f"pane_update   m={m} pairs={pairs}: kernel {ms:.4f} ms, device "
+        pane_slots=pane[0].shape[0], new_pairs=new_pairs)
+    log(f"pane_update   m={m} pairs={pairs} ({new_pairs} new to the table):"
+        f" kernel {ms:.4f} ms (lookup only), device "
         f"{dev_pu[0]:.5f} ms; reset call {ms_reset:.4f} ms, device "
         f"{dev_reset[0]:.5f} ms; growth to {gcap} slots {ms_grow:.4f} ms, "
         f"device {dev_grow[0]:.5f} ms; plain {pms:.4f} ms, max|err| {err}")
@@ -797,48 +796,53 @@ def fish_path(keys, dev, torch, np):
     return captured, launches
 
 
-def device_ops(fn, reps, torch):
-    """Per device operation (kernel, memset, copy) that ``reps`` calls of
-    ``fn`` issue, from ``torch.profiler``'s trace: {name: (count, summed
-    ms)}; empty where the trace shows no device time."""
+def device_time(name, fn, reps, torch, setup=None, keep=""):
+    """Device-only ms of one call of ``fn``, and how it was taken: the
+    summed durations of the device operations (kernels, memsets, copies)
+    whose name holds ``keep``, from ``torch.profiler``'s trace over
+    ``reps`` calls, each after ``setup`` (whose operations ``keep`` leaves
+    out); where the trace shows no device time, the median of CUDA events
+    around single calls, each after ``setup`` and a sync.  Every device
+    operation's count and ms per call is logged."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    def once():
+        if setup is not None:
+            setup()
+        fn()
+    once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fn()
+            once()
         torch.cuda.synchronize()
     ops = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = ops.get(e.name[:40], (0, 0.0))
             ops[e.name[:40]] = (n + 1, us + e.time_range.elapsed_us())
-    return {k: (n, us / 1e3) for k, (n, us) in ops.items() if us > 0}
-
-
-def device_ms(fn, reps, torch):
-    """Device-only time of one call of ``fn``: the summed durations of the
-    device operations (kernels, memsets) it issues, from
-    ``torch.profiler``'s trace over ``reps`` calls; where the trace shows
-    no device time, the median of CUDA events around single calls after a
-    sync.  Returns (ms, how, {device op name: count})."""
-    ops = device_ops(fn, reps, torch)
+    ops = {k: (n / reps, us / 1e3 / reps) for k, (n, us) in ops.items()
+           if us > 0}
     if ops:
-        return (sum(ms for _, ms in ops.values()) / reps, "profiler",
-                {k: n for k, (n, _) in ops.items()})
+        log(f"  {name}: device ops per call (count, ms) {json.dumps(ops)}")
+        kept = [ms for k, (_, ms) in ops.items() if keep in k]
+        if not kept:
+            fail(f"{name}: no device operation named {keep!r} in the trace")
+        return sum(kept), "profiler"
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         torch.cuda.synchronize()
         e0.record()
         fn()
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
-    return sorted(times)[reps // 2], "events", {}
+    return sorted(times)[reps // 2], "events"
 
 
 def bitonic_stages(n):
@@ -862,15 +866,13 @@ def fish_kernel_checks(captured, launches, torch):
     def noop():
         _build.check(lib.fish_noop(stream), "fish_noop")
 
-    floor_ms, floor_how, _ = device_ms(noop, 200, torch)
+    floor_ms, floor_how = device_time("fish_noop", noop, 200, torch)
     log(f"empty launch: device {floor_ms:.5f} ms ({floor_how}), issue "
         f"{time_cuda(noop, 200, torch):.5f} ms")
 
     def timed(name, call, reps=200):
         ms = time_cuda(call, reps, torch)
-        dms, how, names = device_ms(call, reps, torch)
-        log(f"  {name}: device ops per call {json.dumps(names)} / {reps}")
-        return ms, dms, how
+        return (ms,) + device_time(name, call, reps, torch)
 
     (tbl, ks), _ = captured["fish_count"]
     outs_k = fc.fish_count(tbl, ks)

@@ -39,7 +39,7 @@ from ._device import resolve_device
 from .core.fish import EpochFrequencyTracker, FishParams, FishState
 from .core.stream import EdgeState
 from .kernels.feed_fused import (FusedEdgeRunner, _u32_bits,
-                                 pane_capacity, pane_insert)
+                                 pane_capacity, pane_from_entries)
 from .state.migration import MigrationStats
 from .state.store import make_store
 from .state.window import KeyedStateManager, WindowOp, WindowPartial, _Pane
@@ -170,12 +170,10 @@ def runner_from_reference(ref_runner, ref_grouper, ref_state, sink=None,
         # and count
         tab = np.asarray(ref_runner.pane_tab, dtype=np.int32)
         ws, ks = np.nonzero(tab[:, :, 1])
-        cap = pane_capacity(run.pane_fed)
-        run.pane_keys = torch.empty(cap, dtype=torch.int64, device=dev)
-        run.pane_vc = torch.empty((2, cap), dtype=torch.int32, device=dev)
-        pane_insert(run.pane_keys, run.pane_vc,
-                    up((ws.astype(np.int64) << 32) | ks.astype(np.int64)),
-                    up(tab[ws, ks, 0]), up(tab[ws, ks, 1]), reset=True)
+        run.pane_keys, run.pane_vc = pane_from_entries(
+            up((ws.astype(np.int64) << 32) | ks.astype(np.int64)),
+            up(tab[ws, ks, 0]), up(tab[ws, ks, 1]),
+            pane_capacity(run.pane_fed))
         run.pane_last = up(np.asarray(ref_runner.pane_last, dtype=np.int32))
     state.device = run
     return grouper, state

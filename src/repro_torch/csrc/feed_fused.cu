@@ -124,12 +124,15 @@ enum Scheme { SG = 0, FG = 1, PKG = 2, DC = 3, WC = 4, FISH = 5 };
 // One search per tuple, in two levels: every 32nd ring point (a splitter)
 // is staged in shared memory and binary-searched there; the run of 32
 // points after the last splitter <= h is then settled by one coalesced
-// 128-byte read and a warp vote (a warp per tuple, width >= 32) or by a
-// 5-step search in the run (a thread per tuple below width 32: FG's 1,
-// PKG's 2).
-// The row is then copied from cands in 16-byte vectors where width and
-// alignment allow.  The kernel is bound by writing the (n_pad, width)
-// rows; the searches are dependent loads, hidden by many tuples in flight.
+// 128-byte read and a warp vote (a warp per tuple at width >= 32) or by a
+// 5-step search in the run (a thread per tuple below: FG's width 1, PKG's
+// 2, DC/WC/FISH on edges of fewer than 32 workers).
+// The row is then copied from cands: at width >= 32 by the warp's lanes,
+// in 16-byte vectors where width and alignment allow; below, a block
+// searches a group of 256 / width tuples into shared memory and then
+// writes the group's rows, one int a thread, so the stores coalesce.  The
+// kernel is bound by writing the (n_pad, width) rows; the searches are
+// dependent loads, hidden by many tuples in flight.
 // ---------------------------------------------------------------------------
 
 constexpr int kRingThreads = 256;   // ring_rows: block
@@ -199,29 +202,43 @@ ring_rows_kernel(const unsigned int* __restrict__ pts, int r_n,
     }
     return;
   }
-  // a thread per tuple
-  for (int i = blockIdx.x * kRingThreads + threadIdx.x; i < n_pad;
-       i += gridDim.x * kRingThreads) {
-    int* out = rows + (long long)i * width;
-    if (i >= m) {
-      for (int j = 0; j < width; ++j) out[j] = -1;
-      continue;
-    }
-    const unsigned int h = tuple_hash(hashes, keys, i);
-    const int spl = splitter_rank(s_spl, n_spl, h);
-    int ub = 0;
-    if (spl > 0) {
-      // pts[base] <= h: the upper bound lies in (base, base + 32]
-      int lo = (spl - 1) * kRun + 1;
-      int hi = min(lo - 1 + kRun, r_n);
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (pts[mid] <= h) lo = mid + 1; else hi = mid;
+  // a thread per tuple searches, into shared memory; then the block's
+  // threads copy the group's rows, which lie back to back, one int each
+  // (thread f writes int f of the group's run: the stores coalesce)
+  __shared__ int s_ub[kRingThreads];
+  const int tb = kRingThreads / width;  // tuples per group
+  const int groups = (n_pad + tb - 1) / tb;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int i0 = g * tb;
+    if (threadIdx.x < tb) {
+      const int i = i0 + threadIdx.x;
+      int ub = -1;  // padding rows write -1
+      if (i < m) {
+        const unsigned int h = tuple_hash(hashes, keys, i);
+        const int spl = splitter_rank(s_spl, n_spl, h);
+        ub = 0;
+        if (spl > 0) {
+          // pts[first of the run] <= h: the upper bound lies in the next 32
+          int lo = (spl - 1) * kRun + 1;
+          int hi = min(lo - 1 + kRun, r_n);
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (pts[mid] <= h) lo = mid + 1; else hi = mid;
+          }
+          ub = lo == r_n ? 0 : lo;
+        }
       }
-      ub = lo;
+      s_ub[threadIdx.x] = ub;
     }
-    const int* src = cands + (long long)(ub == r_n ? 0 : ub) * dmax;
-    for (int j = 0; j < width; ++j) out[j] = src[j];
+    __syncthreads();
+    const int t = threadIdx.x / width;
+    if (t < tb && i0 + t < n_pad) {
+      const int j = threadIdx.x - t * width;
+      const int u = s_ub[t];
+      rows[(long long)(i0 + t) * width + j] =
+          u < 0 ? -1 : cands[(long long)u * dmax + j];
+    }
+    __syncthreads();  // s_ub is rewritten by the next group
   }
 }
 
@@ -762,12 +779,15 @@ constexpr int kPaneThreads = 256;
 constexpr unsigned long long kEmptySlot = ~0ull;
 enum PaneMode { kPaneNone = 0, kPaneTuples = 1, kPaneWeighted = 2 };
 
-// the slot of pair p, claimed by CAS if the pair is new to the table
+// the slot of pair p, claimed by CAS if the pair is new to the table; -1
+// when all C slots hold other pairs.  Only a caller past the load bound
+// gets there: the pair is dropped, and the table, now full, is refused by
+// every reader (the canonical form checks the load)
 __device__ __forceinline__ long long pane_slot(
     unsigned long long* slot_keys, int log2c, unsigned long long p) {
   const unsigned long long mask = (1ull << log2c) - 1;
   unsigned long long s = (p * 0x9E3779B97F4A7C15ull) >> (64 - log2c);
-  while (true) {
+  for (unsigned long long probes = 0; probes <= mask; ++probes) {
     // a slot's key goes from empty to its pair once and never changes
     // again, so a stale read can only say "empty" and fall to the CAS
     unsigned long long cur = __ldcg(slot_keys + s);
@@ -775,6 +795,7 @@ __device__ __forceinline__ long long pane_slot(
     if (cur == kEmptySlot || cur == p) return (long long)s;
     s = (s + 1) & mask;
   }
+  return -1;
 }
 
 __global__ void __launch_bounds__(kPaneThreads)
@@ -825,8 +846,10 @@ pane_update_kernel(int mode, const int* __restrict__ keys,
           mode == kPaneWeighted ? __reduce_add_sync(grp, c) : __popc(grp);
       if (leader) {
         const long long s = pane_slot(slot_keys, log2c, p);
-        atomicAdd(slot_val + s, vs);
-        atomicAdd(slot_cnt + s, cs);
+        if (s >= 0) {
+          atomicAdd(slot_val + s, vs);
+          atomicAdd(slot_cnt + s, cs);
+        }
       }
     }
     if (tuples && leader) {
@@ -885,7 +908,8 @@ int ring_rows(const unsigned int* pts, int r_n, const int* cands, int dmax,
   const int vec = width % 4 == 0 && dmax % 4 == 0 &&
                   reinterpret_cast<unsigned long long>(cands) % 16 == 0 &&
                   reinterpret_cast<unsigned long long>(rows) % 16 == 0;
-  const int per_block = width >= 32 ? kRingThreads / 32 : kRingThreads;
+  const int per_block =
+      width >= 32 ? kRingThreads / 32 : kRingThreads / width;
   const int blocks = capped_blocks(n_pad, per_block);
   ring_rows_kernel<<<blocks, kRingThreads, smem, stream>>>(
       pts, r_n, cands, dmax, width, vec, hashes, keys, n_pad, m, rows);

@@ -82,8 +82,8 @@ __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
            "tracker_update", "tracker_update_plain", "route_scan",
            "route_scan_plain", "fifo_workers", "fifo_workers_plain",
            "route_prologue", "pane_update", "pane_update_plain",
-           "pane_insert", "pane_grow", "pane_canonical", "pane_capacity",
-           "pane_pairs", "PANE_EMPTY", "SCHEME_IDS"]
+           "pane_from_entries", "pane_grow", "pane_canonical",
+           "pane_capacity", "pane_pairs", "PANE_EMPTY", "SCHEME_IDS"]
 
 #: kernel launches on CUDA tensors, counted where each wrapper launches
 LAUNCHES = {"ring_rows": 0, "tracker_count": 0, "tracker_fold": 0,
@@ -291,7 +291,8 @@ def ring_rows(pts: torch.Tensor, cands: torch.Tensor, hashes: torch.Tensor,
     """(n_pad, width) candidate rows: row i is ``cands[upper_bound(pts,
     h_i) % R, :width]`` for tuple i < m (-1 past m).  One search per
     tuple: every 32nd point staged in shared memory, then the run of 32
-    settled by one read (a warp per tuple at width >= 32, else a thread).
+    settled by one read (a warp per tuple at width >= 32) or a 5-step
+    search (a thread per tuple below).
 
     pts:    (R,) ring points, uint32 bit patterns in int32.
     cands:  (R, dmax) int32 first-distinct-owner rows.
@@ -692,12 +693,21 @@ def pane_pairs(workers: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     return (workers.long() << 32) | keys.long()
 
 
+def _pane_load_check(n: int, cap: int, what: str) -> None:
+    if 2 * n > cap:
+        raise ValueError(f"{what}: a pane table of {cap} slots past half "
+                         f"load ({n} pairs)")
+
+
 def pane_canonical(pane_keys: torch.Tensor, pane_vc: torch.Tensor):
     """The pane in canonical form, on the table's device: its occupied
     slots sorted by pair key — ``(pairs (n,) int64, (2, n) int32 value and
     count sums)``.  A slot's place depends on the order its pair arrived
-    in, so every reader of a pane table reads this form."""
+    in, so every reader of a pane table reads this form.  A table past half
+    load is refused (``ValueError``): its caller broke the size contract,
+    and on the card a pair that found every slot taken was dropped."""
     occ = torch.nonzero(pane_keys != PANE_EMPTY).squeeze(1)
+    _pane_load_check(occ.shape[0], pane_keys.shape[0], "pane_canonical")
     pairs, order = torch.sort(pane_keys[occ])
     return pairs, pane_vc[:, occ[order]]
 
@@ -711,9 +721,7 @@ def _pane_merge_plain(pane_keys, pane_vc, pairs, vals, cnts) -> None:
     uniq, inv = torch.unique(torch.cat([p0, pairs[keep]]), sorted=True,
                              return_inverse=True)
     n = uniq.shape[0]
-    if 2 * n > pane_keys.shape[0]:
-        raise ValueError(f"pane table of {pane_keys.shape[0]} slots past "
-                         f"half load ({n} pairs)")
+    _pane_load_check(n, pane_keys.shape[0], "pane_update")
     sums = torch.zeros((2, n), dtype=torch.int32, device=pane_keys.device)
     sums[0].index_add_(0, inv, torch.cat([vc0[0], vals[keep]]))
     sums[1].index_add_(0, inv, torch.cat([vc0[1], cnts[keep]]))
@@ -760,9 +768,12 @@ def pane_update(keys: torch.Tensor, workers: torch.Tensor, m: int, *,
     ``(worker << 32) | key``'s value and count sums in the open-addressing
     table ``pane_keys`` (C,) int64 / ``pane_vc`` (2, C) int32, and
     ``pane_last`` (w1,) — all cleared first when ``reset``.  The caller
-    keeps C >= 2 x the pane's tuples (:func:`pane_capacity`); read the
-    table through :func:`pane_canonical`."""
+    keeps C >= 2 x the pane's tuples (:func:`pane_capacity`): a reset call
+    of more than C / 2 tuples is refused here, and a table driven past half
+    load is refused by :func:`pane_canonical`, through which it is read."""
     has_pane = pane_keys is not None
+    if has_pane and reset:
+        _pane_load_check(m, pane_keys.shape[0], "pane_update")
     if not _on_card(keys, "pane_update"):
         return pane_update_plain(has_pane, reset, keys, workers, vals, m,
                                  seg_base, pane_keys, pane_vc, pane_last,
@@ -792,45 +803,42 @@ def pane_update(keys: torch.Tensor, workers: torch.Tensor, m: int, *,
     return None
 
 
-def pane_insert(pane_keys: torch.Tensor, pane_vc: torch.Tensor,
-                pairs: torch.Tensor, vals: torch.Tensor, cnts: torch.Tensor,
-                *, reset: bool = False) -> None:
-    """Weighted insert into a pane table, in place: each pair of
-    ``pairs`` (int64, :data:`PANE_EMPTY` entries skipped) adds its own
-    value and count — ``pane_update``'s kernel without tuples, replicas or
-    ``pane_last``.  Cleared first when ``reset``."""
-    if not _on_card(pane_keys, "pane_insert"):
-        if reset:
-            pane_keys.fill_(PANE_EMPTY)
-            pane_vc.zero_()
-        return _pane_merge_plain(pane_keys, pane_vc, pairs, vals, cnts)
-    dev = pane_keys.device
-    _need("pane_insert", dev, torch.int64, pane_keys=pane_keys, pairs=pairs)
-    _need("pane_insert", dev, torch.int32, pane_vc=pane_vc, vals=vals,
-          cnts=cnts)
-    log2c = _pane_log2(pane_keys, pane_vc, "pane_insert")
+def pane_from_entries(pairs: torch.Tensor, vals: torch.Tensor,
+                      cnts: torch.Tensor, capacity: int):
+    """A fresh pane table of ``capacity`` slots holding the weighted
+    entries ``pairs`` (int64, :data:`PANE_EMPTY` entries skipped) with
+    their own value and count sums — ``pane_update``'s kernel without
+    tuples, replicas or ``pane_last``.  Returns (keys (C,), vc (2, C))."""
+    dev = pairs.device
     n = pairs.shape[0]
     if vals.shape != (n,) or cnts.shape != (n,):
-        raise ValueError("pane_insert: pairs, vals and cnts differ in length")
-    err = _lib().pane_update(2, int(reset), None, None, pairs.data_ptr(),
+        raise ValueError("pane_from_entries: pairs, vals and cnts differ in "
+                         "length")
+    _pane_load_check(n, capacity, "pane_from_entries")
+    keys = torch.empty(capacity, dtype=torch.int64, device=dev)
+    vc = torch.empty((2, capacity), dtype=torch.int32, device=dev)
+    if not _on_card(pairs, "pane_from_entries"):
+        keys.fill_(PANE_EMPTY)
+        vc.zero_()
+        _pane_merge_plain(keys, vc, pairs, vals, cnts)
+        return keys, vc
+    _need("pane_from_entries", dev, torch.int64, pairs=pairs)
+    _need("pane_from_entries", dev, torch.int32, vals=vals, cnts=cnts)
+    log2c = _pane_log2(keys, vc, "pane_from_entries")
+    err = _lib().pane_update(2, 1, None, None, pairs.data_ptr(),
                              vals.data_ptr(), cnts.data_ptr(), n, 0, 0, log2c,
-                             pane_keys.data_ptr(), pane_vc.data_ptr(), None,
-                             None, _build.stream_ptr(dev))
+                             keys.data_ptr(), vc.data_ptr(), None, None,
+                             _build.stream_ptr(dev))
     _build.check(err, "pane_update")
     LAUNCHES["pane_update"] += 1
-    return None
+    return keys, vc
 
 
 def pane_grow(pane_keys: torch.Tensor, pane_vc: torch.Tensor,
               capacity: int):
     """A pane table of ``capacity`` slots holding the entries of the given
-    one: its slots re-inserted, as weighted inserts, through
-    ``pane_update``'s kernel.  Returns (keys, vc)."""
-    keys = torch.empty(capacity, dtype=torch.int64, device=pane_keys.device)
-    vc = torch.empty((2, capacity), dtype=torch.int32,
-                     device=pane_keys.device)
-    pane_insert(keys, vc, pane_keys, pane_vc[0], pane_vc[1], reset=True)
-    return keys, vc
+    one: its slots re-inserted, as weighted inserts.  Returns (keys, vc)."""
+    return pane_from_entries(pane_keys, pane_vc[0], pane_vc[1], capacity)
 
 
 # ---------------------------------------------------------------------------

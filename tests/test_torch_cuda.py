@@ -28,7 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd
 from repro_torch.kernels import store_probe as sp
 
-import torch_helpers  # noqa: F401  (caps torch threads)
+import torch_helpers  # caps torch threads; shared cases
 
 T = torch.from_numpy
 
@@ -256,6 +256,22 @@ def test_cuda_pane_update_matches_plain(case):
             assert torch.equal(c.cpu(), f), case
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reset", "steady", "from_entries"])
+def test_cuda_pane_update_refuses_an_overfull_table(case):
+    """A caller past the table's half load gets ValueError, never a hung
+    probe: a reset call of more tuples than C / 2 is refused before the
+    launch; a steady call that brings more new pairs than the table has
+    free slots drops them and the full table is refused by its reader;
+    entries past C / 2 are refused by pane_from_entries.  The card stays
+    usable after."""
+    _card()
+    with pytest.raises(ValueError, match="past half load"):
+        torch_helpers.overfull_pane(case, "cuda")
+    torch.cuda.synchronize()
+    assert int(torch.ones(4, device="cuda").sum()) == 4
+
+
 def _ring_case(seed, workers, vnodes, n_pad, m, hits):
     rng = np.random.default_rng(seed)
     ring = ConsistentHashRing(range(workers), virtual_nodes=vnodes)
@@ -270,19 +286,21 @@ def _ring_case(seed, workers, vnodes, n_pad, m, hits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [1, 2, 3, 31, 32, 128, "dmax"])
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 16, 31, 32, 128, "dmax"])
 @pytest.mark.parametrize("per_key", [True, False])
 @pytest.mark.parametrize("ring", ["paper", "odd"])
 def test_cuda_ring_rows_match_plain(width, per_key, ring):
     """ring_rows against ring_rows_plain: widths of FG (1), PKG (2), odd
-    and warp-edge widths, 128 (FISH/DC/WC at 128 workers) and the full
-    candidate row; 128 workers x 64 points (R = 8,192) and 37 x 7 (R =
-    259, not a multiple of 32, and a width-37 row: no 16-byte copies);
-    hashes at ring points, at 0, at the last point and above it; per-key
-    and per-tuple hashes; m < n_pad (padding rows -1)."""
+    and warp-edge widths, 8 and 16 (DC/WC/FISH edges of few workers), 128
+    (FISH/DC/WC at 128 workers) and the full candidate row; 128 workers x
+    64 points (R = 8,192) and 37 x 7 (R = 259, not a multiple of 32, and a
+    width-37 row: no 16-byte copies); hashes at ring points, at 0, at the
+    last point and above it; per-key and per-tuple hashes; m < n_pad
+    (padding rows -1), n_pad not a multiple of 32 (a warp's last rows
+    past the end)."""
     dev = _card()
     workers, vnodes = (128, 64) if ring == "paper" else (37, 7)
-    n_pad, m = 4_096, 3_001
+    n_pad, m = 4_101, 3_001
     pts, cands, h = _ring_case(5, workers, vnodes, n_pad, m, hits=True)
     w = cands.shape[1] if width == "dmax" else min(width, cands.shape[1])
     keys = None

@@ -31,7 +31,7 @@ from repro_torch.core.chash import ConsistentHashRing, hash32
 from repro_torch.kernels import feed_fused as ff
 from repro_torch.kernels.ops import store_probe
 
-import torch_helpers  # noqa: F401  (caps torch threads)
+import torch_helpers  # caps torch threads; shared cases
 
 T = torch.from_numpy
 
@@ -370,6 +370,16 @@ def test_pane_update_plain_matches_numpy(case):
     free = pane_keys == ff.PANE_EMPTY
     assert int((~free).sum()) == ws.shape[0]
     assert not bool(pane_vc[:, free].any())
+
+
+@pytest.mark.parametrize("case", ["reset", "steady", "from_entries"])
+def test_pane_update_plain_refuses_an_overfull_table(case):
+    """The plain version refuses what the card refuses: a reset call of
+    more tuples than C / 2, a steady call whose pairs pass half load, and
+    entries past C / 2 into a fresh table (tests/test_torch_cuda.py holds
+    the card to the same)."""
+    with pytest.raises(ValueError, match="past half load"):
+        torch_helpers.overfull_pane(case, "cpu")
 
 
 @pytest.mark.parametrize("sizes", [[(64, 300)], [(40, 200), (0, 30), (16, 0),

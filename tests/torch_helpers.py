@@ -70,3 +70,35 @@ def assert_within_bands(ep, er):
         0.25 * er.memory_overhead
     assert ep.imbalance <= er.imbalance + 0.05
     assert ep.latency_p99 <= max(er.latency_p99 * 10.0, 0.05)
+
+
+def overfull_pane(case, where):
+    """Drive a 64-slot pane table past half load on ``where`` (the card's
+    ``pane_update`` or its plain version): a reset call of 33 tuples
+    (``reset``); 32 pairs, then 64 new ones (``steady``); 33 entries into a
+    fresh table (``from_entries``).  Raises what the path raises, where it
+    raises: the caller wraps the call in ``pytest.raises``."""
+    from repro_torch.kernels import feed_fused as ff
+
+    d = torch.device(where)
+    cap, w1 = 64, 3
+    keys_t = torch.full((cap,), -1, dtype=torch.int64, device=d)
+    vc = torch.zeros((2, cap), dtype=torch.int32, device=d)
+    last = torch.full((w1,), -1, dtype=torch.int32, device=d)
+    repl = torch.zeros((200, w1), dtype=torch.bool, device=d)
+
+    def seg(lo, n):  # n distinct (key, worker 1) pairs
+        k = torch.arange(lo, lo + n, dtype=torch.int32, device=d)
+        w = torch.ones(n, dtype=torch.int32, device=d)
+        ff.pane_update(k, w, n, repl=repl, vals=k.clone(), pane_keys=keys_t,
+                       pane_vc=vc, pane_last=last, reset=lo == 0)
+    if case == "reset":
+        seg(0, cap // 2 + 1)
+    elif case == "steady":
+        seg(0, cap // 2)
+        seg(cap // 2, cap)
+    else:
+        pairs = torch.arange(cap // 2 + 1, dtype=torch.int64, device=d)
+        ones = torch.ones(cap // 2 + 1, dtype=torch.int32, device=d)
+        keys_t, vc = ff.pane_from_entries(pairs, ones, ones, cap)
+    ff.pane_canonical(keys_t, vc)
