@@ -65,6 +65,12 @@ WINDOW = 65_536      # tumbling window (= pane) of the device store
 RATE = 10_000.0      # tuples/s
 SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
 EXACT = ("sg", "fg", "pkg")
+# a segment's kernels besides pane_update, per scheme
+SEGMENT_KERNELS = {
+    "sg": ("fifo_workers",), "fg": ("ring_rows", "fifo_workers"),
+    "pkg": ("ring_rows", "route_scan", "fifo_workers"),
+    **{s: ("ring_rows", "tracker_segment", "route_scan", "fifo_workers")
+       for s in ("dc", "wc", "fish")}}
 F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
@@ -455,61 +461,96 @@ def kernel_checks(cap, torch, np, launches):
         f"kernel {ms:.4f} ms, device {dev_rr[0]:.5f} ms, plain {pms:.4f} "
         f"ms, max|err| {err}")
 
-    # tracker (count + fold), FISH; DC and WC checked too
+    # tracker_segment: FISH's segment; DC and WC checked too, bit for bit
     def run_tracker(fn, call):
-        (trk, cnt, keys, m), kw = clone_call(call)
-        psum, pmax = fn(trk, cnt, keys, m, **kw)
-        return psum, pmax, trk, cnt, kw["snap"]
+        (trk, carry, keys, m), kw = clone_call(call)
+        fv, tot, top = fn(trk, carry, keys, m, **kw)
+        return fv, tot, top, trk, carry
+
+    def plain_tracker(trk, carry, keys, m, **k):
+        return ff.tracker_update_plain(trk, carry, keys, m, k["g0"],
+                                       k["epoch"], k["pre"], k["ne"],
+                                       k["alpha"])
     err = 0.0
     for s in ("dc", "wc", "fish"):
         call = seg["tracker_update"][s]
         err = max(err, compare(
             run_tracker(ff.tracker_update, call),
-            run_tracker(lambda *a, **k: ff.tracker_update_plain(
-                *a, k["g0"], k["epoch"], k["pre"], k["ne"], k["alpha"],
-                k["snap"]), call),
-            (f"psum[{s}]", f"pmax[{s}]", f"trk[{s}]", f"cnt[{s}]",
-             f"snap[{s}]")))
-    (trk, cnt, keys, m), kw = clone_call(seg["tracker_update"]["fish"])
-    cnt_k = cnt.clone()
-    ms_both = time_cuda(lambda: ff.tracker_update(trk, cnt_k, keys, m, **kw),
-                        50, torch)
-    pms = time_host(lambda: ff.tracker_update_plain(
-        trk, cnt, keys, m, kw["g0"], kw["epoch"], kw["pre"], kw["ne"],
-        kw["alpha"], kw["snap"]), 3, torch)
-    kcap1 = trk.shape[0]
-    ne = kw["ne"]
-    # the count pass alone, through its C entry; the fold is the rest
-    lib = ff._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+            run_tracker(plain_tracker, call),
+            (f"fv[{s}]", f"tot[{s}]", f"top[{s}]", f"trk[{s}]",
+             f"carry[{s}]")))
+    if err != 0.0:
+        fail(f"tracker_segment: not bit for bit its plain version ({err})")
+    trk_dev = {}
+    for s in ("fish", "dc"):
+        (trk, carry, keys, m), kw = clone_call(seg["tracker_update"][s])
+        trk0, carry0 = trk.clone(), carry.clone()
 
-    def count_only():
-        lib.tracker_count(keys.data_ptr(), m, kcap1, kw["g0"], kw["epoch"],
-                          cnt_k.data_ptr(), stream)
-    ms_count = time_cuda(count_only, 50, torch)
-    cnt_k.zero_()
-    ms_fold = max(ms_both - ms_count, 0.0)
-    # device-only: the two kernels of one tracker_update, by name
-    dev_tc, dev_tf = (dtime(f"tracker_update ({k_})",
-                            lambda: ff.tracker_update(trk, cnt_k, keys, m,
-                                                      **kw), keep=k_)
-                      for k_ in ("tracker_count", "tracker_fold"))
-    uniq = int(torch.unique(keys[:m]).shape[0])
-    # library yardstick: the same int scatter as one index_add_ (one epoch)
+        def restore(trk=trk, carry=carry, trk0=trk0, carry0=carry0):
+            trk.copy_(trk0)
+            carry.copy_(carry0)
+        # device ms: each call on the tracker as the segment found it (the
+        # restore left out); card ms: back-to-back calls
+        trk_dev[s] = dtime(f"tracker_segment {s}", lambda: ff.tracker_update(
+            trk, carry, keys, m, **kw), setup=restore, keep="tracker_segment")
+    (trk, carry, keys, m), kw = clone_call(seg["tracker_update"]["fish"])
+    trk0 = trk.clone()
+    ms = time_cuda(lambda: ff.tracker_update(trk, carry, keys, m, **kw), 50,
+                   torch)
+    trk.copy_(trk0)
+    pms = time_host(lambda: plain_tracker(trk.clone(), carry.clone(), keys,
+                                          m, **kw), 3, torch)
+    kcap1, ne = trk.shape[0], kw["ne"]
+    # library yardstick: the segment's per-key tuple count as one index_add_
+    cnt = torch.zeros(kcap1, dtype=torch.int32, device=keys.device)
     ones = torch.ones(m, dtype=torch.int32, device=keys.device)
-    lib_ms = time_cuda(lambda: cnt_k[0].index_add_(0, keys[:m].long(), ones),
-                       50, torch)
-    cnt_k.zero_()
-    nb = -(-kcap1 // 256)
-    row("tracker_count", src_ff, "src/repro/kernels/feed_fused.py:251", err,
-        ms_count, pms, 4 * m + 8 * uniq, m, lib_ms, device=dev_tc)
-    row("tracker_fold", src_ff, "src/repro/kernels/feed_fused.py:251", err,
-        ms_fold, pms, 8 * kcap1 + 8 * uniq + 4 * ne * kcap1 + 8 * ne * nb,
-        kcap1 * 2 * ne + 2 * ne * kcap1, device=dev_tf)
-    log(f"tracker       kcap1={kcap1} epochs={ne} m={m}: count {ms_count:.4f}"
-        f" ms + fold {ms_fold:.4f} ms, device count {dev_tc[0]:.5f} + fold "
-        f"{dev_tf[0]:.5f} ms, plain (both) {pms:.4f} ms, index_add_ "
+    lib_ms = time_cuda(lambda: cnt.index_add_(0, keys[:m].long(), ones), 50,
+                       torch)
+    # operations this run's data needs: the dense pass's multiplications
+    # (each key's stop at its fixed point, at most pre + ne - 1), and per
+    # tuple a count, per (key, epoch) pair a decay and an add
+    alpha = torch.tensor(kw["alpha"], dtype=torch.float32, device=trk.device)
+    x, live, mults = trk0.clone(), torch.ones_like(trk0, dtype=torch.bool), 0
+    for _ in range(kw["pre"] + ne - 1):
+        mults += int(live.sum())
+        y = x * alpha
+        live &= y != x
+        x = torch.where(live, y, x)
+    j = torch.arange(m, device=keys.device)
+    if kw["epoch"]:
+        j = (kw["g0"] + j) // kw["epoch"] - kw["g0"] // kw["epoch"]
+    pairs = int(torch.unique(j * kcap1 + keys[:m].long()).shape[0])
+    uniq = int(torch.unique(keys[:m]).shape[0])
+    log2k, log2p = ff._tracker_tables(m, kcap1)
+    log2c, glob = ff._tracker_plan(trk.device, log2k, log2p)
+    where = "global" if glob else "shared"
+    # the key table, the pair table and the blocks' local tables
+    table_bytes = ((ff._TRK_KEY_BYTES << log2k)
+                   + 2 * (ff._TRK_PAIR_BYTES << log2p))
+    # bytes: trk read and written once, each tuple's key in and value
+    # out, tot/top out, the carry in and out
+    row("tracker_segment", src_ff, "src/repro/kernels/feed_fused.py:251",
+        err, ms, pms, 8 * kcap1 + 8 * m + 8 * ne + 16,
+        mults + m + 2 * pairs, lib_ms, device=trk_dev["fish"],
+        device_ms_dcwc=trk_dev["dc"][0], pairs=pairs, keys=uniq,
+        cluster=1 << log2c, tables=where,
+        was=["tracker_count", "tracker_fold"])
+    log(f"tracker_segment kcap1={kcap1} epochs={ne} m={m} ({uniq} keys, "
+        f"{pairs} (key, epoch) pairs), cluster of {1 << log2c}, "
+        f"tables in {where} memory: kernel "
+        f"{ms:.4f} ms, device FISH {trk_dev['fish'][0]:.5f} ms, DC "
+        f"{trk_dev['dc'][0]:.5f} ms, plain {pms:.4f} ms, index_add_ "
         f"{lib_ms:.4f} ms, max|err| {err}")
+    # the tracker's state per edge, from the tensors: trk and its carry;
+    # per segment the outputs and the tables (in the cluster's shared
+    # memory where they fit, not device memory)
+    fv, tot, top = ff.tracker_update(trk, carry, keys, m, **kw)
+    state = trk.numel() * 4 + carry.numel() * 4
+    per_seg = fv.numel() * 4 + tot.numel() * 4 + top.numel() * 4
+    log(f"tracker bytes per edge: {state:,} (trk {tuple(trk.shape)}, carry "
+        f"{tuple(carry.shape)}), per FISH segment {per_seg:,} (fv "
+        f"{tuple(fv.shape)}, tot and top {tuple(tot.shape)}) + tables "
+        f"{table_bytes:,} in {where} memory")
 
     # route_scan (PKG/DC/WC/FISH) and fifo_workers (every scheme)
     def run_scan(fn, call):
@@ -560,9 +601,9 @@ def kernel_checks(cap, torch, np, launches):
     # candidates this segment's data makes the chain read: Σ min(d, width)
     args, kw = clone_call(seg["route_scan"]["fish"])
     _, d = ff.route_prologue(
-        "fish", m, kw["keys"], kw["rows"], None, 0, 0, kw["trk"], kw["snap"],
-        kw["psum"], kw["pmax"], kw["g0"], kw["epoch"], kw["theta"],
-        kw["wnum"], kw["m_k"], kw["d_min"])
+        "fish", m, kw["keys"], kw["rows"], None, 0, 0, kw["fv"], kw["tot"],
+        kw["top"], kw["g0"], kw["epoch"], kw["theta"], kw["wnum"],
+        kw["m_k"], kw["d_min"])
     d_sum = int(np.minimum(d, width).sum())
     wide = int((np.minimum(d, width) > 2).sum())
     chain = m * SMEM_STEP_CYCLES / (clock * 1e3)
@@ -817,19 +858,20 @@ def device_time(name, fn, reps, torch, setup=None, keep=""):
         for _ in range(reps):
             once()
         torch.cuda.synchronize()
-    ops = {}
+    ops, kept_us = {}, 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = ops.get(e.name[:40], (0, 0.0))
             ops[e.name[:40]] = (n + 1, us + e.time_range.elapsed_us())
+            if keep in e.name:  # the whole name: templates run long
+                kept_us += e.time_range.elapsed_us()
     ops = {k: (n / reps, us / 1e3 / reps) for k, (n, us) in ops.items()
            if us > 0}
     if ops:
         log(f"  {name}: device ops per call (count, ms) {json.dumps(ops)}")
-        kept = [ms for k, (_, ms) in ops.items() if keep in k]
-        if not kept:
+        if not kept_us:
             fail(f"{name}: no device operation named {keep!r} in the trace")
-        return sum(kept), "profiler"
+        return kept_us / 1e3 / reps, "profiler"
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     times = []
@@ -1129,6 +1171,7 @@ def ssd_kernel_checks(captured, launches, torch):
     err = ssd_compare("ssd_chunk_output", y_k, y_p)
     ms = time_cuda(lambda: ssd.ssd_chunk_output(x, b, c, a_cum, prev), 20,
                    torch)
+
     pms = time_host(lambda: ssd.ssd_chunk_output_plain(x, b, c, a_cum, prev),
                     3, torch)
     pairs = q * (q + 1) // 2
@@ -1143,6 +1186,23 @@ def ssd_kernel_checks(captured, launches, torch):
     log(f"ssd_chunk_output BC={bc} Q={q} H={h} P={p}: kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms, max|err| {err:.3e}")
     return rows
+
+
+def ssd_device_times(captured, rows, torch):
+    """K4's and K5's device-only ms on path C's captured inputs, into
+    their rows (taken after every host-timed phase: a profiler session
+    slows later host-bound launches)."""
+    from repro_torch.kernels import ssd
+
+    for name, keep, fn in (("ssd_chunk_state", "ssd_state",
+                            ssd.ssd_chunk_state),
+                           ("ssd_chunk_output", "ssd_output",
+                            ssd.ssd_chunk_output)):
+        args = captured[name][0]
+        ms, how = device_time(name, lambda: fn(*args), 20, torch, keep=keep)
+        next(r for r in rows if r["name"] == name).update(device_ms=ms,
+                                                          device_by=how)
+        log(f"{name}: device {ms:.4f} ms ({how})")
 
 
 def prefill_split(captured, rows, torch):
@@ -1317,6 +1377,20 @@ def main() -> int:
         lo = int(b.timestamps[0] * RATE + 0.5)
         segments += 1 + sum(1 for c in range(lo + 1, lo + len(b))
                             if c % WINDOW == 0)
+    # the launch budget: one launch of each of the scheme's segment
+    # kernels per segment, pane_update also once per pane table growth
+    for scheme in SCHEMES:
+        dl = path_a[scheme]["launches"]
+        want = SEGMENT_KERNELS[scheme]
+        bad = {k: v for k, v in dl.items() if k not in ("pane_update",
+                                                        "store_probe")
+               and v != (segments if k in want else 0)}
+        if bad or dl["pane_update"] < segments:
+            fail(f"{scheme}: launches {dl} off the budget of {segments} "
+                 f"segments x {want} + pane_update")
+        log(f"launches {scheme:4s}: {len(want) + 1} per segment x "
+            f"{segments} segments (+ {dl['pane_update'] - segments} pane "
+            f"table growths)")
     ref = None
     for scheme in SCHEMES:
         rf = fused[scheme]
@@ -1362,6 +1436,7 @@ def main() -> int:
     # torch.profiler, whose tracing is kept away from the timed paths
     rows = kernel_checks(cap, torch, np, launches)
     log(f"path A kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    ssd_device_times(ssd_cap, ssd_rows, torch)
     rows += fish_kernel_checks(fish_cap, fish_launches, torch) + ssd_rows
     log(f"FISH kernel checks done; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")

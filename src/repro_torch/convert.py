@@ -159,7 +159,11 @@ def runner_from_reference(ref_runner, ref_grouper, ref_state, sink=None,
         run._cands = np.array(ref_runner._cands, dtype=np.int32)
         run._pts_dev = up(_u32_bits(run._pts))
         run._cands_dev = up(run._cands)
-    run.trk = up(np.asarray(ref_runner.trk, dtype=np.float32))
+    trk = np.asarray(ref_runner.trk, dtype=np.float32)
+    run.trk = up(trk)
+    # the tracker's carried total (a float32 sum) and max
+    run.trk_carry = up(np.asarray(
+        [trk.sum(dtype=np.float32), trk.max(initial=0.0)], dtype=np.float32))
     run.m_k = up(np.asarray(ref_runner.m_k, dtype=np.int32))
     run.repl = up(np.asarray(ref_runner.repl, dtype=bool))
     run._repl_synced = up(np.asarray(ref_runner._repl_synced, dtype=bool))

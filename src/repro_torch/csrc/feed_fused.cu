@@ -5,20 +5,21 @@
 // grouping schemes, runs the per-worker FIFO and scatters the keyed pane
 // state.  XLA lowers its per-tuple lax.scans to a sequential loop; PyTorch
 // has no scan, and written op for op it would cost one launch per tuple.
-// Here the segment is at most six launches:
+// Here the segment is at most five launches:
 //
-//   ring_rows      (parallel)   consistent-hash candidate rows per tuple
-//   tracker_count  (parallel)   int32 per-(epoch ordinal, key) tuple counts
-//   tracker_fold   (parallel)   decay + fold the counts into the dense f32
-//                               tracker, its snapshot at each epoch's end,
-//                               per-(epoch, block) partial sum and max
-//   route_scan     (one block)  PKG/DC/WC/FISH: the sequential routing
-//                               chain (SG/FG routes are fixed: no launch)
-//   fifo_workers   (a warp per  the per-worker FIFO; SG/FG gather their
-//                   worker)     fixed routes here
-//   pane_update    (parallel)   pane (value, count) sums into a compact
-//                               open-addressing table, replica matrix,
-//                               pane_last
+//   ring_rows       (parallel)   consistent-hash candidate rows per tuple
+//   tracker_segment (a cluster)  DC/WC/FISH: the tracker's update in one
+//                                launch — per tuple its key's value at the
+//                                end of its epoch, per epoch the carried
+//                                total and max, the dense tracker decayed
+//                                and updated in place
+//   route_scan      (one block)  PKG/DC/WC/FISH: the sequential routing
+//                                chain (SG/FG routes are fixed: no launch)
+//   fifo_workers    (a warp per  the per-worker FIFO; SG/FG gather their
+//                    worker)     fixed routes here
+//   pane_update     (parallel)   pane (value, count) sums into a compact
+//                                open-addressing table, replica matrix,
+//                                pane_last
 //
 // The FIFO runs in float64 relative to the feed's first arrival (the
 // reference runs it in float32 because a TPU has no f64; at the paper's
@@ -37,9 +38,9 @@
 // except the route, and each worker's recurrence is independent of every
 // other's, so fifo_workers runs one warp per worker: bound by its longest
 // per-worker run of dependent f64 max + add.  The parallel kernels move a
-// few bytes per tuple plus, for the trackers, one pass over the dense
-// per-key table; they are bound by bytes and by launch latency at
-// 16k-tuple segments.
+// few bytes per tuple plus, for FISH's tracker, one decay pass over the
+// dense per-key tracker; they are bound by launch latency (and
+// tracker_segment by its cluster barriers) at 16k-tuple segments.
 //
 // Frequencies are read at epoch granularity: a FISH tuple classifies
 // against the tracker as it stands at the end of its own epoch (the batched
@@ -50,12 +51,14 @@
 //
 // Determinism: every float sum runs in a fixed order.  The tracker never
 // adds floats with atomics (run-to-run order would change the rounding):
-// tuples are counted with int32 atomics per (epoch ordinal, key), then each
-// key folds its counts ordinal by ordinal (decay, add), and the per-epoch
-// total/max reduce in a fixed tree.  Integer atomics (counts, pane sums)
-// are exact in any order.  Build with -fmad=false so every float
-// expression rounds op by op, as in the plain PyTorch version.
+// tuples are counted with integer atomics per (key, epoch ordinal), then
+// each key walks its ordinals in order (decay, add); the per-epoch max is
+// an integer atomicMax on non-negative float bits (order-free) and the
+// total is carried by one thread.  Integer atomics (counts, pane sums) are
+// exact in any order.  Build with -fmad=false so every float expression
+// rounds op by op, as in the plain PyTorch version.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <cuda_pipeline.h>
@@ -72,12 +75,10 @@ struct RouteArgs {
   const int* keys;      // (n_pad,)
   int* counts;          // (w1,) in/out, rebased
   int* workers;         // (n_pad,) out
-  int kcap1;
-  const float* trk;     // DC/WC/FISH: tracker after this segment's fold
-  const float* snap;    // FISH: (ne, kcap1) tracker at each epoch's end
-  const float* psum;    // (ne, n_part) per-block partial sums and maxima
-  const float* pmax;
-  int n_part;
+  const float* fv;      // DC/WC/FISH: (m,) each tuple's key's tracker
+                        // value at the end of its epoch (tracker_segment)
+  const float* tot;     // (ne,) the tracker's total at each epoch's end
+  const float* top;     // (ne,) and its maximum
   int ne;               // epochs (ordinals) in the segment; 1 for DC/WC
   long long g0;         // stream index of the segment's first tuple
   int epoch;            // FISH epoch length (0: no epochs)
@@ -97,8 +98,6 @@ struct RouteArgs {
 
 namespace {
 
-constexpr int kThreads = 256;        // parallel kernels
-constexpr int kFoldThreads = 256;    // tracker_fold block (fixed tree order)
 constexpr int kRouteThreads = 256;   // route_scan: the one block
 constexpr int kTileInts = 8192;      // route_scan: ints per staged tile
 constexpr int kTileMax = 1024;       // route_scan: tuples per staged tile
@@ -243,62 +242,767 @@ ring_rows_kernel(const unsigned int* __restrict__ pts, int r_n,
 }
 
 // ---------------------------------------------------------------------------
-// tracker: counts per (epoch ordinal, key), then an ordered fold that also
-// snapshots the tracker at the end of each epoch inside the segment
+// tracker_segment: the segment's tracker update in one launch of one
+// thread-block cluster, its work and tables sized by the segment's tuples
+// (replaces src/repro/kernels/feed_fused.py:251 _tracker_update)
+//
+// What route_scan needs is, per tuple, its key's tracker value at the end
+// of the tuple's epoch ordinal (fv), and per ordinal the tracker's total and
+// maximum; all of it follows from the segment's tuples plus one streaming
+// decay pass over the dense tracker (FISH only):
+//
+//   * a key's value: trk[k], decayed once up front when pre, then per
+//     ordinal j: decayed when j > 0, plus its count c_j when c_j != 0 —
+//     op by op, in that order (tracker_update_plain's order).  A key the
+//     segment does not touch only decays: the dense pass (a fixed point,
+//     0 or the smallest subnormals, stays put, so a group of four zeros is
+//     skipped);
+//   * the maximum is carried exactly: counts are >= 0 and fl(alpha x) is
+//     monotone, so max_j = max(fl(alpha max_{j-1}), the touched keys' values
+//     at the end of ordinal j), bit for bit the dense max;
+//   * the total is carried as T_j = fl(fl(alpha T_{j-1}) + n_j), n_j the
+//     ordinal's tuples: the exact sum for DC/WC (alpha = 1, integer
+//     counts), within rounding of the dense sum for FISH, where alpha
+//     damps the rounding instead of accumulating it.
+//
+// The cluster is C blocks of 1024 threads: 16 (the non-portable size)
+// where the card can place such a cluster, else 8; tracker_plan asks the
+// occupancy API once per table size.  What such a cluster is short of
+// (tools/cluster_probe.py on an H100): remote shared-memory accesses (one
+// per ~3 cycles per SM when every thread makes them, against ~40 cycles a
+// local one) and barriers (~1,500 cycles each with 1024-thread blocks).
+// So each tuple is counted where it is read, only distinct pairs travel,
+// and a key's work stays in one block:
+//
+//   * block b counts its contiguous share of the tuples in a local table
+//     of (key, ordinal) pairs;
+//   * the cluster's pair table (>= 2m slots) and key table (>= 2 min(m,
+//     kcap1) slots) are split into one region per block; a key's pairs and
+//     its slot start in the region of its owner block (a hash of the key),
+//     so its walk reads its own shared memory; a probe that runs past a
+//     region goes on into the next one.
+//
+// In the blocks' shared memory when a block's share fits, else in global
+// scratch of the same layout (tracker_plan's choice).
+//
+//   0  block 0 clears top[0, ne).  DC/WC while every value stays below
+//      2^24 (the carried max plus m): the tuples' counts go straight into
+//      trk by float atomics (integers add exactly in any order), a warp's
+//      tuples of one key with one; barrier; each tuple reads its key's new
+//      value; the blocks' maxima to top[0]; barrier; the carry; done.
+//      Else each block clears its tables; arrive
+//   1  the block's tuples counted in its local table (a pair's claimer
+//      reads trk[k]); wait; each local pair's count added to its slot in
+//      the cluster's pair table (claimed by CAS, which copies trk[k] in);
+//      barrier
+//   2  each block enters the pairs of its region in the key table (a
+//      32-bit mask of the ordinals < 32, the greatest of the rest; the
+//      claimer copies trk[k]); barrier; each block lists the keys of its
+//      key region, and a warp's 32 listed keys walk the ordinals together,
+//      four pair slots read at once — decayed at each ordinal, the count
+//      added where the key has one, the pair's end-of-ordinal value kept —
+//      while the warps that walk nothing make FISH's dense pass; barrier;
+//      each local pair fetches its value, each block writes its keys'
+//      final values to trk and takes each ordinal's maximum over its pair
+//      region
+//   3  the block maxima to top[] (integer atomicMax on non-negative float
+//      bits: order-free); arrive (no block leaves while another may still
+//      read its shared memory); fv of each tuple from its local pair; wait;
+//      block 0 carries the total and the max through the ordinals
+//
+// What bounds it on the card: the launch and the barriers (five for FISH,
+// two for the direct DC/WC path), then a few dependent shared-memory round
+// trips per phase (tools/tracker_probe.py --phases); the bytes are 8 a
+// tuple and, for FISH, trk read and written once.
 // ---------------------------------------------------------------------------
 
-__global__ void tracker_count_kernel(const int* __restrict__ keys, int m,
-                                     int kcap1, long long g0, int epoch,
-                                     int* __restrict__ cnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  // epoch ordinal inside the segment (0 without epochs: DC/WC)
-  const int j = epoch > 0 ? (int)((g0 + i) / epoch - g0 / epoch) : 0;
-  atomicAdd(cnt + (long long)j * kcap1 + keys[i], 1);
+}  // namespace
+
+struct TrkKeySlot {           // 16 bytes
+  unsigned int key;           // kTrkEmpty when free
+  unsigned int mask;          // ordinals < 32 the key occurs in
+  unsigned int hi;            // greatest ordinal >= 32 (0: none)
+  float val;                  // trk[k] as found; after the walk, its
+                              // final value
+};
+
+struct TrkPairSlot {          // 16 bytes
+  unsigned long long pair;    // (key << 32) | ordinal; all ones when free
+  unsigned int cnt;           // the key's tuples in the ordinal (a local
+                              // table, once they travelled: the walk list)
+  float val;                  // the cluster's table: trk[k] as found, then
+                              // the value at the end of the ordinal; a
+                              // local table: the cluster slot's index, then
+                              // that value
+};
+
+struct TrackerArgs {
+  float* trk;            // (kcap1,) in/out
+  int kcap1;
+  const int* keys;       // (>= m,)
+  int m;
+  long long g0;
+  int epoch;
+  int pre;
+  int ne;
+  float alpha;
+  float* carry;          // (2,) in/out: the tracker's total and max
+  float* fv;             // (m,) out
+  float* tot;            // (ne,) out
+  float* top;            // (ne,) out; the touched maxima until phase 3
+  TrkKeySlot* gkeys;     // global tables, or null: the blocks' shared
+  TrkPairSlot* gpairs;   // memory (tracker_plan's choice)
+  TrkPairSlot* glocal;
+  int log2c;             // the cluster's blocks (tracker_plan's choice)
+  int log2k, log2p;      // the key and pair tables' slots; a block's local
+                         // table has as many as its pair region
+};
+
+namespace {
+
+constexpr int kTrkThreads = 1024;     // tracker_segment: block
+constexpr int kTrkWarps = kTrkThreads / 32;
+constexpr int kTrkMaxCluster = 16;    // non-portable cluster size limit
+constexpr int kTrkNeLocal = 1024;     // per-ordinal maxima kept per block
+constexpr int kTrkBatch = 4;          // pair slots a walk reads at once
+                                      // (eight spill past 64 registers)
+constexpr int kTrkRounds = 4;         // tuples a thread keeps the local
+                                      // slot of in registers (past them:
+                                      // in fv until phase 3)
+constexpr unsigned int kTrkEmpty = 0xffffffffu;
+constexpr unsigned long long kTrkPairEmpty = ~0ull;
+
+__device__ __forceinline__ unsigned fmix32(unsigned h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
 }
 
-__global__ void tracker_fold_kernel(float* __restrict__ trk, int kcap1,
-                                    int* __restrict__ cnt, int ne,
-                                    float alpha, int pre,
-                                    float* __restrict__ snap,
-                                    float* __restrict__ psum,
-                                    float* __restrict__ pmax) {
-  __shared__ float ssum[kFoldThreads];
-  __shared__ float smax[kFoldThreads];
-  const int t = threadIdx.x;
-  const int k = blockIdx.x * kFoldThreads + t;
-  float acc = k < kcap1 ? trk[k] : 0.0f;
-  // TimeDecayingUpdate fires before the boundary tuple is counted: once up
-  // front for a segment starting on a boundary, then at every ordinal
-  if (pre) acc = acc * alpha;
-  for (int j = 0; j < ne; ++j) {
-    if (k < kcap1) {
-      if (j > 0) acc = acc * alpha;
-      int* c = cnt + (long long)j * kcap1 + k;
-      const int v = *c;
-      if (v) {
-        acc = acc + (float)v;
-        *c = 0;  // the scratch table stays zeroed between segments
-      }
-      if (snap) snap[(long long)j * kcap1 + k] = acc;
-    }
-    ssum[t] = acc;
-    smax[t] = acc;
-    __syncthreads();
-    for (int s = kFoldThreads / 2; s > 0; s >>= 1) {
-      if (t < s) {
-        ssum[t] = ssum[t] + ssum[t + s];
-        smax[t] = fmaxf(smax[t], smax[t + s]);
-      }
-      __syncthreads();
-    }
-    if (t == 0) {
-      psum[(long long)j * gridDim.x + blockIdx.x] = ssum[0];
-      pmax[(long long)j * gridDim.x + blockIdx.x] = smax[0];
-    }
-    __syncthreads();
+// a key's owner block: the top bits of a multiplicative hash
+__device__ __forceinline__ unsigned trk_owner(unsigned k, int log2c) {
+  return log2c ? (k * 0x9e3779b1u) >> (32 - log2c) : 0u;
+}
+
+// a key's slot in its region, and its pairs': the key's mix stepped by
+// an odd constant per ordinal, so a key's ordinals never meet each other
+__device__ __forceinline__ unsigned trk_key_off(unsigned k) {
+  return fmix32(k + 0x165667b1u);
+}
+__device__ __forceinline__ unsigned trk_mix(unsigned k) {
+  return fmix32(k * 0x9e3779b1u + 0x7f4a7c15u);
+}
+__device__ __forceinline__ unsigned trk_pair_off(unsigned mk, unsigned j) {
+  return mk + j * 0x61c88647u;
+}
+
+// the cluster barrier in halves: arrive releases this thread's writes
+// (its own, remote and global memory) to the cluster, wait acquires the
+// others'; work between the two overlaps the barrier
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// slots read after a barrier or another thread's atomics: global tables
+// through L2 (another SM's atomics are not in this SM's L1)
+template <bool kGlobal>
+__device__ __forceinline__ uint4 trk_ld(const TrkPairSlot* q) {
+  if (kGlobal) return __ldcg(reinterpret_cast<const uint4*>(q));
+  return *reinterpret_cast<const uint4*>(q);
+}
+template <bool kGlobal>
+__device__ __forceinline__ uint4 trk_ld(const TrkKeySlot* q) {
+  if (kGlobal) return __ldcg(reinterpret_cast<const uint4*>(q));
+  return *reinterpret_cast<const uint4*>(q);
+}
+template <bool kGlobal>
+__device__ __forceinline__ unsigned trk_ld_w(const TrkPairSlot* q) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(&q->val);
+  if (kGlobal) return __ldcg(w);
+  return *w;
+}
+// a slot's first word, read while other threads may claim it
+template <bool kGlobal, class T>
+__device__ __forceinline__ T trk_ld_live(const T* q) {
+  if (kGlobal) return __ldcg(q);
+  return *reinterpret_cast<const volatile T*>(q);
+}
+
+__device__ __forceinline__ bool trk_empty(const uint4& v) {
+  return v.x == kTrkEmpty && v.y == kTrkEmpty;
+}
+
+// x decayed n times by alpha, one multiplication at a time; a fixed point
+// (0, alpha = 1, the smallest subnormals) ends it early, since every later
+// multiplication would return it unchanged
+__device__ __forceinline__ float trk_decay(float x, float alpha, long long n) {
+  for (; n > 0; --n) {
+    const float y = __fmul_rn(x, alpha);
+    if (y == x) break;
+    x = y;
   }
-  if (k < kcap1) trk[k] = acc;
+  return x;
+}
+
+// four keys decayed n times (the same products): up to 64 multiplications
+// interleaved, past that as trk_decay
+__device__ __forceinline__ float4 trk_decay4(float4 v, float alpha,
+                                             long long n) {
+  if (n > 64) {
+    return make_float4(trk_decay(v.x, alpha, n), trk_decay(v.y, alpha, n),
+                       trk_decay(v.z, alpha, n), trk_decay(v.w, alpha, n));
+  }
+  for (int i = 0; i < (int)n; ++i) {
+    v.x = __fmul_rn(v.x, alpha);
+    v.y = __fmul_rn(v.y, alpha);
+    v.z = __fmul_rn(v.z, alpha);
+    v.w = __fmul_rn(v.w, alpha);
+  }
+  return v;
+}
+
+// tuple i's epoch ordinal inside the segment (0 without epochs: DC/WC),
+// from r0 = g0 mod epoch: a 32-bit division
+__device__ __forceinline__ unsigned trk_ordinal(unsigned r0, int epoch,
+                                                int i) {
+  return epoch > 0 ? (r0 + (unsigned)i) / (unsigned)epoch : 0u;
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kTrkThreads, 1)
+tracker_segment_kernel(TrackerArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char trk_smem[];
+  __shared__ TrkPairSlot* s_pr[kTrkMaxCluster];  // each block's regions
+  __shared__ TrkKeySlot* s_kr[kTrkMaxCluster];
+  __shared__ int s_mx[kTrkNeLocal];  // this block's per-ordinal maxima
+  __shared__ int s_wn[kTrkWarps + 1];  // per warp: list offsets, maxima
+
+  const int rank = (int)cluster.block_rank();
+  const int nblk = 1 << a.log2c;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int log2r = a.log2p - a.log2c;   // a pair region, a local table
+  const int log2kr = a.log2k - a.log2c;  // a key region
+  const unsigned rmask = (1u << log2r) - 1;
+  const unsigned krmask = (1u << log2kr) - 1;
+  const unsigned pmask = (1u << a.log2p) - 1;
+  const unsigned kmask = (1u << a.log2k) - 1;
+  const float alpha = a.alpha;
+  const long long nd = a.pre + a.ne - 1;  // an untouched key's decays
+  const unsigned r0 = a.epoch > 0 ? (unsigned)(a.g0 % a.epoch) : 0u;
+  int* top_bits = reinterpret_cast<int*>(a.top);
+  // DC/WC while every value stays below 2^24 (the carried max plus the
+  // segment's tuples): integer counts add exactly in any order, so the
+  // tuples' counts go straight into trk by float atomics
+  const bool direct = a.ne == 1 && alpha == 1.0f && a.pre == 0 &&
+                      (double)a.carry[1] + (double)a.m < 16777216.0;
+  // this block's tuples: a contiguous share of the segment
+  const int per = (a.m + nblk - 1) >> a.log2c;
+  const int lo = min(a.m, rank * per);
+  const int hi = min(a.m, lo + per);
+
+  TrkPairSlot* my_l;  // the block's local pair table
+  TrkPairSlot* my_p;  // its region of the cluster's pair table
+  TrkKeySlot* my_k;   // and of the key table
+  if (kGlobal) {
+    my_l = a.glocal + ((size_t)rank << log2r);
+    my_p = a.gpairs + ((size_t)rank << log2r);
+    my_k = a.gkeys + ((size_t)rank << log2kr);
+  } else {
+    my_l = reinterpret_cast<TrkPairSlot*>(trk_smem);
+    my_p = my_l + (1 << log2r);
+    my_k = reinterpret_cast<TrkKeySlot*>(my_p + (1 << log2r));
+  }
+  auto pair_at = [&](unsigned s) {
+    const unsigned b = s >> log2r;
+    return ((int)b == rank ? my_p : s_pr[b]) + (s & rmask);
+  };
+  auto key_at = [&](unsigned s) {
+    const unsigned b = s >> log2kr;
+    return ((int)b == rank ? my_k : s_kr[b]) + (s & krmask);
+  };
+  // where pair (k, j) and key k start probing: the owner's regions
+  auto pair_start = [&](unsigned k, unsigned j) {
+    return (trk_owner(k, a.log2c) << log2r) |
+           (trk_pair_off(trk_mix(k), j) & rmask);
+  };
+  auto key_start = [&](unsigned k) {
+    return (trk_owner(k, a.log2c) << log2kr) | (trk_key_off(k) & krmask);
+  };
+
+  // block 0: every block's maxima are in top[]; staged in shared memory,
+  // then the total and the max carried through the ordinals by one thread
+  auto carry_through = [&]() {
+    if (rank == 0) {
+      float total = a.carry[0];
+      float mx = a.carry[1];
+      const long long e0 = a.epoch > 0 ? a.g0 / a.epoch : 0;
+      for (int j0 = 0; j0 < a.ne; j0 += kTrkNeLocal) {
+        const int n = min(kTrkNeLocal, a.ne - j0);
+        __syncthreads();
+        for (int j = tid; j < n; j += kTrkThreads) {
+          s_mx[j] = __ldcg(top_bits + j0 + j);  // the atomics' maxima, in L2
+        }
+        __syncthreads();
+        if (tid == 0) {
+          for (int jj = 0; jj < n; ++jj) {
+            const int j = j0 + jj;
+            long long jlo = 0, jhi = a.m;
+            if (a.epoch > 0) {
+              jlo = j == 0 ? 0
+                           : min((e0 + j) * a.epoch - a.g0, (long long)a.m);
+              jhi = min((e0 + j + 1) * a.epoch - a.g0, (long long)a.m);
+            }
+            if (j > 0 || a.pre) {
+              total = __fmul_rn(alpha, total);
+              mx = __fmul_rn(alpha, mx);
+            }
+            total = __fadd_rn(total, (float)(jhi - jlo));
+            mx = fmaxf(mx, __int_as_float(s_mx[jj]));
+            a.tot[j] = total;
+            a.top[j] = mx;
+          }
+        }
+      }
+      if (tid == 0) {
+        a.carry[0] = total;
+        a.carry[1] = mx;
+      }
+    }
+  };
+
+  // -- phase 0: clear ------------------------------------------------------
+  // the thread's first tuples' keys, loading while the tables clear
+  unsigned kk[kTrkRounds];
+#pragma unroll
+  for (int r = 0; r < kTrkRounds; ++r) {
+    const int i = lo + r * kTrkThreads + tid;
+    kk[r] = i < hi ? (unsigned)__ldg(a.keys + i) : 0u;
+  }
+  if (direct) {
+    // each tuple's count straight into trk[k], a warp's tuples of one key
+    // with one atomic; then each tuple reads its key's new value, and the
+    // block's maximum goes to top[0]
+    if (rank == 0 && tid == 0) a.top[0] = 0.0f;
+    auto add_round = [&](int i, unsigned k) {
+      const bool live = i < hi;
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, live ? k : kTrkEmpty);
+      if (live && __ffs((int)peers) - 1 == lane) {
+        atomicAdd(a.trk + k, (float)__popc(peers));
+      }
+    };
+#pragma unroll
+    for (int r = 0; r < kTrkRounds; ++r) {
+      const int i0 = lo + r * kTrkThreads;
+      if (i0 < hi) add_round(i0 + tid, kk[r]);
+    }
+    for (int i0 = lo + kTrkRounds * kTrkThreads; i0 < hi;
+         i0 += kTrkThreads) {
+      const int i = i0 + tid;
+      add_round(i, i < hi ? (unsigned)a.keys[i] : 0u);
+    }
+    cluster_arrive();
+    cluster_wait();
+    int bmax = 0;  // >= 0: int order is float order
+#pragma unroll
+    for (int r = 0; r < kTrkRounds; ++r) {
+      const int i = lo + r * kTrkThreads + tid;
+      if (i < hi) {
+        const float x = __ldcg(a.trk + kk[r]);
+        a.fv[i] = x;
+        bmax = max(bmax, __float_as_int(x));
+      }
+    }
+    for (int i = lo + kTrkRounds * kTrkThreads + tid; i < hi;
+         i += kTrkThreads) {
+      const float x = __ldcg(a.trk + a.keys[i]);
+      a.fv[i] = x;
+      bmax = max(bmax, __float_as_int(x));
+    }
+    bmax = __reduce_max_sync(0xffffffffu, bmax);
+    if (lane == 0) s_wn[tid >> 5] = bmax;
+    __syncthreads();
+    if (tid < 32) {
+      const int b = __reduce_max_sync(0xffffffffu,
+                                      lane < kTrkWarps ? s_wn[lane] : 0);
+      if (lane == 0 && b) atomicMax(top_bits, b);
+    }
+    cluster_arrive();
+    cluster_wait();
+    carry_through();
+    return;
+  }
+  if (tid < nblk) {
+    if (kGlobal) {
+      s_pr[tid] = a.gpairs + ((size_t)tid << log2r);
+      s_kr[tid] = a.gkeys + ((size_t)tid << log2kr);
+    } else {
+      s_pr[tid] = cluster.map_shared_rank(my_p, tid);
+      s_kr[tid] = cluster.map_shared_rank(my_k, tid);
+    }
+  }
+  // a pair slot (pair empty; cnt and val 0), a key slot (key empty; mask,
+  // hi and val 0)
+  uint4* lw = reinterpret_cast<uint4*>(my_l);
+  uint4* pw = reinterpret_cast<uint4*>(my_p);
+  for (int s = tid; s <= (int)rmask; s += kTrkThreads) {
+    lw[s] = make_uint4(kTrkEmpty, kTrkEmpty, 0u, 0u);
+    pw[s] = make_uint4(kTrkEmpty, kTrkEmpty, 0u, 0u);
+  }
+  uint4* kw = reinterpret_cast<uint4*>(my_k);
+  for (int s = tid; s <= (int)krmask; s += kTrkThreads) {
+    kw[s] = make_uint4(kTrkEmpty, 0u, 0u, 0u);
+  }
+  for (int j = tid; j < kTrkNeLocal; j += kTrkThreads) s_mx[j] = 0;
+  if (rank == 0) {
+    for (int j = tid; j < a.ne; j += kTrkThreads) a.top[j] = 0.0f;
+  }
+  __syncthreads();
+  cluster_arrive();
+
+  // -- phase 1: the block's tuples counted locally -------------------------
+  // tuple i of key k counted in the block's local table, its slot
+  // returned; a pair's claimer reads trk[k] for the push.  One atomic a
+  // tuple (the card serves many on one shared-memory address about as fast
+  // as on many: tools/cluster_probe.py); the table holds at most about
+  // half its slots, so every probe ends
+  auto count_one = [&](int i, unsigned k) {
+    const unsigned j = trk_ordinal(r0, a.epoch, i);
+    const unsigned long long p = ((unsigned long long)k << 32) | j;
+    unsigned s = trk_pair_off(trk_mix(k), j) & rmask;
+    TrkPairSlot* q = my_l + s;
+    bool claimed = false;
+    for (unsigned n = 0; n <= rmask; ++n) {
+      q = my_l + s;
+      unsigned long long cur = trk_ld_live<kGlobal>(&q->pair);
+      if (cur == kTrkPairEmpty) {
+        cur = atomicCAS(&q->pair, kTrkPairEmpty, p);
+        claimed = cur == kTrkPairEmpty;
+      }
+      if (cur == kTrkPairEmpty || cur == p) break;
+      s = (s + 1) & rmask;
+    }
+    atomicAdd(&q->cnt, 1u);
+    if (claimed) q->val = a.trk[k];
+    return s;
+  };
+  unsigned ls[kTrkRounds];
+#pragma unroll
+  for (int r = 0; r < kTrkRounds; ++r) {
+    const int i = lo + r * kTrkThreads + tid;
+    if (i < hi) ls[r] = count_one(i, kk[r]);
+  }
+  for (int i = lo + kTrkRounds * kTrkThreads + tid; i < hi;
+       i += kTrkThreads) {
+    reinterpret_cast<unsigned*>(a.fv)[i] = count_one(i, (unsigned)a.keys[i]);
+  }
+  __syncthreads();
+  cluster_wait();
+
+  // each local pair's count added to the cluster's pair table (a pair's
+  // claimer copies in trk[k], which the local pair's claimer read), two at
+  // a time; its slot kept in the local pair
+  for (int s0 = tid; s0 <= (int)rmask; s0 += 2 * kTrkThreads) {
+    uint4 v[2];
+    float orig[2];
+    unsigned gs[2];
+    unsigned long long p[2], cur[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int s = s0 + u * kTrkThreads;
+      v[u] = s <= (int)rmask ? trk_ld<kGlobal>(my_l + s)
+                             : make_uint4(kTrkEmpty, kTrkEmpty, 0u, 0u);
+      const bool live = !trk_empty(v[u]);
+      orig[u] = __uint_as_float(v[u].w);
+      gs[u] = pair_start(v[u].y, v[u].x);
+      p[u] = ((unsigned long long)v[u].y << 32) | v[u].x;
+      cur[u] = live ? atomicCAS(&pair_at(gs[u])->pair, kTrkPairEmpty, p[u])
+                    : kTrkPairEmpty;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (trk_empty(v[u])) continue;
+      for (unsigned n = 0; n <= pmask && cur[u] != kTrkPairEmpty &&
+                           cur[u] != p[u]; ++n) {
+        gs[u] = (gs[u] + 1) & pmask;
+        cur[u] = atomicCAS(&pair_at(gs[u])->pair, kTrkPairEmpty, p[u]);
+      }
+      TrkPairSlot* g = pair_at(gs[u]);
+      atomicAdd(&g->cnt, v[u].z);
+      if (cur[u] == kTrkPairEmpty) g->val = orig[u];
+      *reinterpret_cast<unsigned*>(&my_l[s0 + u * kTrkThreads].val) = gs[u];
+    }
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // -- phase 2: the key table; the walks --------------------------------------------------
+  // FISH: every key of trk decays nd times, now that every pair holds its
+  // key's value (a touched key's final value replaces this one after the
+  // next barrier): each block its slice, over its threads from warp w0 on;
+  // whole 16-byte groups where trk is so aligned, two at a time, a group
+  // of zeros left as it is
+  auto dense_pass = [&](int w0) {
+    if (alpha == 1.0f || nd <= 0 || tid < 32 * w0) return;
+    const int bt = kTrkThreads - 32 * w0;  // the threads taking part
+    const int t0 = tid - 32 * w0;
+    const bool vec =
+        (reinterpret_cast<unsigned long long>(a.trk) & 15) == 0;
+    const int groups = vec ? a.kcap1 / 4 : 0;
+    const int gper = (groups + nblk - 1) >> a.log2c;
+    const int g_lo = min(groups, rank * gper);
+    const int g_hi = min(groups, g_lo + gper);
+    float4* t4 = reinterpret_cast<float4*>(a.trk);
+    for (int g0 = g_lo + t0; g0 < g_hi; g0 += 2 * bt) {
+      float4 v[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        v[u] = g0 + u * bt < g_hi ? t4[g0 + u * bt]
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (v[u].x != 0.0f || v[u].y != 0.0f || v[u].z != 0.0f ||
+            v[u].w != 0.0f) {
+          t4[g0 + u * bt] = trk_decay4(v[u], alpha, nd);
+        }
+      }
+    }
+    // the keys past the groups, sliced the same way
+    const int rest = a.kcap1 - 4 * groups;
+    const int rper = (rest + nblk - 1) >> a.log2c;
+    const int r_hi = min(rest, rank * rper + rper);
+    for (int q = rank * rper + t0; q < r_hi; q += bt) {
+      a.trk[4 * groups + q] = trk_decay(a.trk[4 * groups + q], alpha, nd);
+    }
+  };
+  // the pairs of the block's pair region entered in the key table: a
+  // 32-bit mask of the ordinals < 32, the greatest of the rest
+  for (int s = tid; s <= (int)rmask; s += kTrkThreads) {
+    const uint4 v = trk_ld<kGlobal>(my_p + s);
+    if (trk_empty(v)) continue;
+    const unsigned k = v.y, j = v.x;
+    unsigned t = key_start(k);
+    TrkKeySlot* ks = key_at(t);
+    for (unsigned n = 0; n <= kmask; ++n) {
+      ks = key_at(t);
+      unsigned cur = trk_ld_live<kGlobal>(&ks->key);
+      if (cur == kTrkEmpty) {
+        cur = atomicCAS(&ks->key, kTrkEmpty, k);
+        if (cur == kTrkEmpty) ks->val = __uint_as_float(v.w);
+      }
+      if (cur == kTrkEmpty || cur == k) break;
+      t = (t + 1) & kmask;
+    }
+    if (j < 32u) {
+      atomicOr(&ks->mask, 1u << j);
+    } else {
+      atomicMax(&ks->hi, j);
+    }
+  }
+  cluster_arrive();
+  cluster_wait();
+  // the key region's keys listed in slot order (in the local table's
+  // counts, free since they travelled; a key region has no more slots
+  // than a local table): each thread's run of slots counted, the counts
+  // scanned over the block
+  const int run = (int)(krmask / kTrkThreads) + 1;
+  const int r0s = tid * run;
+  int mine = 0;
+  for (int u = 0; u < run; ++u) {
+    const int s = r0s + u;
+    mine += s <= (int)krmask && trk_ld<kGlobal>(my_k + s).x != kTrkEmpty;
+  }
+  int x = mine;  // the warp's inclusive scan
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_wn[tid >> 5] = x;
+  __syncthreads();
+  if (tid < 32) {  // the warps' totals scanned
+    const int n = lane < kTrkWarps ? s_wn[lane] : 0;
+    int y = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int z = __shfl_up_sync(0xffffffffu, y, d);
+      if (lane >= d) y += z;
+    }
+    if (lane < kTrkWarps) s_wn[lane] = y - n;
+    if (lane == 31) s_wn[kTrkWarps] = y;
+  }
+  __syncthreads();
+  int at = s_wn[tid >> 5] + x - mine;
+  for (int u = 0; u < run; ++u) {
+    const int s = r0s + u;
+    if (s <= (int)krmask && trk_ld<kGlobal>(my_k + s).x != kTrkEmpty) {
+      my_l[at++].cnt = (unsigned)s;
+    }
+  }
+  const int listed = s_wn[kTrkWarps];
+  __syncthreads();
+  // the key slot of list entry w
+  auto t_of = [&](int w) -> unsigned {
+    if constexpr (kGlobal) {
+      return __ldcg(&my_l[w].cnt);
+    } else {
+      return my_l[w].cnt;
+    }
+  };
+  // a warp's 32 listed keys walked through the ordinals together, four
+  // at a time: the pairs' slots read at once (a pair not in its first
+  // slot probed on), then each key decayed at every ordinal (one
+  // multiplication, as the dense loop), its pair's count added where it
+  // has one, the pair's end-of-ordinal value kept; the key's final value
+  // kept in its slot.  The warps that walk nothing make the dense pass
+  // meanwhile
+  for (int w0 = tid - lane; w0 < listed; w0 += kTrkThreads) {
+    const int w = w0 + lane;
+    const bool live = w < listed;
+    const uint4 kv = live ? trk_ld<kGlobal>(my_k + t_of(w))
+                          : make_uint4(kTrkEmpty, 0u, 0u, 0u);
+    const unsigned k = kv.x;
+    float acc = __uint_as_float(kv.w);
+    if (a.pre && alpha != 1.0f) acc = __fmul_rn(acc, alpha);
+    const unsigned mk = trk_mix(k);
+    const unsigned base = trk_owner(k, a.log2c) << log2r;
+    for (unsigned j0 = 0; j0 < (unsigned)a.ne; j0 += kTrkBatch) {
+      bool has[kTrkBatch];
+      unsigned sl[kTrkBatch];
+      uint4 pv[kTrkBatch];
+#pragma unroll
+      for (int u = 0; u < kTrkBatch; ++u) {
+        const unsigned j = j0 + u;
+        has[u] = live && j < (unsigned)a.ne &&
+                 (j < 32u ? (kv.y >> j) & 1u : j <= kv.z);
+        sl[u] = base | (trk_pair_off(mk, j) & rmask);
+        pv[u] = has[u] ? trk_ld<kGlobal>(pair_at(sl[u]))
+                       : make_uint4(kTrkEmpty, kTrkEmpty, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kTrkBatch; ++u) {
+        const unsigned j = j0 + u;
+        if (j >= (unsigned)a.ne) break;
+        if (j > 0 && alpha != 1.0f) acc = __fmul_rn(acc, alpha);
+        for (unsigned n = 0; n <= pmask && has[u] &&
+                             !(pv[u].x == j && pv[u].y == k); ++n) {
+          if (trk_empty(pv[u])) {
+            has[u] = false;  // an ordinal >= 32 the key skips
+          } else {
+            sl[u] = (sl[u] + 1) & pmask;
+            pv[u] = trk_ld<kGlobal>(pair_at(sl[u]));
+          }
+        }
+        if (has[u]) {
+          acc = __fadd_rn(acc, (float)pv[u].z);
+          pair_at(sl[u])->val = acc;
+        }
+      }
+    }
+    if (live) my_k[t_of(w)].val = acc;
+  }
+  const int walking = (listed + 31) >> 5;  // the warps that walk
+  dense_pass(walking < kTrkWarps ? walking : 0);
+  cluster_arrive();
+  cluster_wait();
+  // each local pair's end-of-ordinal value fetched from its slot
+  for (int s = tid; s <= (int)rmask; s += kTrkThreads) {
+    TrkPairSlot* q = my_l + s;
+    const uint4 v = trk_ld<kGlobal>(q);
+    if (trk_empty(v)) continue;
+    *reinterpret_cast<unsigned*>(&q->val) =
+        trk_ld_w<kGlobal>(pair_at(v.w));
+  }
+  // the key region's final values to trk, after every dense write
+  for (int s = tid; s <= (int)krmask; s += kTrkThreads) {
+    const uint4 kv = trk_ld<kGlobal>(my_k + s);
+    if (kv.x != kTrkEmpty) a.trk[kv.x] = __uint_as_float(kv.w);
+  }
+  // each ordinal's maximum over the values the region's pairs end it
+  // with (a pair's walker may be another block's: after the barrier)
+  for (int s = tid; s <= (int)rmask; s += kTrkThreads) {
+    const uint4 v = trk_ld<kGlobal>(my_p + s);
+    if (trk_empty(v)) continue;
+    if (v.x < (unsigned)kTrkNeLocal) {
+      if ((int)v.w > s_mx[v.x]) atomicMax(s_mx + v.x, (int)v.w);
+    } else {
+      atomicMax(top_bits + v.x, (int)v.w);
+    }
+  }
+  __syncthreads();
+  const int nloc = a.ne < kTrkNeLocal ? a.ne : kTrkNeLocal;
+  for (int j = tid; j < nloc; j += kTrkThreads) {
+    if (s_mx[j]) atomicMax(top_bits + j, s_mx[j]);
+  }
+
+  // -- phase 3: fv; the carry ----------------------------------------------
+  cluster_arrive();  // (no block leaves while another may still read its
+  __syncthreads();   // shared memory)
+#pragma unroll
+  for (int r = 0; r < kTrkRounds; ++r) {
+    const int i = lo + r * kTrkThreads + tid;
+    if (i < hi) a.fv[i] = __uint_as_float(trk_ld_w<kGlobal>(my_l + ls[r]));
+  }
+  for (int i = lo + kTrkRounds * kTrkThreads + tid; i < hi;
+       i += kTrkThreads) {
+    const unsigned s = reinterpret_cast<const unsigned*>(a.fv)[i];
+    a.fv[i] = __uint_as_float(trk_ld_w<kGlobal>(my_l + s));
+  }
+  cluster_wait();
+  carry_through();
+}
+
+// tracker_segment's kernel and launch for tables in global scratch (or in
+// the blocks' shared memory) on 2^log2c blocks
+using TrkKernel = void (*)(TrackerArgs);
+
+TrkKernel trk_kernel(bool global) {
+  return global ? tracker_segment_kernel<true>
+                : tracker_segment_kernel<false>;
+}
+
+// a block's dynamic shared memory: its local pair table, its pair region
+// and its key region
+size_t trk_smem_bytes(bool global, int log2c, int log2k, int log2p) {
+  return global ? 0
+                : 2 * (sizeof(TrkPairSlot) << (log2p - log2c)) +
+                      (sizeof(TrkKeySlot) << (log2k - log2c));
+}
+
+cudaError_t trk_config(bool global, int log2c, int log2k, int log2p,
+                       cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                       cudaLaunchAttribute* attr) {
+  const TrkKernel kernel = trk_kernel(global);
+  const size_t smem = trk_smem_bytes(global, log2c, log2k, log2p);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if ((1 << log2c) > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(1u << log2c, 1, 1);
+  cfg->blockDim = dim3(kTrkThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log2c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -429,8 +1133,6 @@ route_scan_kernel(RouteArgs a) {
   float* s_wait = s_ec + w1;        // FISH: (bl + asn) * ec per worker
   float* s_tot = s_wait + w1;       // per-epoch tracker total
   float* s_ftop = s_tot + a.ne;     // per-epoch max / total
-  __shared__ float red_sum[kRouteThreads];
-  __shared__ float red_max[kRouteThreads];
 
   const int tid = threadIdx.x;
   constexpr int sch = SCH;
@@ -457,32 +1159,12 @@ route_scan_kernel(RouteArgs a) {
   }
 
   if (tracked) {
-    // per epoch: total / max of the tracker, partials in a fixed stride
-    // order, then a tree
-    for (int j = 0; j < a.ne; ++j) {
-      const float* ps = a.psum + (long long)j * a.n_part;
-      const float* pm = a.pmax + (long long)j * a.n_part;
-      float acc = 0.0f, mx = 0.0f;
-      for (int p = tid; p < a.n_part; p += kRouteThreads) {
-        acc = acc + ps[p];
-        mx = fmaxf(mx, pm[p]);
-      }
-      red_sum[tid] = acc;
-      red_max[tid] = mx;
-      __syncthreads();
-      for (int s = kRouteThreads / 2; s > 0; s >>= 1) {
-        if (tid < s) {
-          red_sum[tid] = red_sum[tid] + red_sum[tid + s];
-          red_max[tid] = fmaxf(red_max[tid], red_max[tid + s]);
-        }
-        __syncthreads();
-      }
-      if (tid == 0) {
-        const float total = red_sum[0];
-        s_tot[j] = total;
-        s_ftop[j] = total > 0.0f ? red_max[0] / total : 0.0f;
-      }
-      __syncthreads();
+    // per epoch: the tracker's total and max / total, as tracker_segment
+    // carried them
+    for (int j = tid; j < a.ne; j += kRouteThreads) {
+      const float total = a.tot[j];
+      s_tot[j] = total;
+      s_ftop[j] = total > 0.0f ? a.top[j] / total : 0.0f;
     }
   }
   __syncthreads();
@@ -500,20 +1182,18 @@ route_scan_kernel(RouteArgs a) {
     }
     const float total = tracked ? s_tot[j] : 0.0f;
     const float f_top = tracked ? s_ftop[j] : 0.0f;
-    const float* tj = (a.snap && tracked) ? a.snap + (long long)j * a.kcap1
-                                          : a.trk;
     for (int i = lo + tid; i < hi; i += kRouteThreads) {
       if (sch == PKG) {
         a.dbuf[i] = 2;
       } else if (sch == DC || sch == WC) {
-        const float f = total > 0.0f ? tj[a.keys[i]] / total : 0.0f;
+        const float f = total > 0.0f ? a.fv[i] / total : 0.0f;
         const bool hot = f > a.theta;
         float dh = ceilf(f * a.wnum / sqrtf(a.theta));
         dh = fminf(fmaxf(dh, 2.0f), a.wnum);
         // WC hot keys take the argmin over the whole live set (d = -1)
         a.dbuf[i] = hot ? (sch == WC ? -1 : (int)dh) : 2;
       } else {  // FISH
-        const float f = total > 0.0f ? tj[a.keys[i]] / total : 0.0f;
+        const float f = total > 0.0f ? a.fv[i] / total : 0.0f;
         const bool hot = (f > a.theta) && (f > 0.0f) && (f_top > 0.0f);
         const float ratio = fmaxf(f_top / fmaxf(f, 1e-30f), 1.0f);
         // floor(log2(ratio)) exactly, from the binary exponent
@@ -916,21 +1596,70 @@ int ring_rows(const unsigned int* pts, int r_n, const int* cands, int dmax,
   return (int)cudaGetLastError();
 }
 
-int tracker_count(const int* keys, int m, int kcap1, long long g0, int epoch,
-                  int* cnt, cudaStream_t stream) {
-  if (m > 0) {
-    tracker_count_kernel<<<blocks_for(m, kThreads), kThreads, 0, stream>>>(
-        keys, m, kcap1, g0, epoch, cnt);
+// tracker_segment's layout for tables of 2^log2k key and 2^log2p pair
+// slots: the first of a 16-block cluster (the non-portable size) and an
+// 8-block one, with the tables in the blocks' shared memory, then the same
+// with the tables in global scratch, of which the card can place at least
+// one cluster (cudaOccupancyMaxActiveClusters); *log2c its blocks, *global
+// 1 for global tables.  Asked once per table size: the caller keeps it
+int tracker_plan(int log2k, int log2p, int* log2c, int* global) {
+  if (log2k < 10 || log2p < 10 || log2k > 30 || log2p > 30) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  for (int g = 0; g < 2; ++g) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, trk_kernel(g == 1));
+    if (e != cudaSuccess) return (int)e;
+    for (int lc = 4; lc >= 3; --lc) {
+      const size_t smem = trk_smem_bytes(g == 1, lc, log2k, log2p);
+      if (smem + fa.sharedSizeBytes > (size_t)optin) continue;
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr[1];
+      int n = 0;
+      e = trk_config(g == 1, lc, log2k, log2p, nullptr, &cfg, attr);
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveClusters(&n, trk_kernel(g == 1), &cfg);
+      }
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // a refused size: not this one
+        continue;
+      }
+      if (n >= 1) {
+        *log2c = lc;
+        *global = g;
+        return (int)cudaSuccess;
+      }
+    }
+  }
+  return (int)cudaErrorLaunchOutOfResources;
 }
 
-int tracker_fold(float* trk, int kcap1, int* cnt, int ne, float alpha,
-                 int pre, float* snap, float* psum, float* pmax,
-                 cudaStream_t stream) {
-  tracker_fold_kernel<<<blocks_for(kcap1, kFoldThreads), kFoldThreads, 0,
-                        stream>>>(trk, kcap1, cnt, ne, alpha, pre, snap, psum,
-                                  pmax);
+int tracker_segment(const TrackerArgs* args, cudaStream_t stream) {
+  const TrackerArgs& a = *args;
+  const long long touched = a.m < a.kcap1 ? a.m : a.kcap1;
+  if (a.log2c < 0 || (1 << a.log2c) > kTrkMaxCluster ||
+      a.log2k - a.log2c < 5 || a.log2p - a.log2c < 5 || a.log2k > 30 ||
+      a.log2p > 30 || a.ne < 1 || a.m < 0 ||
+      (1ll << a.log2p) < 2ll * a.m || (1ll << a.log2k) < 2 * touched ||
+      (a.gkeys == nullptr) != (a.gpairs == nullptr) ||
+      (a.gkeys == nullptr) != (a.glocal == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool global = a.gkeys != nullptr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e =
+      trk_config(global, a.log2c, a.log2k, a.log2p, stream, &cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, trk_kernel(global), a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

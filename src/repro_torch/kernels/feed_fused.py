@@ -21,29 +21,33 @@ c. **keyed-state update** — per-(worker, key) pane sums in an
    :class:`~repro_torch.state.window.KeyedStateManager` only at pane
    boundaries and membership events.
 
-PyTorch has no sequential scan, so the segment is at most six kernels
+PyTorch has no sequential scan, so the segment is at most five kernels
 (``csrc/feed_fused.cu`` — see its header for what bounds each and how the
 float sums stay deterministic):
 
-=============== ============ ==============================================
-kernel          shape        computes
-=============== ============ ==============================================
-``ring_rows``   tuple × col  candidate rows (per-key hash cache when the key
-                             table is no larger than the segment, else
-                             per-tuple hashes — as the reference)
-``tracker_count`` tuple      int32 counts per (epoch ordinal, key)
-``tracker_fold`` key         decayed dense tracker, its per-epoch
-                             snapshots, per-(epoch, block) sum/max
-``route_scan``  one block    PKG/DC/WC/FISH: the sequential routing chain
-``fifo_workers`` warp/worker the per-worker FIFO (SG/FG gather their
-                             fixed routes here)
-``pane_update`` tuple        pane (value, count) sums into a compact
-                             open-addressing table of pair keys,
-                             replicas, ``pane_last``
-=============== ============ ==============================================
+=================== ============ ==========================================
+kernel              shape        computes
+=================== ============ ==========================================
+``ring_rows``       tuple × col  candidate rows (per-key hash cache when the
+                                 key table is no larger than the segment,
+                                 else per-tuple hashes — as the reference)
+``tracker_segment`` a cluster    DC/WC/FISH: the dense tracker decayed and
+                                 updated in place, each tuple's key's value
+                                 at the end of its epoch, each epoch's
+                                 carried total and max — tables sized by
+                                 the segment's (key, epoch) pairs (DC/WC
+                                 below 2^24: atomics into the tracker)
+``route_scan``      one block    PKG/DC/WC/FISH: the sequential routing
+                                 chain
+``fifo_workers``    warp/worker  the per-worker FIFO (SG/FG gather their
+                                 fixed routes here)
+``pane_update``     tuple        pane (value, count) sums into a compact
+                                 open-addressing table of pair keys,
+                                 replicas, ``pane_last``
+=================== ============ ==========================================
 
 SG runs ``fifo_workers`` + ``pane_update``; FG adds ``ring_rows``; PKG
-adds ``ring_rows`` and ``route_scan``; DC/WC/FISH run all six.  Each
+adds ``ring_rows`` and ``route_scan``; DC/WC/FISH run all five.  Each
 wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain version only for a CPU tensor;
 ``LAUNCHES[name]`` counts kernel launches.  ``EdgeResult.dispatches``
@@ -61,7 +65,9 @@ at 16k-tuple segments (~16 FISH epochs) reclassifies a hot key as light
 for the part of the segment before a hot-key flip — its makespan then
 drifts far outside the §6 bands.  Here each FISH tuple reads the tracker
 at the end of its own epoch (the batched engine's sub-chunk discipline)
-and the CHK memory as of its epoch's start.
+and the CHK memory as of its epoch's start.  The tracker's total is
+carried from segment to segment (``fl(fl(alpha T) + n)`` per epoch), not
+summed over the dense tracker: exact for DC/WC, within rounding for FISH.
 """
 
 from __future__ import annotations
@@ -86,8 +92,8 @@ __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
            "pane_capacity", "pane_pairs", "PANE_EMPTY", "SCHEME_IDS"]
 
 #: kernel launches on CUDA tensors, counted where each wrapper launches
-LAUNCHES = {"ring_rows": 0, "tracker_count": 0, "tracker_fold": 0,
-            "route_scan": 0, "fifo_workers": 0, "pane_update": 0}
+LAUNCHES = {"ring_rows": 0, "tracker_segment": 0, "route_scan": 0,
+            "fifo_workers": 0, "pane_update": 0}
 
 #: Shared disabled bundle for runners no session bound telemetry to.
 _NULL_TELEMETRY = Telemetry(enabled=False)
@@ -98,7 +104,6 @@ _SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
 _RING_SCHEMES = ("fg", "pkg", "dc", "wc", "fish")
 SCHEME_IDS = {s: i for i, s in enumerate(_SCHEMES)}  # csrc enum Scheme
 _BIG_I32 = 2 ** 30  # masked candidate wait (int schemes)
-_FOLD_THREADS = 256   # csrc kFoldThreads: tracker_fold's tree width
 _ROUTE_THREADS = 256  # csrc kRouteThreads: route_scan's block
 _TILE_INTS = 8192     # csrc kTileInts: route_scan's staged tile
 _TILE_MAX = 1024      # csrc kTileMax
@@ -106,6 +111,9 @@ _SMEM_LIMIT = 232_448  # a Hopper block's dynamic shared memory (227 KB)
 _RING_RUN = 32        # csrc kRun: ring points per staged splitter
 _PANE_SMEM = 48 * 1024  # pane_update's (w1,) block maxima, default limit
 PANE_EMPTY = -1       # an empty pane slot's pair key (csrc kEmptySlot)
+_TRK_MIN_SLOTS = 1024  # smallest tracker table (csrc tracker_plan: 2^10)
+_TRK_KEY_BYTES = 16    # sizeof(TrkKeySlot)
+_TRK_PAIR_BYTES = 16   # sizeof(TrkPairSlot)
 MIN_PANE_SLOTS = 1024  # smallest pane table (csrc: 2^6 at least)
 
 
@@ -219,18 +227,28 @@ class _RouteArgs(ctypes.Structure):
 
     _fields_ = [("scheme", _I), ("m", _I), ("w1", _I), ("width", _I),
                 ("rows", _P), ("keys", _P), ("counts", _P), ("workers", _P),
-                ("kcap1", _I), ("trk", _P), ("snap", _P), ("psum", _P),
-                ("pmax", _P), ("n_part", _I), ("ne", _I), ("g0", _LL),
-                ("epoch", _I), ("theta", _F), ("wnum", _F),
+                ("fv", _P), ("tot", _P), ("top", _P), ("ne", _I),
+                ("g0", _LL), ("epoch", _I), ("theta", _F), ("wnum", _F),
                 ("act_mask", _P), ("m_k", _P), ("d_min", _I), ("ebl", _P),
                 ("eas", _P), ("ecaps", _P), ("do_tick", _I),
                 ("elapsed", _F), ("dbuf", _P), ("mbuf", _P)]
 
 
+class _TrackerArgs(ctypes.Structure):
+    """Mirror of ``struct TrackerArgs`` in csrc/feed_fused.cu."""
+
+    _fields_ = [("trk", _P), ("kcap1", _I), ("keys", _P), ("m", _I),
+                ("g0", _LL), ("epoch", _I), ("pre", _I), ("ne", _I),
+                ("alpha", _F), ("carry", _P), ("fv", _P), ("tot", _P),
+                ("top", _P), ("gkeys", _P), ("gpairs", _P), ("glocal", _P),
+                ("log2c", _I),
+                ("log2k", _I), ("log2p", _I)]
+
+
 _SIGS = {
     "ring_rows": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P),
-    "tracker_count": (_P, _I, _I, _LL, _I, _P, _P),
-    "tracker_fold": (_P, _I, _P, _I, _F, _I, _P, _P, _P, _P),
+    "tracker_plan": (_I, _I, _P, _P),
+    "tracker_segment": (ctypes.POINTER(_TrackerArgs), _P),
     "route_scan": (ctypes.POINTER(_RouteArgs), _P),
     "fifo_workers": (_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P),
@@ -322,111 +340,133 @@ def ring_rows(pts: torch.Tensor, cands: torch.Tensor, hashes: torch.Tensor,
 # -- tracker ------------------------------------------------------------------
 
 
-def _tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Shared-memory halving tree along the last axis (the kernels' order)."""
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    return x[..., 0]
+def _tracker_tables(m: int, kcap1: int):
+    """log2 of tracker_segment's key and pair table slots for ``m`` tuples
+    over ``kcap1`` keys: pair slots >= 2m, key slots >= 2 min(m, kcap1)
+    (load <= 1/2)."""
+    pairs = _pow2_at_least(max(2 * m, _TRK_MIN_SLOTS))
+    keys = _pow2_at_least(max(2 * min(m, kcap1), _TRK_MIN_SLOTS))
+    return keys.bit_length() - 1, pairs.bit_length() - 1
 
 
-def tracker_update_plain(trk, cnt, keys, m, g0, epoch, pre, ne, alpha,
-                         snap):
-    kcap1 = trk.shape[0]
+#: tracker_plan's answer per (device, log2 key slots, log2 pair slots)
+_TRK_PLANS: dict = {}
+
+
+def _tracker_plan(dev: torch.device, log2k: int, log2p: int):
+    """(log2 of the cluster's blocks, global tables): the card's own
+    answer — a 16-block cluster where it can place one, else 8, the tables
+    in the blocks' shared memory where their share fits — asked once per
+    table size."""
+    key = (dev.index, log2k, log2p)
+    if key not in _TRK_PLANS:
+        log2c, glob = ctypes.c_int(), ctypes.c_int()
+        err = _lib().tracker_plan(log2k, log2p, ctypes.byref(log2c),
+                                  ctypes.byref(glob))
+        _build.check(err, "tracker_plan")
+        _TRK_PLANS[key] = (log2c.value, bool(glob.value))
+    return _TRK_PLANS[key]
+
+
+def _decay_n(x: torch.Tensor, a: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` multiplied by ``a`` n times, one rounding each (stopping once
+    nothing changes: later multiplications would change nothing)."""
+    for _ in range(n):
+        y = x * a
+        if torch.equal(y, x):
+            break
+        x = y
+    return x
+
+
+def tracker_update_plain(trk, carry, keys, m, g0, epoch, pre, ne, alpha):
     dev = trk.device
-    k = keys[:m].long()
-    j = torch.zeros(m, dtype=torch.int64, device=dev)
-    if epoch > 0:
-        i = torch.arange(m, dtype=torch.int64, device=dev)
-        j = (g0 + i) // epoch - g0 // epoch
-    cnt.view(-1).index_add_(0, j * kcap1 + k,
-                            torch.ones(m, dtype=torch.int32, device=dev))
     a = torch.tensor(alpha, dtype=torch.float32, device=dev)
-    acc = trk.clone()
+    k = keys[:m].long()
+    touched, inv = torch.unique(k, return_inverse=True)
+    acc = trk[touched]
+    total, mx = carry[0].clone(), carry[1].clone()
     if pre:
-        acc = acc * a
-    nb = -(-kcap1 // _FOLD_THREADS)
-    psum = torch.empty((ne, nb), dtype=torch.float32, device=dev)
-    pmax = torch.empty_like(psum)
-    pad = torch.zeros(nb * _FOLD_THREADS, dtype=torch.float32, device=dev)
-    for e in range(ne):
-        if e:
-            acc = acc * a
-        c = cnt[e]
-        acc = torch.where(c != 0, acc + c.to(torch.float32), acc)
-        if snap is not None:
-            snap[e] = acc
-        pad[:kcap1] = acc
-        x = pad.view(nb, _FOLD_THREADS)
-        psum[e] = _tree_sum(x)
-        pmax[e] = x.amax(dim=1)
-    cnt[:ne].zero_()
-    trk.copy_(acc)
-    return psum, pmax
+        acc, total, mx = acc * a, total * a, mx * a
+    fv = torch.empty(m, dtype=torch.float32, device=dev)
+    tot = torch.empty(ne, dtype=torch.float32, device=dev)
+    top = torch.empty(ne, dtype=torch.float32, device=dev)
+    for j, (lo, hi) in enumerate(_epoch_bounds(m, g0, epoch, ne)):
+        if j:
+            acc, total, mx = acc * a, total * a, mx * a
+        u, c = torch.unique(inv[lo:hi], return_counts=True)
+        acc[u] = acc[u] + c.to(torch.float32)
+        # the carried total and max: the ordinal's tuples added, the max
+        # against the values of the keys it touched
+        total = total + (hi - lo)
+        if u.numel():
+            mx = torch.maximum(mx, acc[u].max())
+        fv[lo:hi] = acc[inv[lo:hi]]
+        tot[j], top[j] = total, mx
+    # the keys the segment does not touch only decay
+    if alpha != 1.0:
+        trk.copy_(_decay_n(trk, a, pre + ne - 1))
+    trk[touched] = acc
+    carry[0], carry[1] = total, mx
+    return fv, tot, top
 
 
-def tracker_update(trk: torch.Tensor, cnt: torch.Tensor, keys: torch.Tensor,
-                   m: int, *, g0: int = 0, epoch: int = 0, pre: int = 0,
-                   ne: int = 1, alpha: float = 1.0,
-                   snap: Optional[torch.Tensor] = None):
-    """Dense per-key tracker update for one segment, in place.
+def tracker_update(trk: torch.Tensor, carry: torch.Tensor,
+                   keys: torch.Tensor, m: int, *, g0: int = 0,
+                   epoch: int = 0, pre: int = 0, ne: int = 1,
+                   alpha: float = 1.0):
+    """The tracker's update for one segment, in place: one launch,
+    ``tracker_segment``.
 
     Tuple i belongs to epoch ordinal ``(g0+i)//epoch - g0//epoch`` (all 0
-    with ``epoch=0`` — the DC/WC undecayed count).  The tracker decays by
-    ``alpha`` at every epoch boundary before that epoch's tuples are added
-    (once up front when ``pre``: a segment starting on a boundary), as
-    Alg. 1's TimeDecayingUpdate.  ``cnt`` is an all-zero (≥ ne, kcap1)
-    int32 scratch table, left zeroed; ``snap`` (ne, kcap1), when given,
-    receives the tracker at the end of each ordinal.  Returns the
-    per-(ordinal, block) partial sums and maxima, (ne, nb) each, that
-    ``route_scan`` reduces to each epoch's total and max.  Two kernels:
-    ``tracker_count`` then ``tracker_fold``."""
-    if ne > cnt.shape[0]:
-        raise ValueError("tracker_update: count table has too few epochs")
+    with ``epoch=0`` — the DC/WC undecayed count).  Each key's value
+    decays by ``alpha`` at every epoch boundary before that epoch's tuples
+    are added (once up front when ``pre``: a segment starting on a
+    boundary), as Alg. 1's TimeDecayingUpdate, one rounding per operation.
+    ``carry`` (2,) holds the tracker's total and max before the segment and
+    is carried through it: the total as ``fl(fl(alpha T) + n_j)`` over the
+    ordinals' tuple counts, the max as ``max(fl(alpha max), the touched
+    keys' values)`` — exactly ``trk.max()``.
+
+    Returns ``(fv, tot, top)``: (m,) each tuple's key's value at the end of
+    its ordinal, and (ne,) the total and max at each ordinal's end — what
+    ``route_scan`` reads.  The kernel's cluster and where its tables live
+    are the card's answer for the tables' size (``_tracker_plan``)."""
     if not _on_card(trk, "tracker_update"):
-        return tracker_update_plain(trk, cnt, keys, m, g0, epoch, pre, ne,
-                                    alpha, snap)
-    _need("tracker_update", trk.device, torch.float32, trk=trk, snap=snap)
-    _need("tracker_update", trk.device, torch.int32, cnt=cnt, keys=keys)
-    kcap1 = trk.shape[0]
-    if cnt.shape[1] != kcap1 or (snap is not None
-                                 and tuple(snap.shape) != (ne, kcap1)):
-        raise ValueError("tracker_update: cnt/snap do not match the tracker")
-    nb = -(-kcap1 // _FOLD_THREADS)
-    psum = torch.empty((ne, nb), dtype=torch.float32, device=trk.device)
-    pmax = torch.empty_like(psum)
-    lib = _lib()
-    stream = _build.stream_ptr(trk.device)
-    err = lib.tracker_count(keys.data_ptr(), m, kcap1, g0, epoch,
-                            cnt.data_ptr(), stream)
-    _build.check(err, "tracker_count")
-    LAUNCHES["tracker_count"] += 1
-    err = lib.tracker_fold(trk.data_ptr(), kcap1, cnt.data_ptr(), ne,
-                           float(np.float32(alpha)), int(pre), _ptr(snap),
-                           psum.data_ptr(), pmax.data_ptr(), stream)
-    _build.check(err, "tracker_fold")
-    LAUNCHES["tracker_fold"] += 1
-    return psum, pmax
+        return tracker_update_plain(trk, carry, keys, m, g0, epoch, pre, ne,
+                                    alpha)
+    dev = trk.device
+    _need("tracker_update", dev, torch.float32, trk=trk, carry=carry)
+    _need("tracker_update", dev, torch.int32, keys=keys)
+    if carry.shape != (2,) or keys.shape[0] < m or ne < 1:
+        raise ValueError("tracker_update: carry must be (2,), keys hold m "
+                         "tuples, ne >= 1")
+    log2k, log2p = _tracker_tables(m, trk.shape[0])
+    log2c, glob = _tracker_plan(dev, log2k, log2p)
+    gkeys = gpairs = glocal = None
+    if glob:  # the key table, the pair table, the blocks' local tables
+        gkeys = torch.empty(_TRK_KEY_BYTES << log2k, dtype=torch.uint8,
+                            device=dev)
+        gpairs, glocal = torch.empty(
+            (2, _TRK_PAIR_BYTES << log2p), dtype=torch.uint8, device=dev)
+    fv = torch.empty(max(m, 1), dtype=torch.float32, device=dev)
+    tot = torch.empty(ne, dtype=torch.float32, device=dev)
+    top = torch.empty(ne, dtype=torch.float32, device=dev)
+    args = _TrackerArgs(
+        trk=trk.data_ptr(), kcap1=trk.shape[0], keys=keys.data_ptr(), m=m,
+        g0=g0, epoch=epoch, pre=int(pre), ne=ne,
+        alpha=float(np.float32(alpha)), carry=carry.data_ptr(),
+        fv=fv.data_ptr(), tot=tot.data_ptr(), top=top.data_ptr(),
+        gkeys=_ptr(gkeys), gpairs=_ptr(gpairs), glocal=_ptr(glocal),
+        log2c=log2c, log2k=log2k,
+        log2p=log2p)
+    err = _lib().tracker_segment(ctypes.byref(args), _build.stream_ptr(dev))
+    _build.check(err, "tracker_segment")
+    LAUNCHES["tracker_segment"] += 1
+    return fv[:m], tot, top
 
 
 # -- route_scan -----------------------------------------------------------------
-
-
-def _reduce_partials(psum: np.ndarray, pmax: np.ndarray):
-    """route_scan's prologue for one epoch: partials summed per thread in
-    a fixed stride order, then the block tree; max is order-free."""
-    n = psum.shape[0]
-    rows = -(-n // _ROUTE_THREADS)
-    pad = np.zeros(rows * _ROUTE_THREADS, dtype=np.float32)
-    pad[:n] = psum
-    acc = np.zeros(_ROUTE_THREADS, dtype=np.float32)
-    for r in pad.reshape(rows, _ROUTE_THREADS):
-        acc = acc + r
-    while acc.shape[0] > 1:
-        h = acc.shape[0] // 2
-        acc = acc[:h] + acc[h:]
-    mx = np.float32(max(float(pmax.max(initial=0.0)), 0.0))
-    return np.float32(acc[0]), mx
 
 
 def _epoch_bounds(m: int, g0: int, epoch: int, ne: int):
@@ -438,14 +478,15 @@ def _epoch_bounds(m: int, g0: int, epoch: int, ne: int):
              min((e0 + j + 1) * epoch - g0, m)) for j in range(ne)]
 
 
-def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
-                   pmax, g0, epoch, theta, wnum, m_k, d_min):
+def route_prologue(scheme, m, keys, rows, act, a_live, rr, fv, tot, top, g0,
+                   epoch, theta, wnum, m_k, d_min):
     """route_scan's parallel prologue, on the host, and the fixed routes
     of SG/FG that fifo_workers gathers: for DC/WC/FISH each tuple's
     candidate count ``d`` (WC hot keys: -1, the whole live set), read
-    epoch by epoch against the tracker at the epoch's end — FISH also
-    against the CHK memory ``m_k`` at the epoch's start, which it then
-    raises (in place).  Returns (routes, d)."""
+    epoch by epoch against the tracker at the epoch's end (``fv``, ``tot``
+    and ``top`` from ``tracker_update``) — FISH also against the CHK
+    memory ``m_k`` at the epoch's start, which it then raises (in place).
+    Returns (routes, d)."""
     f32 = np.float32
     theta32, wnum32 = f32(theta), f32(wnum)
     if scheme == "sg":
@@ -456,18 +497,16 @@ def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
     if scheme == "pkg":
         return None, None
     k = keys[:m].cpu().numpy().astype(np.int64)
-    ps, pm = psum.cpu().numpy(), pmax.cpu().numpy()
-    ne = ps.shape[0]
-    snaps = None if snap is None else snap.cpu().numpy()
-    tk = trk.cpu().numpy()
+    tots, tops = tot.cpu().numpy(), top.cpu().numpy()
+    fvs = fv[:m].cpu().numpy()
     mk = None if m_k is None else m_k.cpu().numpy().copy()
     d = np.empty(m, dtype=np.int64)
-    for j, (lo, hi) in enumerate(_epoch_bounds(m, g0, epoch, ne)):
-        total, mx = _reduce_partials(ps[j], pm[j])
-        f_top = mx / total if total > 0 else f32(0.0)
-        tj = tk if snaps is None else snaps[j]
+    for j, (lo, hi) in enumerate(_epoch_bounds(m, g0, epoch, tots.shape[0])):
+        total = tots[j]
+        f_top = tops[j] / total if total > 0 else f32(0.0)
         kj = k[lo:hi]
-        f = tj[kj] / total if total > 0 else np.zeros(hi - lo, np.float32)
+        f = fvs[lo:hi] / total if total > 0 else np.zeros(hi - lo,
+                                                          np.float32)
         if scheme in ("dc", "wc"):
             hot = f > theta32
             dh = np.ceil(f * wnum32 / np.sqrt(theta32))
@@ -490,15 +529,15 @@ def route_prologue(scheme, m, keys, rows, act, a_live, rr, trk, snap, psum,
     return None, d
 
 
-def route_scan_plain(scheme, m, keys, counts, rows, trk=None, snap=None,
-                     psum=None, pmax=None, g0=0, epoch=0, theta=0.0,
-                     wnum=0.0, act_mask=None, m_k=None, d_min=2, ebl=None,
-                     eas=None, ecaps=None, do_tick=0, elapsed=0.0):
+def route_scan_plain(scheme, m, keys, counts, rows, fv=None, tot=None,
+                     top=None, g0=0, epoch=0, theta=0.0, wnum=0.0,
+                     act_mask=None, m_k=None, d_min=2, ebl=None, eas=None,
+                     ecaps=None, do_tick=0, elapsed=0.0):
     f32 = np.float32
     n_pad = keys.shape[0]
     w1 = counts.shape[0]
-    _, d = route_prologue(scheme, m, keys, rows, None, 0, 0, trk, snap,
-                          psum, pmax, g0, epoch, theta, wnum, m_k, d_min)
+    _, d = route_prologue(scheme, m, keys, rows, None, 0, 0, fv, tot, top,
+                          g0, epoch, theta, wnum, m_k, d_min)
     rw = rows.cpu().numpy()
     am = None if act_mask is None else act_mask.cpu().numpy()
     if scheme == "fish":
@@ -547,8 +586,8 @@ def route_scan_plain(scheme, m, keys, counts, rows, trk=None, snap=None,
     return workers.to(keys.device)
 
 
-def route_scan(scheme: str, m: int, *, keys, counts, rows, trk=None,
-               snap=None, psum=None, pmax=None, g0: int = 0, epoch: int = 0,
+def route_scan(scheme: str, m: int, *, keys, counts, rows, fv=None,
+               tot=None, top=None, g0: int = 0, epoch: int = 0,
                theta: float = 0.0, wnum: float = 0.0, act_mask=None,
                m_k=None, d_min: int = 2, ebl=None, eas=None, ecaps=None,
                do_tick: int = 0, elapsed: float = 0.0) -> torch.Tensor:
@@ -559,29 +598,28 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, trk=None,
     past m undefined on the card).  Updates ``counts`` (w1,) in place, and
     for FISH ``m_k`` (kcap1,) and the estimator ``ebl``/``eas`` (w1,).
     ``rows`` are the ``ring_rows`` candidates; DC/WC/FISH read the tracker
-    from ``tracker_update`` — its per-epoch snapshots ``snap`` (or ``trk``
-    itself with one epoch) and per-epoch partials — each tuple against its
-    own epoch's (``g0``, ``epoch``) state.  SG and FG have fixed routes:
+    from ``tracker_update`` — each tuple's key's value ``fv`` at the end of
+    its epoch (``g0``, ``epoch``) and that epoch's total ``tot`` and max
+    ``top``.  SG and FG have fixed routes:
     :func:`fifo_workers` gathers them."""
     if scheme not in ("pkg", "dc", "wc", "fish"):
         raise ValueError(f"route_scan: {scheme!r} has fixed routes")
     if not _on_card(keys, "route_scan"):
         return route_scan_plain(
-            scheme, m, keys, counts, rows, trk, snap, psum, pmax, g0, epoch,
-            theta, wnum, act_mask, m_k, d_min, ebl, eas, ecaps, do_tick,
-            elapsed)
+            scheme, m, keys, counts, rows, fv, tot, top, g0, epoch, theta,
+            wnum, act_mask, m_k, d_min, ebl, eas, ecaps, do_tick, elapsed)
     n_pad = keys.shape[0]
     w1 = counts.shape[0]
     width = rows.shape[1]
-    ne = 0 if psum is None else psum.shape[0]
+    ne = 0 if tot is None else tot.shape[0]
     if _route_scan_smem(w1, ne, width) > _SMEM_LIMIT:
         raise ValueError(f"route_scan: {w1} worker lanes at width {width} "
                          "exceed the block's shared memory")
     dev = keys.device
     _need("route_scan", dev, torch.int32, keys=keys, counts=counts,
           rows=rows, m_k=m_k)
-    _need("route_scan", dev, torch.float32, trk=trk, snap=snap, psum=psum,
-          pmax=pmax, ebl=ebl, eas=eas, ecaps=ecaps)
+    _need("route_scan", dev, torch.float32, fv=fv, tot=tot, top=top,
+          ebl=ebl, eas=eas, ecaps=ecaps)
     _need("route_scan", dev, torch.bool, act_mask=act_mask)
     workers = torch.empty(n_pad, dtype=torch.int32, device=dev)
     dbuf = torch.empty(n_pad, dtype=torch.int32, device=dev)
@@ -589,10 +627,8 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, trk=None,
     args = _RouteArgs(
         scheme=SCHEME_IDS[scheme], m=m, w1=w1, width=width,
         rows=_ptr(rows), keys=_ptr(keys), counts=_ptr(counts),
-        workers=_ptr(workers), kcap1=0 if trk is None else trk.shape[0],
-        trk=_ptr(trk), snap=_ptr(snap), psum=_ptr(psum), pmax=_ptr(pmax),
-        n_part=0 if psum is None else psum.shape[1], ne=ne, g0=g0,
-        epoch=epoch,
+        workers=_ptr(workers), fv=_ptr(fv), tot=_ptr(tot), top=_ptr(top),
+        ne=ne, g0=g0, epoch=epoch,
         theta=float(np.float32(theta)), wnum=float(np.float32(wnum)),
         act_mask=_ptr(act_mask), m_k=_ptr(m_k), d_min=d_min,
         ebl=_ptr(ebl), eas=_ptr(eas), ecaps=_ptr(ecaps), do_tick=do_tick,
@@ -620,7 +656,7 @@ def fifo_workers_plain(scheme, m, t, busy, caps, counts, workers=None,
     fixed = scheme in ("sg", "fg")
     if fixed:
         wk, _ = route_prologue(scheme, m, None, rows, act, a_live, rr, None,
-                               None, None, None, 0, 0, 0.0, 0.0, None, 2)
+                               None, None, 0, 0, 0.0, 0.0, None, 2)
         workers = torch.full((n_pad,), w1 - 1, dtype=torch.int32)
         workers[:m] = torch.from_numpy(wk.astype(np.int32))
         workers = workers.to(t.device)
@@ -894,13 +930,13 @@ class FusedEdgeRunner:
         self._repl_dirty = False
         # device-resident per-key state
         self.trk = None
+        self.trk_carry = None     # (2,) f32: the tracker's total and max
         self.m_k = None
         self.repl = None
         self.pane_keys = None     # (C,) int64 pair keys of the open pane
         self.pane_vc = None       # (2, C) int32 value / count sums
         self.pane_last = None     # (w1,) last stream index per worker
         self._repl_synced = None  # replica pairs already folded to the host
-        self._cnt = None          # tracker count scratch, kept all-zero
 
     @property
     def dispatches(self) -> int:
@@ -935,12 +971,13 @@ class FusedEdgeRunner:
         # copy — it only ever holds the padding lanes' sink entries
         self.trk = _grow_dev(self.trk, (old_k,), (kcap1,), torch.float32,
                              dev)
+        if self.trk_carry is None:  # the new slots are zeros: it holds
+            self.trk_carry = torch.zeros(2, dtype=torch.float32, device=dev)
         self.m_k = _grow_dev(self.m_k, (old_k,), (kcap1,), torch.int32, dev)
         self.repl = _grow_dev(self.repl, (old_k, old_w), (kcap1, w1),
                               torch.bool, dev)
         self._repl_synced = _grow_dev(self._repl_synced, (old_k, old_w),
                                       (kcap1, w1), torch.bool, dev)
-        self._cnt = None  # re-made at the next tracker launch
         # the pane's pair keys do not depend on kcap1 or w1: it needs no
         # re-layout (pane_last follows w1 at the next segment)
         grew_w = w1 != self._w1
@@ -1012,13 +1049,6 @@ class FusedEdgeRunner:
             self._hash_dev = self._up(_u32_bits(self._hash_arr))
             self._hash_dirty = False
         return self._hash_dev
-
-    def _count_table(self, ne: int) -> torch.Tensor:
-        """The all-zero (epochs, kcap1) tracker count scratch."""
-        if self._cnt is None or self._cnt.shape[0] < ne:
-            self._cnt = torch.zeros((max(ne, 1), self._kcap + 1),
-                                    dtype=torch.int32, device=self.device)
-        return self._cnt
 
     def _tracker_args(self, grouper, lo: int, hi: int, offset: int):
         """The segment's tracker update: FISH decays at every epoch
@@ -1135,14 +1165,10 @@ class FusedEdgeRunner:
                 rows = ring_rows(self._pts_dev, self._cands_dev, hashes,
                                  tuple_keys, m, width, n_pad)
             if scheme in ("dc", "wc", "fish"):
-                ne = targs["ne"]
-                snap = (torch.empty((ne, kcap1), dtype=torch.float32,
-                                    device=self.device) if ne > 1 else None)
-                psum, pmax = tracker_update(
-                    self.trk, self._count_table(ne), keys, m, snap=snap,
-                    **targs)
-                kw.update(trk=self.trk, snap=snap, psum=psum, pmax=pmax,
-                          g0=targs["g0"], epoch=targs["epoch"],
+                fv, tot, top = tracker_update(self.trk, self.trk_carry, keys,
+                                              m, **targs)
+                kw.update(fv=fv, tot=tot, top=top, g0=targs["g0"],
+                          epoch=targs["epoch"],
                           theta=self._theta(grouper),
                           wnum=float(grouper.num_workers))
                 if scheme == "wc":

@@ -84,7 +84,7 @@ def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8,
 
 
 def _run_segment(scheme, s, where):
-    """ring_rows, tracker_count/fold, route_scan, fifo_workers and
+    """ring_rows, tracker_segment, route_scan, fifo_workers and
     pane_update of one segment on ``where``; every output and every
     state tensor they update."""
     m, n_pad, kcap, w1 = s["m"], s["n_pad"], s["kcap"], s["w1"]
@@ -103,15 +103,12 @@ def _run_segment(scheme, s, where):
                      rr=2)
     if scheme in ("dc", "wc", "fish"):
         trk = torch.zeros(kcap + 1, dtype=torch.float32, device=d)
+        carry = torch.zeros(2, dtype=torch.float32, device=d)
         tk = (dict(g0=300, epoch=500, pre=0, ne=-(-(m + 300) // 500),
                    alpha=0.2)
               if scheme == "fish" else dict(ne=1))
-        cnt = torch.zeros((tk["ne"], kcap + 1), dtype=torch.int32, device=d)
-        snap = (torch.empty((tk["ne"], kcap + 1), device=d)
-                if tk["ne"] > 1 else None)
-        psum, pmax = ff.tracker_update(trk, cnt, up(s["keys"]), m,
-                                       snap=snap, **tk)
-        kw.update(trk=trk, snap=snap, psum=psum, pmax=pmax,
+        fv, tot, top = ff.tracker_update(trk, carry, up(s["keys"]), m, **tk)
+        kw.update(trk=trk, carry=carry, fv=fv, tot=tot, top=top,
                   g0=tk.get("g0", 0), epoch=tk.get("epoch", 0),
                   theta=0.25 / (w1 - 1), wnum=float(w1 - 1),
                   act_mask=up(s["act_mask"]))
@@ -125,7 +122,8 @@ def _run_segment(scheme, s, where):
         workers, fin = ff.fifo_workers(scheme, m, rows=rows, **fifo, **fixed)
     else:
         workers = ff.route_scan(scheme, m, keys=up(s["keys"]), counts=counts,
-                                rows=rows, **kw)
+                                rows=rows, **{k: v for k, v in kw.items()
+                                              if k not in ("trk", "carry")})
         workers, fin = ff.fifo_workers(scheme, m, workers=workers, **fifo)
     cap = ff.pane_capacity(m)
     pane_keys = torch.empty(cap, dtype=torch.int64, device=d)
@@ -138,8 +136,8 @@ def _run_segment(scheme, s, where):
     # the pane in canonical form: slot places differ between the two
     pairs, vc = ff.pane_canonical(pane_keys, pane_vc)
     outs = [workers[:m], fin[:m], busy, counts, pairs, vc, last, repl]
-    outs += [kw[k] for k in ("trk", "snap", "psum", "pmax", "m_k", "ebl",
-                             "eas") if kw.get(k) is not None]
+    outs += [kw[k] for k in ("trk", "carry", "fv", "tot", "top", "m_k",
+                             "ebl", "eas") if kw.get(k) is not None]
     if rows is not None:
         outs.append(rows)
     return outs
@@ -159,7 +157,7 @@ def _assert_card_equals_plain(scheme, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
 def test_cuda_segment_kernels_match_plain(scheme):
-    """One whole segment — ring_rows, tracker_count/fold, route_scan,
+    """One whole segment — ring_rows, tracker_segment, route_scan,
     fifo_workers and pane_update — on the card and through the plain
     versions."""
     _card()
@@ -185,6 +183,140 @@ def test_cuda_segment_kernels_match_plain_one_worker(scheme):
     s = _segment(seed=13, m=3_000, n_pad=4_096, workers=1)
     s["a_live"] = 1
     _assert_card_equals_plain(scheme, s)
+
+
+def _tracker_run(where, trk0, carry0, keys, m, kw, **variant):
+    """tracker_update on ``where`` from (trk0, carry0): trk, carry, fv,
+    tot, top, on the CPU."""
+    d = torch.device(where)
+    trk = T(trk0.copy()).to(d)
+    carry = T(carry0.copy()).to(d)
+    fv, tot, top = ff.tracker_update(trk, carry, T(keys).to(d), m, **kw,
+                                     **variant)
+    return [x.cpu() for x in (trk, carry, fv, tot, top)]
+
+
+def _tracker_case(case):
+    """(trk0, carry0, keys, m, kw) of one tracker case."""
+    rng = np.random.default_rng(40)
+    kcap, m, n_pad = 100_000, 16_384, 16_384
+    keys = np.full(n_pad, kcap, np.int32)
+    keys[:m] = zipf_time_evolving(m, num_keys=kcap, z=1.2, seed=41)
+    trk0 = np.zeros(kcap + 1, np.float32)
+    trk0[:kcap] = rng.integers(0, 40, kcap) * (rng.random(kcap) < 0.2)
+    kw = dict(g0=17_000, epoch=1_000, pre=1, ne=17, alpha=0.2)
+    if case == "m1":
+        m = 1
+    elif case == "one_key":
+        keys[:m] = 4_321
+    elif case == "edge_keys":  # the last key and the phantom row
+        keys[:m:3] = kcap - 1
+        keys[1:m:7] = kcap
+    elif case == "dcwc":
+        kw = dict(g0=0, epoch=0, pre=0, ne=1, alpha=1.0)
+    elif case == "dcwc_2p24":  # values past 2^24: counts round as they add
+        kw = dict(g0=0, epoch=0, pre=0, ne=1, alpha=1.0)
+        trk0[:kcap:7] = 2.0 ** 24 - 2
+    elif case == "ne1":
+        kw = dict(g0=21_000, epoch=20_000, pre=0, ne=1, alpha=0.2)
+    elif case == "ne_many":  # epochs of 200: ne = 83, past the 64-bit mask
+        kw = dict(g0=150, epoch=200, pre=0, ne=83, alpha=0.2)
+    elif case == "ne_huge":  # epochs of 8: ne = 2,048, past 1,024 maxima
+        kw = dict(g0=8, epoch=8, pre=1, ne=2_048, alpha=0.2)
+    elif case == "alpha1_epochs":
+        kw = dict(g0=500, epoch=1_000, pre=0, ne=17, alpha=1.0)
+    if kw["epoch"]:
+        g0, ep = kw["g0"], kw["epoch"]
+        kw["ne"] = (g0 + m - 1) // ep - g0 // ep + 1
+        kw["pre"] = 1 if (g0 > 0 and g0 % ep == 0) else 0
+    carry0 = np.asarray([trk0.sum(dtype=np.float32), trk0.max()],
+                        np.float32)
+    return trk0, carry0, keys, m, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fish", "m1", "one_key", "edge_keys",
+                                  "dcwc", "dcwc_2p24", "ne1", "ne_many",
+                                  "ne_huge", "alpha1_epochs"])
+def test_cuda_tracker_segment_matches_plain(case):
+    """tracker_segment against tracker_update_plain, bit for bit on trk,
+    the carried (total, max), fv, tot and top: a FISH segment at the main
+    path's shapes (16,384 tuples of a z = 1.2 stream over 100,000 keys,
+    17 epochs starting on a boundary), one tuple, every tuple on one key,
+    keys at the capacity's edge and in the phantom row, DC/WC (no epochs;
+    and with values past 2^24, where the counts round as they add), one
+    epoch, 83 and 2,048 epochs (past the kernel's ordinal mask and its
+    per-block maxima), and alpha = 1 with epochs.  One launch each."""
+    _card()
+    trk0, carry0, keys, m, kw = _tracker_case(case)
+    before = ff.LAUNCHES["tracker_segment"]
+    card = _tracker_run("cuda", trk0, carry0, keys, m, kw)
+    assert ff.LAUNCHES["tracker_segment"] == before + 1
+    plain = _tracker_run("cpu", trk0, carry0, keys, m, kw)
+    for name, c, p in zip(("trk", "carry", "fv", "tot", "top"), card,
+                          plain):
+        assert torch.equal(c, p), (case, name)
+    assert card[1][1] == card[0].max()  # the carried max is trk's max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kcap,scheme,tables", [
+    (16_384, 100_000, "fish", "shared"),
+    (16_384, 1 << 21, "fish", "shared"),
+    (70_000, 100_000, "fish", "global"),
+    (70_000, 100_000, "dc", "global"),
+    (30_000, 1_000, "fish", "shared")])
+def test_cuda_tracker_segment_variants_match_plain(m, kcap, scheme, tables):
+    """Each layout the card's plan picks by the tables' size — the tables
+    in the blocks' shared memory, or (>= 2 x 70,000 pair slots) in global
+    scratch, with tuples past the four rounds a thread keeps in registers
+    — gives the plain version's outputs: FISH and DC/WC, over path A's key
+    capacity, KEY_CAP_LIMIT's and a small one."""
+    _card()
+    rng = np.random.default_rng(44)
+    keys = zipf_time_evolving(m, num_keys=kcap, z=1.2,
+                              seed=45).astype(np.int32)
+    trk0 = np.zeros(kcap + 1, np.float32)
+    trk0[:kcap] = rng.integers(0, 40, kcap) * (rng.random(kcap) < 0.2)
+    kw = dict(g0=0, epoch=0, pre=0, ne=1, alpha=1.0)
+    if scheme == "fish":
+        kw = dict(g0=3_000, epoch=1_000, pre=1, alpha=0.2,
+                  ne=(3_000 + m - 1) // 1_000 - 3 + 1)
+    log2k, log2p = ff._tracker_tables(m, kcap + 1)
+    assert ff._tracker_plan(torch.device("cuda"), log2k, log2p)[1] == (
+        tables == "global")
+    carry0 = np.asarray([trk0.sum(dtype=np.float32), trk0.max()],
+                        np.float32)
+    card = _tracker_run("cuda", trk0, carry0, keys, m, kw)
+    plain = _tracker_run("cpu", trk0, carry0, keys, m, kw)
+    for name, c, p in zip(("trk", "carry", "fv", "tot", "top"), card,
+                          plain):
+        assert torch.equal(c, p), (m, kcap, scheme, name)
+
+
+@pytest.mark.cuda
+def test_cuda_tracker_segment_carries_across_segments():
+    """Six FISH segments in a row, the state carried on the card and on
+    the CPU: equal after each, and the carried max trk's max."""
+    _card()
+    kcap, seg, epoch = 5_000, 4_000, 1_500
+    keys = zipf_time_evolving(6 * seg, num_keys=kcap, z=1.1, flip_at=0.5,
+                              flip_head=900, seed=43).astype(np.int32)
+    state = {w: (torch.zeros(kcap + 1, device=w),
+                 torch.zeros(2, device=w)) for w in ("cuda", "cpu")}
+    for g0 in range(0, 6 * seg, seg):
+        kw = dict(g0=g0, epoch=epoch, alpha=0.2,
+                  pre=1 if (g0 and g0 % epoch == 0) else 0,
+                  ne=(g0 + seg - 1) // epoch - g0 // epoch + 1)
+        outs = {}
+        for w, (trk, carry) in state.items():
+            outs[w] = ff.tracker_update(trk, carry,
+                                        T(keys[g0:g0 + seg]).to(w), seg,
+                                        **kw)
+        for c, p in zip(outs["cuda"] + state["cuda"],
+                        outs["cpu"] + state["cpu"]):
+            assert torch.equal(c.cpu(), p)
+        assert state["cuda"][1][1] == state["cuda"][0].max()
 
 
 def _pane_run(where, segs, caps, resets=(0,), w1=9, kcap=1_024):

@@ -99,7 +99,7 @@ def test_fused_matches_jax_fused(scheme, stream):
     _assert_fused_contract(scheme, rp, rr, keys, values, 1_000)
 
 
-@pytest.mark.parametrize("scheme", ["fish"])
+@pytest.mark.parametrize("scheme", SCHEMES)
 def test_fused_device_store_matches_jax_fused(scheme, stream):
     keys, values = stream
     rp, rr = _fused_pair(scheme, keys, values, backend="device")
@@ -113,6 +113,23 @@ def test_fused_events_match_jax_fused(scheme, stream):
     rp, rr = _fused_pair(scheme, keys, values, backend="dict", feeds=4,
                          events=True, size=800)
     _assert_fused_contract(scheme, rp, rr, keys, values, 800)
+    ep, er = rp.edges[0], rr.edges[0]
+    assert len(ep.remap_events) == len(er.remap_events) == 2
+    if scheme in EXACT:
+        assert rp.state["agg"]["migration_bytes"] == \
+            rr.state["agg"]["migration_bytes"]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_fused_events_device_store_match_jax_fused(scheme, stream):
+    """Two membership changes and a capacity change, the device window
+    store: every scheme against the JAX fused engine (the contract above:
+    exact or banded, merged windows exact), both remaps seen."""
+    keys, values = stream
+    rp, rr = _fused_pair(scheme, keys, values, backend="device", feeds=4,
+                         events=True, size=800)
+    _assert_fused_contract(scheme, rp, rr, keys, values, 800)
+    assert rp.state["agg"]["backend"] == "device"
     ep, er = rp.edges[0], rr.edges[0]
     assert len(ep.remap_events) == len(er.remap_events) == 2
     if scheme in EXACT:

@@ -167,44 +167,239 @@ def test_ring_rows_matches_reference(per_key, width):
     assert (got[s.m:] == -1).all()  # padding lanes masked, never gathered
 
 
+def _carry(trk):
+    """The tracker's carried (total, max), as a fresh runner or convert.py
+    sets them: a float32 sum and the max."""
+    return T(np.asarray([trk.sum(dtype=np.float32), trk.max(initial=0.0)],
+                        np.float32))
+
+
+def _fish_kw(g0, m, epoch, alpha=0.2):
+    pre = 1 if (g0 > 0 and g0 % epoch == 0) else 0
+    return dict(g0=g0, epoch=epoch, pre=pre,
+                ne=(g0 + m - 1) // epoch - g0 // epoch + 1, alpha=alpha)
+
+
+def _ref_tracker(s, trk, kw, hi):
+    """The reference's ``_tracker_update`` over tuples [0, hi) of the
+    segment (``valid`` cut there): the tracker at the end of tuple hi-1's
+    epoch when hi is an epoch's end."""
+    extra = {}
+    valid = np.arange(s.n_pad) < hi
+    if kw["epoch"]:
+        g0, ep = kw["g0"], kw["epoch"]
+        c_total = (g0 + hi - 1) // ep - g0 // ep + kw["pre"]
+        extra = {"g0": jnp.int32(g0), "epoch": jnp.int32(ep),
+                 "pre_decay": jnp.int32(kw["pre"]),
+                 "c_total": jnp.float32(c_total),
+                 "alpha": jnp.float32(kw["alpha"])}
+    a = s.ref_a(trk=jnp.asarray(trk), valid=jnp.asarray(valid), **extra)
+    trk_r, f_r, ftop_r = rff._tracker_update(a, "fish" if kw["epoch"]
+                                             else "dc")
+    return np.asarray(trk_r), np.asarray(f_r), float(ftop_r)
+
+
+def _dense_tracker(trk0, keys, m, g0, epoch, pre, ne, alpha):
+    """A dense float32 tracker stepped ordinal by ordinal, op by op (decay
+    every key, add the ordinal's counts): per ordinal the tracker at its
+    end; the port's plain and CUDA versions must match it bit for bit."""
+    a = np.float32(alpha)
+    trk = trk0.astype(np.float32).copy()
+    if pre:
+        trk = trk * a
+    out = []
+    for j, (lo, hi) in enumerate(ff._epoch_bounds(m, g0, epoch, ne)):
+        if j:
+            trk = trk * a
+        c = np.bincount(keys[lo:hi], minlength=trk.shape[0])
+        trk = np.where(c != 0, trk + c.astype(np.float32), trk)
+        out.append((lo, hi, trk.copy()))
+    return out
+
+
+def _assert_tracker_exact(trk0, carry0, keys, m, kw, trk, carry, fv, tot,
+                          top):
+    """trk, fv and top bit for bit the dense tracker's, per ordinal; the
+    carried total within 1e-5 of its float64 sum; carry = the last
+    ordinal's (total, max)."""
+    total = np.float64(carry0[0])
+    for j, (lo, hi, dense) in enumerate(_dense_tracker(
+            trk0, keys, m, **kw)):
+        np.testing.assert_array_equal(fv[lo:hi], dense[keys[lo:hi]])
+        assert top[j] == dense.max()
+        total = total * (kw["alpha"] if (j or kw["pre"]) else 1.0) + hi - lo
+        assert tot[j] == pytest.approx(dense.astype(np.float64).sum(),
+                                       rel=1e-5)
+        assert tot[j] == pytest.approx(total, rel=1e-5)
+    np.testing.assert_array_equal(trk, dense)
+    np.testing.assert_array_equal(carry, [tot[-1], top[-1]])
+
+
 @pytest.mark.parametrize("scheme", ["dc", "wc", "fish"])
 def test_tracker_matches_reference(scheme):
+    """One segment against the reference's ``_tracker_update``: DC/WC (one
+    ordinal, no decay) exact in trk, fv, the total and the max; FISH (a
+    segment starting on an epoch boundary and crossing three more) within
+    rtol 1e-5 in trk and, per epoch, fv against the reference cut at that
+    epoch's end — and bit for bit the dense op-by-op tracker."""
     s = Seg(seed=2)
     rng = np.random.default_rng(7)
     trk0 = np.zeros(s.kcap + 1, np.float32)
     trk0[:s.kcap] = rng.integers(0, 30, s.kcap)
     kw = dict(g0=0, epoch=0, pre=0, ne=1, alpha=1.0)
-    extra = {}
     if scheme == "fish":
-        # a segment starting on an epoch boundary and crossing three more
-        g0, epoch = 2_000, 400
-        g1 = g0 + s.m
-        pre = 1
-        c_total = (g1 - 1) // epoch - g0 // epoch + pre
-        kw = dict(g0=g0, epoch=epoch, pre=pre,
-                  ne=(g1 - 1) // epoch - g0 // epoch + 1, alpha=0.2)
-        extra = {"g0": jnp.int32(g0), "epoch": jnp.int32(epoch),
-                 "pre_decay": jnp.int32(pre),
-                 "c_total": jnp.float32(c_total),
-                 "alpha": jnp.float32(0.2)}
-    a = s.ref_a(trk=jnp.asarray(trk0), **extra)
-    trk_r, f_r, ftop_r = rff._tracker_update(a, scheme)
-    trk = T(trk0.copy())
-    cnt = torch.zeros((kw["ne"], s.kcap + 1), dtype=torch.int32)
-    psum, pmax = ff.tracker_update(trk, cnt, T(s.keys), s.m, **kw)
-    assert int(cnt.abs().sum()) == 0  # the scratch is left zeroed
-    total, mx = ff._reduce_partials(psum[-1].numpy(), pmax[-1].numpy())
+        kw = _fish_kw(2_000, s.m, 400)
+        assert kw["pre"] == 1 and kw["ne"] == 4
+    trk, carry = T(trk0.copy()), _carry(trk0)
+    carry0 = carry.numpy().copy()
+    fv, tot, top = ff.tracker_update(trk, carry, T(s.keys), s.m, **kw)
+    fv, tot, top = fv.numpy(), tot.numpy(), top.numpy()
+    trk_r, f_r, ftop_r = _ref_tracker(s, trk0, kw, s.m)
     if scheme == "fish":
-        np.testing.assert_allclose(trk.numpy(), np.asarray(trk_r),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(total, float(np.asarray(trk_r).sum()),
+        np.testing.assert_allclose(trk.numpy(), trk_r, rtol=1e-5, atol=1e-6)
+        for lo, hi in ff._epoch_bounds(s.m, kw["g0"], kw["epoch"],
+                                       kw["ne"]):
+            trk_j = _ref_tracker(s, trk0, kw, hi)[0]
+            np.testing.assert_allclose(fv[lo:hi], trk_j[s.keys[lo:hi]],
+                                       rtol=1e-5)
+        np.testing.assert_allclose(tot[-1], trk_r.astype(np.float64).sum(),
                                    rtol=1e-5)
+        assert top[-1] / tot[-1] == pytest.approx(ftop_r, rel=1e-5)
     else:  # integer counts: exact
-        np.testing.assert_array_equal(trk.numpy(), np.asarray(trk_r))
-        assert total == np.float32(np.asarray(trk_r).sum())
-        np.testing.assert_array_equal(
-            trk.numpy()[s.keys[:s.m]] / total, np.asarray(f_r)[:s.m])
-    assert mx / total == pytest.approx(float(ftop_r), rel=1e-5)
+        np.testing.assert_array_equal(trk.numpy(), trk_r)
+        assert tot[0] == np.float32(trk_r.sum())
+        assert top[0] == trk_r.max()
+        np.testing.assert_array_equal(fv, trk_r[s.keys[:s.m]])
+        np.testing.assert_array_equal(fv / tot[0], f_r[:s.m])
+        assert top[0] / tot[0] == np.float32(ftop_r)
+    _assert_tracker_exact(trk0, carry0, s.keys, s.m, kw, trk.numpy(),
+                          carry.numpy(), fv, tot, top)
+
+
+@pytest.mark.parametrize("case", ["boundary", "mid_epoch", "short_epochs",
+                                  "alpha_one_epochs", "one_tuple",
+                                  "one_key"])
+def test_tracker_segment_cases(case):
+    """The plain version on segments that start on an epoch boundary
+    (pre), start mid-epoch and cross several, have epochs of 7 tuples (ne
+    ~ 215, past the kernel's 64-ordinal mask), count with epochs but
+    alpha = 1, hold one tuple, or hold one key only: bit for bit the dense
+    op-by-op tracker per ordinal, and within rtol 1e-5 of the reference
+    at the segment's end."""
+    s = Seg(seed=30)
+    m = s.m
+    rng = np.random.default_rng(31)
+    trk0 = np.zeros(s.kcap + 1, np.float32)
+    trk0[:s.kcap] = rng.integers(0, 50, s.kcap) * (rng.random(s.kcap) < .3)
+    keys = s.keys.copy()
+    kw = {"boundary": _fish_kw(1_200, m, 300),
+          "mid_epoch": _fish_kw(1_250, m, 300),
+          "short_epochs": _fish_kw(3, m, 7),
+          "alpha_one_epochs": _fish_kw(450, m, 200, alpha=1.0),
+          "one_tuple": _fish_kw(999, 1, 500),
+          "one_key": _fish_kw(10, m, 400)}[case]
+    if case == "one_tuple":
+        m = 1
+    if case == "one_key":
+        keys[:m] = 17
+    trk, carry = T(trk0.copy()), _carry(trk0)
+    carry0 = carry.numpy().copy()
+    fv, tot, top = ff.tracker_update(trk, carry, T(keys), m, **kw)
+    _assert_tracker_exact(trk0, carry0, keys, m, kw, trk.numpy(),
+                          carry.numpy(), fv.numpy(), tot.numpy(),
+                          top.numpy())
+    s.m, s.keys = m, keys
+    trk_r = _ref_tracker(s, trk0, kw, m)[0]
+    # keys only: with ~215 epochs the reference's padding lanes weigh
+    # alpha^-k (inf) by 0, a NaN in the phantom row
+    np.testing.assert_allclose(trk.numpy()[:-1], trk_r[:-1], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_tracker_carries_across_key_capacity_growth():
+    """Two FISH segments with the key capacity grown between them as the
+    runner grows it (``_grow_dev``: new slots zero, the carried total and
+    max left as they are): the second segment's tracker, total and max
+    against the dense tracker and the reference."""
+    s1, s2 = Seg(seed=32, kcap=64), Seg(seed=33)
+    trk = torch.zeros(65, dtype=torch.float32)
+    carry = torch.zeros(2, dtype=torch.float32)
+    kw1 = _fish_kw(0, s1.m, 250)
+    ff.tracker_update(trk, carry, T(s1.keys), s1.m, **kw1)
+    trk_r = _ref_tracker(s1, np.zeros(65, np.float32), kw1, s1.m)[0]
+    trk = ff._grow_dev(trk, (64,), (s2.kcap + 1,), torch.float32, "cpu")
+    grown = trk.numpy().copy()
+    carry0 = carry.numpy().copy()
+    assert carry0[1] == grown.max()
+    kw2 = _fish_kw(s1.m, s2.m, 250)
+    fv, tot, top = ff.tracker_update(trk, carry, T(s2.keys), s2.m, **kw2)
+    _assert_tracker_exact(grown, carry0, s2.keys, s2.m, kw2, trk.numpy(),
+                          carry.numpy(), fv.numpy(), tot.numpy(),
+                          top.numpy())
+    ref0 = np.zeros(s2.kcap + 1, np.float32)
+    ref0[:64] = trk_r[:64]
+    np.testing.assert_allclose(trk.numpy(), _ref_tracker(s2, ref0, kw2,
+                                                         s2.m)[0],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("scheme", ["dc", "fish"])
+def test_tracker_carry_from_a_converted_runner(scheme):
+    """A fused edge run in the JAX package and carried into the port by
+    ``convert.runner_from_reference``: the port's carried total is the
+    float32 sum of the reference's tracker and its max the max, and the
+    next segment's update meets the dense tracker from there."""
+    from repro.core.stream import simulate_edge as ref_simulate_edge
+    from repro.topology.configs import config_for as ref_config
+    from repro_torch.convert import runner_from_reference
+
+    keys, _ = torch_helpers.zf_stream(2_500, num_keys=300)
+    g_ref = ref_config(scheme).build(8)
+    r1 = ref_simulate_edge(g_ref, keys[:1_300], mode="fused",
+                           arrival_rate=2e4)
+    _, st = runner_from_reference(r1.state.device, g_ref, r1.state,
+                                  device="cpu")
+    run = st.device
+    trk0 = np.asarray(r1.state.device.trk, np.float32)
+    carry0 = run.trk_carry.numpy().copy()
+    np.testing.assert_array_equal(
+        carry0, [trk0.sum(dtype=np.float32), trk0.max()])
+    m = 900  # FISH: across the epoch boundary at 2,000
+    kw = (_fish_kw(1_300, m, g_ref.params.epoch,
+                   float(np.float32(g_ref.params.alpha)))
+          if scheme == "fish" else dict(g0=0, epoch=0, pre=0, ne=1,
+                                        alpha=1.0))
+    seg = keys[1_300:1_300 + m].astype(np.int32)
+    fv, tot, top = ff.tracker_update(run.trk, run.trk_carry, T(seg), m, **kw)
+    _assert_tracker_exact(trk0, carry0, seg, m, kw, run.trk.numpy(),
+                          run.trk_carry.numpy(), fv.numpy(), tot.numpy(),
+                          top.numpy())
+
+
+def test_tracker_carry_stays_on_the_dense_sum_over_a_long_stream():
+    """A 210-epoch FISH stream in segments that cross several epochs: at
+    every epoch's end the carried total stays within 1e-5 relative of the
+    float64 sum of the dense tracker, and the carried max equals its max
+    exactly."""
+    from repro_torch.data.synthetic import zipf_time_evolving
+
+    epoch, seg, n, kcap = 50, 333, 10_500, 512
+    keys = zipf_time_evolving(n, num_keys=kcap, z=1.3, flip_at=0.5,
+                              flip_head=200, seed=34).astype(np.int32)
+    trk = torch.zeros(kcap + 1, dtype=torch.float32)
+    carry = torch.zeros(2, dtype=torch.float32)
+    epochs = 0
+    for g0 in range(0, n, seg):
+        m = min(seg, n - g0)
+        kw = _fish_kw(g0, m, epoch)
+        trk0, carry0 = trk.numpy().copy(), carry.numpy().copy()
+        fv, tot, top = ff.tracker_update(trk, carry, T(keys[g0:g0 + m]), m,
+                                         **kw)
+        _assert_tracker_exact(trk0, carry0, keys[g0:g0 + m], m, kw,
+                              trk.numpy(), carry.numpy(), fv.numpy(),
+                              tot.numpy(), top.numpy())
+        epochs += kw["ne"] - 1 + kw["pre"]
+    assert epochs >= 200
 
 
 def _route(s, scheme, rows, **kw):
@@ -263,11 +458,9 @@ def test_fixed_routes_and_fifo_match_reference(scheme):
 
 
 def _tracked(s, trk0, kw):
-    trk = T(trk0.copy())
-    cnt = torch.zeros((kw["ne"], s.kcap + 1), dtype=torch.int32)
-    psum, pmax = ff.tracker_update(trk, cnt, T(s.keys), s.m, **kw)
-    return dict(trk=trk, psum=psum, pmax=pmax, g0=kw["g0"],
-                epoch=kw["epoch"])
+    fv, tot, top = ff.tracker_update(T(trk0.copy()), _carry(trk0),
+                                     T(s.keys), s.m, **kw)
+    return dict(fv=fv, tot=tot, top=top, g0=kw["g0"], epoch=kw["epoch"])
 
 
 @pytest.mark.parametrize("scheme", ["dc", "wc"])
