@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's three device paths, each with the launch counters of
+Drives the port's four device paths, each with the launch counters of
 its kernels set to 0 just before it and read just after, and checks each:
 
 A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
@@ -28,19 +28,36 @@ C. **mamba2-780m at full width** (48 layers, d_model 1536, bf16, random
    ``prefill_32k`` shape, 32 x 32,768, cut for time), 32 decode steps, the
    prefill-then-decode consistency check, and ``ServingEngine`` over two
    ``ModelReplica``s with ``launch/serve.py``'s defaults.
+D. **The time-evolving control plane** on the fused engine, after path C:
+   D1 the five RQ4 scenarios of ``default_scenarios`` (hot-key flip,
+   straggler onset and recovery, scale-out, failure with elastic
+   continue, a churn storm) at 128 workers and 100,000 keys, 262,144
+   tuples a run in 16 feeds, a tumbling 65,536-tuple sum window on the
+   device store, through ``run_dspe_scenario(engine="fused")`` for all
+   six schemes, each held against the batched host engine (SG/FG/PKG
+   exact, timing within ``F32_REL``; DC/WC/FISH within the bands; the
+   windows exact; remap accounting equal); PKG and FISH sessions run
+   under the ``EdgeAuditor`` (launch and sync budgets), and the churn
+   storm under FISH twice through ``sanitize.double_run``.  D2 the two
+   open-loop scenarios at 100,000 tuples/s from 32 workers, the
+   ``P99Autoscaler`` armed up to 128: the admission identity, a scale-out
+   in the flash crowd that grows the runner's worker lanes on the card,
+   SG/FG/PKG equal to the host engine.  D3 one traced FISH session,
+   written through ``TraceWriter``, validated and summarized by span.
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
 the tensor-core instructions in the SSD library's SASS are printed), and
 at the end each kernel's wrapper is called on the inputs its path gave
 it, held against its plain PyTorch version and timed beside it (the
-stream's and the FISH tracker's kernels last, after path C, with a
+stream's and the FISH tracker's kernels last, after paths C and D, with a
 device-only time from ``torch.profiler`` beside the CUDA-event time of
 back-to-back calls); path C also prints where one prefill layer's time
 goes.
 
-Usage: ``python3 chip_smoke.py [--tuples N] [--seed S]`` from the root of
-a checkout (``--tuples`` cuts the stream of paths A and B).  Needs one
+Usage: ``python3 chip_smoke.py [--tuples N] [--scenario-tuples M]
+[--seed S]`` from the root of a checkout (``--tuples`` cuts the stream of
+paths A and B, ``--scenario-tuples`` each scenario run of path D).  Needs one
 card; exits non-zero with no result without one or outside a checkout.
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it names the card and its power limit, and a ``{"kernels": [...]}`` line
@@ -50,6 +67,7 @@ before that carries each kernel's launches, error and times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -64,14 +82,6 @@ NUM_KEYS = 100_000   # ZF key universe (paper §6.1)
 WINDOW = 65_536      # tumbling window (= pane) of the device store
 RATE = 10_000.0      # tuples/s
 SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
-EXACT = ("sg", "fg", "pkg")
-# a segment's kernels besides pane_update, per scheme
-SEGMENT_KERNELS = {
-    "sg": ("fifo_workers",), "fg": ("ring_rows", "fifo_workers"),
-    "pkg": ("ring_rows", "route_scan", "fifo_workers"),
-    **{s: ("ring_rows", "tracker_segment", "route_scan", "fifo_workers")
-       for s in ("dc", "wc", "fish")}}
-F32_REL = 1e-4       # fused f32 clock vs the f64 host FIFO
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
@@ -91,6 +101,13 @@ PROMPTS, PROMPT_LEN = 4, 4_096   # prefill_32k (32 x 32,768), cut for time
 DECODE_STEPS = 32
 CONSIST = dict(rtol=0.08, atol=0.35)   # tests/test_models_smoke.py:98-102
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)   # tests/test_kernels.py:84-87
+D_TUPLES = 262_144   # path D: tuples a scenario run (path A's, halved)
+D_FEEDS = 16         # path D: feeds a scenario run
+D_AUDITED = ("pkg", "fish")   # path D: schemes run under the EdgeAuditor
+OL_WORKERS, OL_MAX_WORKERS = 32, 128   # D2: the autoscaler's rails
+OL_RATE = 100_000.0  # D2: mean offered tuples/s (~5,000 a 0.05 s tick)
+OL_HORIZON = 4.0     # D2: seconds of arrivals
+OL_SLO_P99 = 0.05    # D2: the autoscaler's p99 target, s
 
 REPO = Path(__file__).resolve().parent
 
@@ -147,7 +164,8 @@ class Capture:
     def wrap(self, name, fn, want):
         def call(*args, **kwargs):
             key = (name, self.scheme)
-            if key not in self.calls and want(args, kwargs):
+            if (self.scheme is not None and key not in self.calls
+                    and want(args, kwargs)):
                 self.calls[key] = (tuple(self._clone(a) for a in args),
                                    {k: self._clone(v)
                                     for k, v in kwargs.items()})
@@ -180,7 +198,8 @@ def install_capture(cap: Capture):
 
     def flush(runner, sink):
         key = ("flush", cap.scheme)
-        if key not in cap.calls and runner.pane_fed:
+        if cap.scheme is not None and key not in cap.calls and \
+                runner.pane_fed:
             cap.calls[key] = ((runner.pane_keys.clone(),
                                runner.pane_vc.clone(),
                                runner.pane_last.clone()), {})
@@ -250,32 +269,19 @@ def run_session(mode, scheme, feeds, device, T, torch, syncs=None):
 
 
 def check_exact_or_banded(scheme, rf, rb):
+    """The fused report against the batched one on the same stream: the
+    contract of ``analysis.contracts`` (SG/FG/PKG exact, timing within
+    ``F32_REL``; DC/WC/FISH within the DESIGN.md §6 bands), and for the
+    exact schemes the merged windows."""
+    from repro_torch.analysis.contracts import EXACT_SCHEMES, row_violations
+
     ef, eb = rf.edges[0], rb.edges[0]
-    if ef.n_tuples != eb.n_tuples:
-        return f"n_tuples {ef.n_tuples} != {eb.n_tuples}"
-    if scheme in EXACT:
-        if ef.memory_overhead != eb.memory_overhead:
-            return f"memory_overhead {ef.memory_overhead} != {eb.memory_overhead}"
-        if ef.imbalance != eb.imbalance:
-            return f"imbalance {ef.imbalance} != {eb.imbalance}"
-        for k in ("latency_avg", "latency_p99", "execution_time"):
-            a, b = getattr(ef, k), getattr(eb, k)
-            if abs(a - b) > F32_REL * abs(b):
-                return f"{k} {a} vs {b} beyond rel {F32_REL}"
-        if rf.state["agg"]["merged"] != rb.state["agg"]["merged"]:
-            return "merged windows differ from the batched engine"
-    else:  # DESIGN.md §6 bands (tests/test_fused_engine.py:114-119)
-        if abs(ef.execution_time - eb.execution_time) > 0.05 * eb.execution_time:
-            return f"execution_time {ef.execution_time} vs {eb.execution_time}"
-        if abs(ef.throughput - eb.throughput) > 0.05 * eb.throughput:
-            return f"throughput {ef.throughput} vs {eb.throughput}"
-        if abs(ef.memory_overhead - eb.memory_overhead) > 0.25 * eb.memory_overhead:
-            return f"memory_overhead {ef.memory_overhead} vs {eb.memory_overhead}"
-        if ef.imbalance > eb.imbalance + 0.05:
-            return f"imbalance {ef.imbalance} vs {eb.imbalance}"
-        if ef.latency_p99 > max(eb.latency_p99 * 10.0, 0.05):
-            return f"latency_p99 {ef.latency_p99} vs {eb.latency_p99}"
-    return None
+    why = row_violations(scheme, dict(ef.row(), n_tuples=ef.n_tuples),
+                         dict(eb.row(), n_tuples=eb.n_tuples))
+    if scheme in EXACT_SCHEMES and \
+            rf.state["agg"]["merged"] != rb.state["agg"]["merged"]:
+        why.append("merged windows differ from the batched engine")
+    return "; ".join(why) or None
 
 
 # ---------------------------------------------------------------------------
@@ -1254,10 +1260,404 @@ def prefill_split(captured, rows, torch):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# path D: the time-evolving control plane on the fused engine
+# ---------------------------------------------------------------------------
+
+
+class RunnerProbe:
+    """Counts ``FusedEdgeRunner.refresh_membership`` calls and keeps each
+    fused runner's worker lanes (``w1``) as first fed and after its last
+    feed — the worker-universe growth of a run, read on the card."""
+
+    def __init__(self):
+        from repro_torch.kernels.feed_fused import FusedEdgeRunner as R
+
+        self.refreshes = 0
+        self.w1 = {}  # id(runner) -> [w1 after its first feed began, last]
+        self._real = (R.refresh_membership, R.begin_feed)
+        real_refresh, real_begin = self._real
+
+        def refresh(runner, grouper, state):
+            self.refreshes += 1
+            return real_refresh(runner, grouper, state)
+
+        def begin(runner, *a):
+            out = real_begin(runner, *a)
+            self.w1.setdefault(id(runner), [runner._w1, None])[1] = \
+                runner._w1
+            return out
+        R.refresh_membership, R.begin_feed = refresh, begin
+
+    def reset(self):
+        self.refreshes = 0
+        self.w1 = {}
+
+    def uninstall(self):
+        from repro_torch.kernels.feed_fused import FusedEdgeRunner as R
+
+        R.refresh_membership, R.begin_feed = self._real
+
+
+def _holds_event(sess, batch) -> bool:
+    """Whether a pending scoped event fires inside this feed (the
+    scenario topologies have one edge: its input index is the source's)."""
+    n0, n = sess._n_source, len(batch)
+    for evs in sess._pending.values():
+        for e in evs:
+            t = getattr(e, "at_time", None)
+            if (t is not None and n and t <= float(batch.timestamps[-1])) \
+                    or (t is None and e.at < n0 + n):
+                return True
+    return False
+
+
+class _AuditedSession:
+    """A simulator session whose fused runner runs under an
+    ``EdgeAuditor`` from its second feed on (the first creates it), with
+    each feed that fires an event declared ``expect("event")`` and the
+    close ``expect("close")``."""
+
+    def __init__(self, sess, pane_stride, auditors):
+        self._s = sess
+        self._stride = pane_stride
+        self._auditors = auditors
+        self._aud = None
+
+    def __getattr__(self, name):
+        return getattr(self._s, name)
+
+    def advance(self, events):
+        return self._s.advance(events)
+
+    def feed(self, batch):
+        from repro_torch.analysis.audit import EdgeAuditor
+
+        s = self._s
+        if self._aud is None:
+            rec = s.feed(batch)
+            st = next(iter(s._st.values()), None)
+            if st is not None and st.state is not None:
+                self._aud = EdgeAuditor(st.state.device, self._stride,
+                                        offset=st.n).__enter__()
+                self._auditors.append(self._aud)
+            return rec
+        if _holds_event(s, batch):
+            with self._aud.expect("event"):
+                return s.feed(batch)
+        return s.feed(batch)
+
+    def close(self):
+        if self._aud is None:
+            return self._s.close()
+        with self._aud.expect("close"):
+            rep = self._s.close()
+        self._aud.restore()
+        return rep
+
+
+@contextlib.contextmanager
+def audited_sessions(pane_stride=None):
+    """Every ``SimulatorEngine`` session opened inside runs audited; yields
+    the list its auditors land in."""
+    from repro_torch.topology.engine import SimulatorEngine
+
+    auditors = []
+    real_open = SimulatorEngine.open
+
+    def open_(eng, *a, **k):
+        return _AuditedSession(real_open(eng, *a, **k), pane_stride,
+                               auditors)
+    SimulatorEngine.open = open_
+    try:
+        yield auditors
+    finally:
+        SimulatorEngine.open = real_open
+
+
+def check_audit(auditors, what):
+    """One audited fused session: the launch and sync budgets held, and
+    the numbers it saw."""
+    if len(auditors) != 1:
+        fail(f"{what}: {len(auditors)} audited sessions, want 1")
+    aud = auditors[0]
+    if not aud.on_card:
+        fail(f"{what}: the audited runner is not on the card")
+    try:
+        aud.assert_launch_budget()
+        aud.assert_sync_budget(closed=True)
+    except AssertionError as e:
+        fail(f"{what}: {e}")
+    ctx = {}
+    for e in aud.events:
+        if e.kind in ("flush_pane", "host_sync"):
+            ctx[e.context] = ctx.get(e.context, 0) + 1
+    return (f"audited {aud.dispatches} segments, launches "
+            f"{json.dumps(aud.totals())}, refresh_membership "
+            f"{aud.count('refresh_membership')}, syncs by context "
+            f"{json.dumps(ctx)}: budgets held")
+
+
+def launch_delta(l0, ff, sp):
+    now = dict(ff.LAUNCHES, **sp.LAUNCHES)
+    return {k: now[k] - l0[k] for k in now}
+
+
+def timed(fn, torch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def scenario_path(dev, torch, syncs, n_tuples=D_TUPLES,
+                  ol_rate=OL_RATE):
+    """Path D: the RQ4 scenario suite (D1), open loop with autoscaling
+    (D2) and a trace of one fused session (D3), on the card."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch import scenarios as S
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.sanitize import double_run
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import store_probe as sp
+    from repro_torch.obs.cli import summarize_trace
+    from repro_torch.obs.export import TraceWriter, validate_chrome_trace
+    from repro_torch.state import WindowOp
+
+    t_d = time.perf_counter()
+    for d in (ff.LAUNCHES, sp.LAUNCHES):
+        d.update(dict.fromkeys(d, 0))
+    probe = RunnerProbe()
+    win_card = WindowOp(agg="sum", size=WINDOW, backend="device")
+    win_host = WindowOp(agg="sum", size=WINDOW, backend="array")
+    feeds = D_FEEDS
+    log(f"path D1: default_scenarios(num_tuples={n_tuples}, num_keys="
+        f"{NUM_KEYS}, workers={WORKERS}): {n_tuples} tuples a run, cut "
+        f"from path A's {N_TUPLES} for time; {feeds} feeds of "
+        f"{n_tuples // feeds}; a tumbling {WINDOW}-tuple sum window "
+        f"(device store on the card, array store on the host); fused "
+        f"(card) against batched (host), all six schemes")
+    d1 = {}
+    for sc in S.default_scenarios(num_tuples=n_tuples, num_keys=NUM_KEYS,
+                                  workers=WORKERS):
+        _, keys_s = timed(lambda: S.build_keys(sc.workload), torch)
+        for scheme in SCHEMES:
+            probe.reset()
+            l0, s0 = dict(ff.LAUNCHES, **sp.LAUNCHES), syncs.n
+            audit = scheme in D_AUDITED
+            ctx = (audited_sessions(WINDOW) if audit
+                   else contextlib.nullcontext([]))
+            with ctx as auditors:
+                rf, wall_f = timed(lambda: S.run_dspe_scenario(
+                    sc, scheme, engine="fused", window=win_card,
+                    feeds=feeds, device=dev), torch)
+            dl = launch_delta(l0, ff, sp)
+            n_sync = syncs.n - s0
+            w1 = list(probe.w1.values())
+            if len(w1) != 1:
+                fail(f"D1 {sc.name} {scheme}: {len(w1)} fused runners, "
+                     "want 1 (a fallback to the host engine?)")
+            rb, wall_b = timed(lambda: S.run_dspe_scenario(
+                sc, scheme, engine="batched", window=win_host,
+                feeds=feeds), torch)
+            why = contracts.row_violations(scheme, rf, rb)
+            for k in ("remap_events", "remap_frac_mean"):
+                if rf[k] != rb[k]:
+                    why.append(f"{k} {rf[k]} != {rb[k]}")
+            for r, eng in ((rf, "fused"), (rb, "batched")):
+                if not r["state"]["exact"]:
+                    why.append(f"{eng} merged windows != direct_aggregate")
+            if rf["state"]["windows"] != rb["state"]["windows"]:
+                why.append("window counts differ")
+            segs = dl["fifo_workers"]
+            want = contracts.SEGMENT_KERNELS[scheme]
+            bad = {k: v for k, v in dl.items()
+                   if k not in ("pane_update", "store_probe")
+                   and v != (segs if k in want else 0)}
+            if bad or dl["pane_update"] < segs:
+                why.append(f"launches {dl} off the budget of {segs} "
+                           f"segments x {want} + pane_update")
+            if why:
+                fail(f"D1 {sc.name} {scheme}: fused vs batched: "
+                     + "; ".join(why))
+            d1[(sc.name, scheme)] = {
+                "fused_tuples_per_s": n_tuples / wall_f,
+                "batched_tuples_per_s": n_tuples / wall_b,
+                "segments": segs, "pane_syncs": n_sync, "launches": dl,
+                "refresh_membership": probe.refreshes, "w1": w1[0]}
+            log(f"D1 {sc.name:18s} {scheme:4s}: fused {n_tuples / wall_f:,.0f}"
+                f" tuples/s (card) vs batched {n_tuples / wall_b:,.0f} "
+                f"(host), keys built in {keys_s * 1e3:.0f} ms of each; "
+                f"{feeds} feeds, {segs} segments, {n_sync} pane syncs, "
+                f"launches {json.dumps({k: v for k, v in dl.items() if v})}"
+                f", refresh_membership {probe.refreshes}, w1 {w1[0][0]} -> "
+                f"{w1[0][1]}; remaps {len(rf['remap_events'])} (mean frac "
+                f"{rf['remap_frac_mean']}); check ok: exec "
+                f"{rf['execution_time']:.6f}/{rb['execution_time']:.6f} s, "
+                f"p99 {rf['latency_p99']:.6f}/{rb['latency_p99']:.6f} s, "
+                f"imbalance {rf['imbalance']:.6f}/{rb['imbalance']:.6f}, "
+                f"memory {rf['memory_overhead']}/{rb['memory_overhead']}, "
+                f"windows exact")
+            if audit:
+                log(f"   audit {sc.name} {scheme}: "
+                    + check_audit(auditors, f"D1 {sc.name} {scheme}"))
+    log("path D1 per run: " + json.dumps(
+        {f"{sc}/{scheme}": v for (sc, scheme), v in d1.items()}))
+    grew = [k for k, v in d1.items() if v["w1"][1] > v["w1"][0]]
+    if not grew:
+        fail("D1: no run grew the runner's worker lanes on the card")
+    log(f"D1: worker lanes grew on the card in {len(grew)} runs "
+        f"({', '.join(sorted({k[0] for k in grew}))})")
+
+    storm = next(s for s in S.default_scenarios(
+        num_tuples=n_tuples, num_keys=NUM_KEYS, workers=WORKERS)
+        if s.name == "churn_storm")
+    (r1, r2, div), wall = timed(lambda: double_run(
+        lambda: S.run_dspe_scenario(storm, "fish", engine="fused",
+                                    window=win_card, feeds=feeds,
+                                    device=dev)), torch)
+    if div:
+        fail(f"D1 churn_storm fish: the sanitized double run diverges: "
+             f"{div[:5]}")
+    log(f"D1 churn_storm fish: sanitized double run bit-identical "
+        f"({wall:.2f} s for both, readbacks finite)")
+
+    # -- D2: open loop with autoscaling ----------------------------------------
+    tick = S.OpenLoopScenario("t").tick
+    log(f"path D2: default_open_loop_scenarios(rate={ol_rate:g}, horizon="
+        f"{OL_HORIZON}, workers={OL_WORKERS}, num_keys={NUM_KEYS}), "
+        f"max_workers={OL_MAX_WORKERS}, slo_p99={OL_SLO_P99} s: at "
+        f"utilization 0.8 a worker takes {0.8 * OL_WORKERS / ol_rate * 1e3:.3f}"
+        f" ms a tuple, so a run at the mean rate keeps p99 within a few "
+        f"ms, while the 3x flash crowd overloads the pool and its p99 "
+        f"climbs toward the 0.25 s backpressure bound: {OL_SLO_P99 * 1e3:g} "
+        f"ms lies between the two; feeds of about "
+        f"{ol_rate * tick:,.0f} tuples (tick {tick} s)")
+    d2 = {}
+    for ol in S.default_open_loop_scenarios(rate=ol_rate,
+                                            horizon=OL_HORIZON,
+                                            workers=OL_WORKERS,
+                                            num_keys=NUM_KEYS):
+        ol = dataclasses.replace(ol, max_workers=OL_MAX_WORKERS,
+                                 slo_p99=OL_SLO_P99)
+        for scheme in SCHEMES:
+            probe.reset()
+            l0 = dict(ff.LAUNCHES, **sp.LAUNCHES)
+            audit = scheme in D_AUDITED
+            ctx = (audited_sessions() if audit
+                   else contextlib.nullcontext([]))
+            with ctx as auditors:
+                rf, wall_f = timed(lambda: S.run_open_loop_scenario(
+                    ol, scheme, engine="fused", device=dev), torch)
+            dl = launch_delta(l0, ff, sp)
+            w1 = list(probe.w1.values())
+            rb, wall_b = timed(lambda: S.run_open_loop_scenario(
+                ol, scheme, engine="batched"), torch)
+            why = []
+            if len(w1) != 1:
+                why.append(f"{len(w1)} fused runners, want 1")
+            if not rf["identity_ok"]:
+                why.append("offered != fed + shed + residual")
+            wf = rf["workers_final"]
+            if not OL_WORKERS <= len(wf) <= OL_MAX_WORKERS:
+                why.append(f"{len(wf)} workers at the end")
+            if ol.name == "flash_crowd" and not rf["autoscale_events"]:
+                why.append("the flash crowd caused no autoscale event")
+            if scheme in contracts.EXACT_SCHEMES:
+                why += contracts.row_violations(scheme, rf, rb)
+                for k in ("offered", "fed", "shed", "residual",
+                          "workers_final"):
+                    if rf[k] != rb[k]:
+                        why.append(f"{k} {rf[k]} != {rb[k]}")
+                ef, eb = rf["autoscale_events"], rb["autoscale_events"]
+                if [dict(e, p99=None) for e in ef] != \
+                        [dict(e, p99=None) for e in eb] or any(
+                        abs(a["p99"] - b["p99"])
+                        > contracts.F32_REL * b["p99"]
+                        for a, b in zip(ef, eb)):
+                    why.append("autoscale decisions differ")
+            if why:
+                fail(f"D2 {ol.name} {scheme}: " + "; ".join(why))
+            n = rf["offered"]
+            d2[(ol.name, scheme)] = {
+                "fused_tuples_per_s": rf["fed"] / wall_f,
+                "batched_tuples_per_s": rb["fed"] / wall_b,
+                "segments": dl["fifo_workers"], "launches": dl,
+                "autoscale_events": len(rf["autoscale_events"]),
+                "refresh_membership": probe.refreshes, "w1": w1[0]}
+            log(f"D2 {ol.name:20s} {scheme:4s}: fused {rf['fed'] / wall_f:,.0f}"
+                f" tuples/s (card) vs batched {rb['fed'] / wall_b:,.0f} "
+                f"(host); offered {n}, fed {rf['fed']}, shed {rf['shed']}, "
+                f"deferred {rf['deferred']}; {dl['fifo_workers']} segments, "
+                f"launches {json.dumps({k: v for k, v in dl.items() if v})}"
+                f", autoscale events {len(rf['autoscale_events'])} (batched "
+                f"{len(rb['autoscale_events'])}), workers {OL_WORKERS} -> "
+                f"{len(wf)}, refresh_membership {probe.refreshes}, w1 "
+                f"{w1[0][0]} -> {w1[0][1]}; p99 {rf['latency_p99']:.6f}/"
+                f"{rb['latency_p99']:.6f} s, total p99 "
+                f"{rf['total_latency_p99']}; check ok"
+                + (" (exact)" if scheme in contracts.EXACT_SCHEMES
+                   else " (identity and budgets; banded timing may move "
+                        "backpressure and autoscale decisions)"))
+            if audit:
+                log(f"   audit {ol.name} {scheme}: "
+                    + check_audit(auditors, f"D2 {ol.name} {scheme}"))
+    log("path D2 per run: " + json.dumps(
+        {f"{ol}/{scheme}": v for (ol, scheme), v in d2.items()}))
+    if not any(v["w1"][1] > v["w1"][0] for k, v in d2.items()
+               if k[0] == "flash_crowd"):
+        fail("D2: no autoscaler scale-out grew the runner's worker lanes")
+
+    launches = dict(ff.LAUNCHES, **sp.LAUNCHES)
+    log(f"launches on path D (D1 and D2): {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on path D: {missing}")
+    probe.uninstall()
+    log(f"path D1+D2 wall {time.perf_counter() - t_d:.1f} s")
+
+    # -- D3: one traced session (telemetry reads the tracker back each
+    # epoch, so it is never timed) -------------------------------------------
+    flip = S.default_scenarios(num_tuples=n_tuples, num_keys=NUM_KEYS,
+                               workers=WORKERS)[0]
+    tel = obs.enable(label="hot_key_flip-fish")
+    try:
+        S.run_dspe_scenario(flip, "fish", engine="fused", window=win_card,
+                            feeds=feeds, device=dev)
+    finally:
+        obs.disable()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "hot_key_flip-fish.trace.json"
+        with TraceWriter(str(path)) as w:
+            w.write_telemetry(tel)
+        trace = json.loads(path.read_text())
+        size = path.stat().st_size
+    problems = validate_chrome_trace(trace)
+    if problems:
+        fail(f"D3: the trace is not valid: {problems[:5]}")
+    spans = summarize_trace(trace)["spans"]
+    top = sorted(spans.items(), key=lambda kv: -kv[1]["total_ms"])[:10]
+    log(f"D3 trace hot_key_flip fish: {len(trace['traceEvents'])} events, "
+        f"{size:,} bytes, valid; top spans (count, total ms, p50 ms):")
+    for name, sp_ in top:
+        log(f"   {name:28s} {sp_['count']:6d} {sp_['total_ms']:10.3f} "
+            f"{sp_['p50_ms']:9.4f}")
+    log("D3 spans: " + json.dumps(
+        {k: {f: v[f] for f in ("count", "total_ms", "p50_ms")}
+         for k, v in top}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tuples", type=int, default=N_TUPLES,
-                    help="stream length per scheme (the only allowed cut)")
+                    help="stream length per scheme of paths A and B (a cut "
+                    "for time)")
+    ap.add_argument("--scenario-tuples", type=int, default=D_TUPLES,
+                    help="tuples a path D scenario run (a cut for time)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1271,6 +1671,7 @@ def main() -> int:
         import numpy as np
 
         import repro_torch.topology as T
+        from repro_torch.analysis import contracts
         from repro_torch.data.synthetic import zipf_time_evolving
         from repro_torch.kernels import _build
         from repro_torch.kernels import feed_fused as ff
@@ -1381,7 +1782,7 @@ def main() -> int:
     # kernels per segment, pane_update also once per pane table growth
     for scheme in SCHEMES:
         dl = path_a[scheme]["launches"]
-        want = SEGMENT_KERNELS[scheme]
+        want = contracts.SEGMENT_KERNELS[scheme]
         bad = {k: v for k, v in dl.items() if k not in ("pane_update",
                                                         "store_probe")
                and v != (segments if k in want else 0)}
@@ -1431,6 +1832,11 @@ def main() -> int:
     ssd_rows = ssd_kernel_checks(ssd_cap, ssd_launches, torch)
     prefill_split(ssd_cap, ssd_rows, torch)
     log(f"path C (mamba2-780m) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path D: the time-evolving control plane ---------------------------------
+    scenario_path(dev, torch, syncs, n_tuples=args.scenario_tuples)
+    log(f"path D (scenarios, open loop, trace) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # path A's and B's kernels last: their device times come from
     # torch.profiler, whose tracing is kept away from the timed paths

@@ -84,6 +84,7 @@ from ..obs.telemetry import Telemetry
 from . import _build
 
 __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
+           "FINITE_CHECK",
            "MIN_BUCKET", "KEY_CAP_LIMIT", "ring_rows", "ring_rows_plain",
            "tracker_update", "tracker_update_plain", "route_scan",
            "route_scan_plain", "fifo_workers", "fifo_workers_plain",
@@ -94,6 +95,13 @@ __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
 #: kernel launches on CUDA tensors, counted where each wrapper launches
 LAUNCHES = {"ring_rows": 0, "tracker_segment": 0, "route_scan": 0,
             "fifo_workers": 0, "pane_update": 0}
+
+#: Nesting depth of :func:`repro_torch.analysis.sanitize.sanitized`: while
+#: it is > 0, ``run_segment`` checks the float values its readback already
+#: brought to the host (clocks, finish times, FISH's estimator) and raises
+#: ``FloatingPointError`` on a NaN or Inf.  The other readbacks, the pane
+#: flush's and ``host_sync``'s, are integer sums and indices.
+FINITE_CHECK = {"depth": 0}
 
 #: Shared disabled bundle for runners no session bound telemetry to.
 _NULL_TELEMETRY = Telemetry(enabled=False)
@@ -115,6 +123,16 @@ _TRK_MIN_SLOTS = 1024  # smallest tracker table (csrc tracker_plan: 2^10)
 _TRK_KEY_BYTES = 16    # sizeof(TrkKeySlot)
 _TRK_PAIR_BYTES = 16   # sizeof(TrkPairSlot)
 MIN_PANE_SLOTS = 1024  # smallest pane table (csrc: 2^6 at least)
+
+
+def _check_finite(where: str, **arrays) -> None:
+    """Raise ``FloatingPointError`` if a float array read back from the
+    device holds a NaN or Inf (only under ``sanitized()``)."""
+    for name, a in arrays.items():
+        if not np.isfinite(a).all():
+            raise FloatingPointError(
+                f"{where}: {name} read back from the device is not finite "
+                f"({int((~np.isfinite(a)).sum())} of {a.size} values)")
 
 
 def _bucket(n: int) -> int:
@@ -1208,6 +1226,12 @@ class FusedEdgeRunner:
                 est.assigned[:] = kw["eas"].cpu().numpy().astype(
                     np.float64)[:nw]
             fin = self._base + fin_d[:m].cpu().numpy()
+            if FINITE_CHECK["depth"]:
+                _check_finite("run_segment", busy_until=state.busy_until,
+                              finish=fin)
+                if scheme == "fish":
+                    _check_finite("run_segment", backlog=est.backlog,
+                                  assigned=est.assigned)
         if (scheme == "fish" and self.tel.enabled
                 and self._fish_epochs_crossed):
             self._fish_epoch_points(grouper, state, lo, hi)

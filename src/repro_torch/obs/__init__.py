@@ -11,18 +11,23 @@ per-epoch metric timelines.
   :func:`enable` / :func:`disable` / :func:`get_telemetry` manage the
   process default (disabled ⇒ strict no-op tracer/timeline singletons).
 
-Chrome-trace export and the summarizing CLI are not ported yet.
+* Chrome trace-event export (:func:`chrome_trace`, :class:`TraceWriter`)
+  viewable in Perfetto, and a CLI (``python -m repro_torch.obs``) that
+  summarizes and diffs trace files.
 """
 
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .export import TraceWriter, chrome_trace, validate_chrome_trace
+from .metrics import (GLOBAL_METRICS, Counter, Gauge, Histogram,
+                      MetricsRegistry)
 from .telemetry import Telemetry, disable, enable, get_telemetry, is_enabled
 from .timeline import (NULL_TIMELINE, NullTimeline, TelemetryContext,
                        Timeline)
 from .trace import NULL_SPAN, NULL_TRACER, NullTracer, Span, Tracer
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "GLOBAL_METRICS",
     "Tracer", "NullTracer", "Span", "NULL_TRACER", "NULL_SPAN",
     "Timeline", "NullTimeline", "TelemetryContext", "NULL_TIMELINE",
     "Telemetry", "enable", "disable", "get_telemetry", "is_enabled",
+    "chrome_trace", "validate_chrome_trace", "TraceWriter",
 ]

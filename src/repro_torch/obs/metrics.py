@@ -24,7 +24,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "GLOBAL_METRICS"]
 
 
 class Counter:
@@ -167,3 +168,7 @@ class MetricsRegistry:
         for name, h in merged_hists.items():
             out[name] = {"kind": "histogram", **h.summary()}
         return out
+
+
+#: Process-wide registry for instruments that outlive any one session.
+GLOBAL_METRICS = MetricsRegistry()

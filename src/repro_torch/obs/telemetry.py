@@ -14,8 +14,8 @@ A :class:`Telemetry` carries the three surfaces together:
 
 Engines resolve their telemetry as ``telemetry or get_telemetry()``:
 pass one explicitly to ``Engine.open`` (or ``enable()`` the process
-default) and every layer underneath — fused runner, FISH tracker —
-reports into the same bundle.  When the
+default) and every layer underneath — fused runner, FISH tracker,
+open-loop driver, autoscaler — reports into the same bundle.  When the
 process default is *disabled*, each session gets a private disabled
 bundle (``for_session()``) so per-session counters never bleed across
 runs.
@@ -23,6 +23,7 @@ runs.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 from .metrics import MetricsRegistry
@@ -66,6 +67,26 @@ class Telemetry:
         out = self.timeline.export(max_points)
         out["metrics"] = self.metrics.snapshot()
         return out
+
+    def chrome_trace(self) -> Dict:
+        from .export import chrome_trace
+        return chrome_trace(self)
+
+    def save(self, path: str) -> str:
+        """Write the Chrome trace-event JSON atomically (never leaves a
+        truncated file: full write to a sibling tmp, then rename)."""
+        import json
+
+        payload = self.chrome_trace()
+        tmp = f"{path}.tmp"
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+            f.flush()
+        os.replace(tmp, path)
+        return path
 
 
 _default = Telemetry(enabled=False)

@@ -1,8 +1,8 @@
 """Unified dataflow topology API — the front door to the system.
 
 Typed per-scheme configs (:mod:`.configs`), declarative multi-stage
-topologies (:mod:`.graph`), and one engine protocol with the DSPE
-simulator behind it (:mod:`.engine`)::
+topologies (:mod:`.graph`), and one engine protocol with a DSPE simulator
+and a serving-engine adapter behind it (:mod:`.engine`)::
 
     from repro_torch.topology import (Edge, FishConfig, ShuffleConfig,
                                 SimulatorEngine, Source, Stage, Topology,
@@ -25,8 +25,8 @@ from .configs import (SCHEME_CONFIGS, DChoicesConfig, FieldConfig,
                       FishConfig, PKGConfig, SchemeConfig, ShuffleConfig,
                       WChoicesConfig, build_grouper, config_for)
 from .engine import (EdgeReport, Engine, FeedReceipt, RemapAccountant,
-                     Session, SimulatorEngine, SimulatorSession,
-                     TopologyReport)
+                     ServingSession, ServingTopologyEngine, Session,
+                     SimulatorEngine, SimulatorSession, TopologyReport)
 from .graph import (SOURCE, Edge, KeyTransform, RecordBatch, ScopedEvent,
                     Source, Stage, Topology, hashed_fanout, project_mod)
 
@@ -59,5 +59,7 @@ __all__ = [
     "RemapAccountant",
     "SimulatorEngine",
     "SimulatorSession",
+    "ServingTopologyEngine",
+    "ServingSession",
     "FeedReceipt",
 ]

@@ -21,8 +21,14 @@ kernels), and the *finish* times of one stage become the arrival times of
 the next — per-stage FIFO queues chained through the DAG.  Time is in
 seconds.  It returns a :class:`TopologyReport`: per-edge latency
 percentiles, imbalance, memory overhead and remap accounting (one
-:class:`EdgeReport` per edge) plus end-to-end source→sink latencies.  The
-reference's serving-engine adapter is not ported yet.
+:class:`EdgeReport` per edge) plus end-to-end source→sink latencies.
+
+:class:`ServingTopologyEngine` is the continuous-batching
+:class:`~repro_torch.serving.engine.ServingEngine` adapter: every edge is a
+replica pool with slot-limited decode, each tuple a 1-token request keyed
+by its (session) key.  Time is in scheduler ticks.  The source stream is
+subsampled to ``max_requests`` (per-tick scheduling is Python-loop work).
+It is a host engine and returns the same :class:`TopologyReport`.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from typing import Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
-from ..core.stream import edge_metrics, simulate_edge
+from ..core.stream import (CapacityEvent, MembershipEvent, edge_metrics,
+                           simulate_edge)
 from ..obs.telemetry import get_telemetry
 from ..state.migration import MigrationBiller
 from ..state.window import KeyedStateManager, StateReport
@@ -49,6 +56,8 @@ __all__ = [
     "RemapAccountant",
     "SimulatorEngine",
     "SimulatorSession",
+    "ServingTopologyEngine",
+    "ServingSession",
 ]
 
 
@@ -513,6 +522,12 @@ def _percentiles(lats: np.ndarray):
             float(np.percentile(lats, 95)), float(np.percentile(lats, 99)))
 
 
+def _imbalance(counts: np.ndarray) -> float:
+    counts = counts.astype(np.float64)
+    return float((counts.max() - counts.mean())
+                 / max(counts.mean(), 1e-12)) if counts.size else 0.0
+
+
 def _chain_observers(*observers):
     """Fan one event-observer callback out to several consumers (remap
     accountant + keyed-state manager)."""
@@ -951,3 +966,454 @@ def _emit(stage: Stage, in_keys: np.ndarray, finishes: np.ndarray,
     order = np.argsort(out_times, kind="stable")
     return (out_keys[order], out_times[order], out_roots[order],
             None if out_values is None else out_values[order])
+
+
+# ---------------------------------------------------------------------------
+# serving engine adapter
+# ---------------------------------------------------------------------------
+
+
+class ServingTopologyEngine:
+    """Run a topology on the continuous-batching serving engine.
+
+    Each edge is a :class:`~repro_torch.serving.engine.ServingEngine` replica
+    pool (slot-limited decode, inferred-backlog routing); each tuple is a
+    1-token request whose session is the tuple key.  Membership events map
+    to ``fail_replica``/``add_replica`` (new workers must extend the id
+    range contiguously — replica ids are never reused); capacity events set
+    replica speeds to ``1/seconds_per_tuple``.
+    """
+
+    name = "serving"
+
+    def __init__(self, slots_per_replica: int = 4, max_requests: int = 256,
+                 utilization: float = 0.8, max_ticks: int = 200_000,
+                 remap_sample: int = 512, pacing: str = "drain",
+                 ticks_per_second: float = 1.0,
+                 max_queue_per_replica: Optional[int] = None,
+                 migration_ticks_per_byte: float = 0.0,
+                 migration_ticks_per_replay: float = 0.0):
+        if pacing not in ("drain", "arrival"):
+            raise ValueError(
+                f"unknown pacing {pacing!r}; 'drain' (closed loop: each "
+                f"feed runs until its requests finish) or 'arrival' (open "
+                f"loop: each feed's requests are submitted at "
+                f"their wall-clock arrival ticks and the engine only runs "
+                f"up to the feed's last arrival; close() drains)")
+        self.slots_per_replica = slots_per_replica
+        self.max_requests = max_requests
+        self.utilization = utilization
+        self.max_ticks = max_ticks
+        self.remap_sample = remap_sample
+        # open-loop serving: arrival pacing maps source wall-clock
+        # seconds onto the tick grid via ticks_per_second; a bounded ingress
+        # queue sheds on overflow; migrated keyed state stalls the
+        # destination replica for ticks ∝ bytes shipped / tuples replayed
+        self.pacing = pacing
+        self.ticks_per_second = ticks_per_second
+        self.max_queue_per_replica = max_queue_per_replica
+        self.migration_ticks_per_byte = migration_ticks_per_byte
+        self.migration_ticks_per_replay = migration_ticks_per_replay
+
+    def open(self, topology: Topology, *,
+             arrival_rate: Optional[float] = None,
+             telemetry: Optional[object] = None) -> "ServingSession":
+        """Open an incremental streaming session on the serving engine
+        (``arrival_rate`` is accepted for protocol symmetry; serving time
+        is scheduler ticks, paced by the topology bottleneck)."""
+        return ServingSession(self, topology, telemetry=telemetry)
+
+    def run(self, topology: Topology, source: Source,
+            events: Sequence[ScopedEvent] = ()) -> TopologyReport:
+        return _run_via_session(self, topology, source, events)
+
+
+class _ServingEdge:
+    """One grouped edge's carried session state (serving engine)."""
+
+    __slots__ = ("stage", "eng", "acct", "mgr", "reqs", "in_times", "n",
+                 "tick", "roots", "srep", "emitted", "biller", "done_seen")
+
+    def __init__(self, stage: Stage, eng,
+                 mgr: Optional[KeyedStateManager],
+                 biller: Optional[MigrationBiller] = None, metrics=None):
+        self.stage = stage
+        self.eng = eng
+        self.acct = RemapAccountant([], metrics=metrics)
+        self.mgr = mgr
+        self.biller = biller  # tick-billed migration
+        self.reqs: List = []
+        self.in_times: List[np.ndarray] = []
+        self.n = 0
+        self.tick = 0
+        self.roots: List[np.ndarray] = []  # operator stages only
+        self.srep: Optional[StateReport] = None
+        self.emitted = 0  # window partials already sent downstream
+        self.done_seen = 0  # eng.done cursor (per-feed finish latencies)
+
+
+class ServingSession(_BaseSession):
+    """Incremental record-batch execution on the continuous-batching
+    serving engine: each feed's tuples become 1-token requests submitted
+    onto the carried per-edge replica pools, and the per-edge tick loops
+    resume where the previous feed left them (each feed drains before the
+    next — backlogged replicas carry their queues across the boundary).
+
+    Serving time is scheduler ticks: a feed's records arrive on the
+    stream-global tick grid regardless of their wall-clock timestamps.
+    ``at_time`` events therefore resolve against the *source* wall-clock
+    timestamps and scale onto each stage's input stream by the cumulative
+    transform fanout.  Feeds larger than ``max_requests`` are subsampled
+    (per feed — per-tick scheduling is Python-loop work).
+    """
+
+    def __init__(self, engine: "ServingTopologyEngine", topology: Topology,
+                 telemetry=None):
+        super().__init__(engine, topology, telemetry=telemetry)
+        # bottleneck-feasible pacing: source tuples per tick such that every
+        # stage sees at most `utilization` of its token capacity
+        per_tick = engine.utilization * min(
+            topology.stage(e.dst).parallelism / topology.fanout_to(e.dst)
+            for e in topology.edges
+        )
+        self._dt = 1.0 / max(per_tick, 1e-9)
+        # per-feed source-edge finish latencies (FeedReceipt channel)
+        self._feed_lats: List[np.ndarray] = []
+
+    # -- protocol --------------------------------------------------------------
+    def feed(self, batch: RecordBatch) -> Optional[FeedReceipt]:
+        """Ingest the next record batch (subsampled to ``max_requests``).
+        With ``pacing="drain"`` (closed loop) records arrive on the
+        bottleneck-paced tick grid and the feed runs until they finish;
+        with ``pacing="arrival"`` (open loop) they arrive at
+        their wall-clock timestamps × ``ticks_per_second`` and the engine
+        only ticks up to the feed's last arrival — queues grow under
+        overload and ``close()`` drains the backlog."""
+        if not self._check_batch(batch):
+            return None
+        tel = self.telemetry
+        self._feed_idx += 1
+        tel.ctx.feed_idx = self._feed_idx
+        self._c_feeds.add(1)
+        feed_span = tel.tracer.span("session.feed", cat="session",
+                                    n=len(batch), feed_idx=self._feed_idx)
+        keys, ts, vals = batch.keys, batch.timestamps, batch.values
+        if keys.shape[0] > self.engine.max_requests:
+            pick = np.linspace(0, keys.shape[0] - 1,
+                               self.engine.max_requests).astype(np.int64)
+            keys, ts = keys[pick], ts[pick]
+            vals = None if vals is None else vals[pick]
+        n = int(keys.shape[0])
+        base = self._n_source
+        self._n_source += n
+        self._resolve_at_time(ts, base)
+        if self.engine.pacing == "arrival":
+            src_ticks = np.asarray(ts, dtype=np.float64) \
+                * self.engine.ticks_per_second
+        else:
+            src_ticks = np.arange(base, base + n, dtype=np.float64) \
+                * self._dt
+        streams = {SOURCE: (keys, src_ticks,
+                            np.arange(base, base + n, dtype=np.int64),
+                            vals)}
+        done0, shed0 = self._done_shed()
+        lat0 = len(self._feed_lats)
+        self._pump(streams)
+        done1, shed1 = self._done_shed()
+        arr = (np.concatenate(self._feed_lats[lat0:])
+               if len(self._feed_lats) > lat0 else np.empty(0))
+        avg, _, _, p99 = _percentiles(arr)
+        depth = in_flight = 0
+        for st in self._st.values():
+            depth += sum(len(q) for q in st.eng.queues)
+            in_flight += sum(len(st.eng.slots[r].active)
+                             for r in st.eng.alive)
+        receipt = FeedReceipt(n=n, t_end=float(src_ticks[-1]),
+                              latency_avg=avg, latency_p99=p99,
+                              backlog=float(depth), latencies=arr,
+                              queue_depth=depth, in_flight=in_flight,
+                              done=done1 - done0, shed=shed1 - shed0)
+        tel.ctx.engine_clock = receipt.t_end  # scheduler ticks
+        tl = tel.timeline
+        tl.point("session.queue_depth", depth)
+        tl.point("session.in_flight", in_flight)
+        tl.point("session.latency_p99", p99)
+        tl.point("session.shed_total", shed1)
+        feed_span.done()
+        return receipt
+
+    def _done_shed(self):
+        done = sum(len(st.eng.done) for st in self._st.values())
+        shed = sum(st.eng.shed for st in self._st.values())
+        return done, shed
+
+    # -- internals -------------------------------------------------------------
+    def _close_pump(self, state: Dict[str, Dict]) -> None:
+        if self.engine.pacing == "arrival":
+            self._drain()
+        self._pump({}, state=state)
+
+    def _drain(self) -> None:
+        """Open-loop close: tick every edge's engine until each submitted
+        request is accounted for (finished or shed), then collect the
+        deferred sink e2e latencies (measured from each request's arrival
+        tick — for the single-edge open-loop topologies source arrival and
+        edge arrival coincide)."""
+        for edge in self._edges:
+            st = self._st.get(edge.name)
+            if st is None:
+                continue
+            eng = st.eng
+            while (len(eng.done) + eng.shed < st.n
+                   and st.tick < self.engine.max_ticks):
+                eng.tick()
+                st.tick += 1
+            self._total_time = max(self._total_time, float(eng.now))
+            if edge.dst in self._sinks:
+                fins = np.array([r.finished for r in st.reqs])
+                arrs = np.array([r.arrival for r in st.reqs])
+                done = fins >= 0
+                self._e2e.append((fins - arrs)[done])
+
+    def _submit(self, st, req, in_keys, in_values, i) -> None:
+        """Admit one request; keyed state is fed only for admitted requests
+        (a shed request touches no operator state — honest accounting)."""
+        replica = st.eng.submit(req)
+        if replica < 0:  # shed by the bounded ingress queue
+            return
+        if st.mgr is not None:  # routed exactly once, at ingress
+            st.mgr.feed(in_keys[i:i + 1], np.array([replica]),
+                        None if in_values is None
+                        else in_values[i:i + 1])
+
+    def _resolve_at_time(self, ts: np.ndarray, base: int) -> None:
+        """Lower time-addressed events onto stage-input tuple indices: the
+        first (subsampled) source record at or after the timestamp, scaled
+        by the stage's cumulative transform fanout."""
+        for stage, pending in self._pending.items():
+            if not any(getattr(e, "at_time", None) is not None
+                       for e in pending):
+                continue
+            fan = self.topology.fanout_to(stage)
+            out = []
+            for e in pending:
+                t = getattr(e, "at_time", None)
+                if t is not None and ts.shape[0] and t <= float(ts[-1]):
+                    src_idx = base + int(np.searchsorted(ts, t, side="left"))
+                    e = dataclasses.replace(e, at=src_idx * fan,
+                                            at_time=None)
+                out.append(e)
+            self._pending[stage] = out
+
+    def _pump(self, streams: Dict, state=None) -> None:
+        for edge in self._edges:
+            if edge.src in streams:
+                emission = self._run_edge(edge, *streams[edge.src])
+                if emission is not None:
+                    streams[edge.dst] = emission
+            if state is None:
+                continue
+            st = self._st.get(edge.name)
+            if st is not None and st.mgr is not None:
+                st.mgr.finalize()
+                st.srep = st.mgr.report(st.stage.name)
+                state[st.stage.name] = st.srep.summary()
+                if st.stage.name not in self._sinks:
+                    rest = st.mgr.partials[st.emitted:]
+                    if rest or st.emitted == 0:
+                        fins = np.array([r.finished for r in st.reqs])
+                        roots = (np.concatenate(st.roots) if st.roots
+                                 else np.empty(0, dtype=np.int64))
+                        streams[st.stage.name] = _emit_partials(
+                            rest, fins, roots, float(st.eng.now))
+                        st.emitted = len(st.mgr.partials)
+
+    def _run_edge(self, edge: Edge, in_keys, in_times, in_roots,
+                  in_values) -> Optional[tuple]:
+        from ..serving.engine import Request, ServingEngine
+
+        cfg = self.engine
+        st = self._st.get(edge.name)
+        stage = self.topology.stage(edge.dst)
+        m = int(in_keys.shape[0])
+        if st is None:
+            caps = stage.worker_capacities(1.0)  # relative speeds only
+            speeds = (1.0 / caps) / (1.0 / caps).mean()
+            mgr0 = _stage_manager(stage)
+            biller = None
+            if mgr0 is not None and (cfg.migration_ticks_per_byte
+                                     or cfg.migration_ticks_per_replay):
+                biller = MigrationBiller(mgr0.migration,
+                                         cfg.migration_ticks_per_byte,
+                                         cfg.migration_ticks_per_replay)
+            st = self._st[edge.name] = _ServingEdge(
+                stage=stage,
+                eng=ServingEngine(
+                    stage.parallelism,
+                    slots_per_replica=cfg.slots_per_replica,
+                    tokens_per_tick=speeds,
+                    grouping=edge.grouping,
+                    max_queue_per_replica=cfg.max_queue_per_replica,
+                    metrics=self.telemetry.metrics),
+                mgr=mgr0, biller=biller,
+                metrics=self.telemetry.metrics)
+            trk = getattr(st.eng.router, "tracker", None)
+            if self.telemetry.enabled and trk is not None:
+                trk.epoch_observer = _fish_epoch_observer(
+                    self.telemetry, st.eng.router)
+        pending = self._pending[edge.dst]
+        hi = st.n + m
+        due = sorted((e for e in pending
+                      if e.at_time is None and e.at < hi),
+                     key=lambda e: e.at)
+        self._pending[edge.dst] = [e for e in pending
+                                   if e.at_time is not None or e.at >= hi]
+        if due or self._pending[edge.dst]:
+            st.acct.extend_sample(_sample_keys(in_keys, cfg.remap_sample),
+                                  cfg.remap_sample)
+        mgr = st.mgr
+        chain = [st.acct]
+        if mgr is not None:
+            chain.append(mgr.on_event)
+            if st.biller is not None:
+                # biller after the manager: the manager's post_membership
+                # runs the migration protocol that leaves the per-target bill
+                chain.append(st.biller.on_event)
+        if due:  # telemetry last: it observes, never reshapes
+            chain.append(self._session_observer())
+        observer = chain[0] if len(chain) == 1 else _chain_observers(*chain)
+        reqs_f = [Request(st.n + i, int(k), arrival=float(t),
+                          target_tokens=1)
+                  for i, (k, t) in enumerate(zip(in_keys.tolist(),
+                                                 in_times.tolist()))]
+        st.reqs.extend(reqs_f)
+        st.in_times.append(np.asarray(in_times, dtype=np.float64))
+        if mgr is not None:
+            st.roots.append(np.asarray(in_roots))
+        eng = st.eng
+        tick = st.tick
+        nxt = 0
+        if cfg.pacing == "arrival":
+            # open loop: submit at arrival ticks, run the engine
+            # only up to this feed's last arrival — no waiting for
+            # completions, so overload piles up in the ingress queues
+            end_tick = int(np.ceil(float(in_times[-1])))
+            while (nxt < m or tick < end_tick) and tick < cfg.max_ticks:
+                while due and due[0].at <= st.n + nxt:
+                    self._apply_event(st, due.pop(0), observer)
+                while nxt < m and in_times[nxt] <= tick:
+                    self._submit(st, reqs_f[nxt], in_keys, in_values, nxt)
+                    nxt += 1
+                eng.tick()
+                tick += 1
+            # arrivals sitting exactly on the final tick boundary
+            while nxt < m:
+                self._submit(st, reqs_f[nxt], in_keys, in_values, nxt)
+                nxt += 1
+        else:
+            target = len(eng.done) + eng.shed + m
+            while len(eng.done) + eng.shed < target \
+                    and tick < cfg.max_ticks:
+                while due and due[0].at <= st.n + nxt:
+                    self._apply_event(st, due.pop(0), observer)
+                while nxt < m and in_times[nxt] <= tick:
+                    self._submit(st, reqs_f[nxt], in_keys, in_values, nxt)
+                    nxt += 1
+                eng.tick()
+                tick += 1
+        st.tick = tick
+        st.n += m
+        if edge.src == SOURCE:
+            new_done = eng.done[st.done_seen:]
+            st.done_seen = len(eng.done)
+            self._feed_lats.append(np.array(
+                [r.finished - r.arrival for r in new_done]))
+        finishes = np.array([r.finished for r in reqs_f])
+        done = finishes >= 0
+        if done.any():
+            self._total_time = max(self._total_time,
+                                   float(finishes[done].max()))
+        if stage.name in self._sinks:
+            if cfg.pacing == "arrival":
+                # open loop: most of this feed's requests are still queued;
+                # e2e is collected once at close, after the drain
+                pass
+            else:
+                self._e2e.append((finishes - in_roots * self._dt)[done])
+        elif mgr is not None:
+            # windows that closed during this feed go downstream now; the
+            # remainder is released at close() (incremental emission)
+            fresh = mgr.drain_partials(st.emitted)
+            if fresh:
+                st.emitted += len(fresh)
+                all_fins = np.array([r.finished for r in st.reqs])
+                roots = np.concatenate(st.roots)
+                return _emit_partials(fresh, all_fins, roots,
+                                      float(st.eng.now))
+        else:  # intermediate stage: release transformed tuples
+            return _emit(stage, in_keys[done], finishes[done],
+                         in_roots[done],
+                         None if in_values is None else in_values[done])
+        return None
+
+    def _edge_report(self, edge: Edge) -> EdgeReport:
+        st = self._st.get(edge.name)
+        stage = self.topology.stage(edge.dst)
+        if st is None:  # the edge never received a tuple
+            return self._zero_report(edge, stage)
+        finishes = np.array([r.finished for r in st.reqs])
+        in_times = np.concatenate(st.in_times)
+        done = finishes >= 0
+        lats = (finishes - in_times)[done]
+        avg, p50, p95, p99 = _percentiles(lats)
+        router = st.eng.router
+        em = st.eng.metrics()
+        return EdgeReport(
+            edge=edge.name, src=edge.src, dst=edge.dst,
+            scheme=edge.grouping.scheme, workers=stage.parallelism,
+            n_tuples=st.n, execution_time=float(st.eng.now),
+            latency_avg=avg, latency_p50=p50, latency_p95=p95,
+            latency_p99=p99,
+            throughput=st.eng.total_tokens / max(st.eng.now, 1.0),
+            memory_overhead=router.memory_overhead(),
+            memory_overhead_norm=router.memory_overhead_normalized(),
+            imbalance=_imbalance(router.assigned_counts),
+            remap_events=st.acct.per_event,
+            remap_frac_mean=st.acct.frac_mean(),
+            dropped=int(st.n - done.sum()),
+            queue_depth_peak=em.queue_depth_peak,
+            in_flight_peak=em.in_flight_peak,
+            shed=em.shed,
+            time_in_queue_avg=em.time_in_queue_avg,
+            time_in_queue_p99=em.time_in_queue_p99,
+            migration_stall=(st.biller.billed_total if st.biller else 0.0),
+            **_state_extra(st.srep))
+
+    def _apply_event(self, st, event, observer) -> None:
+        eng = st.eng
+        if isinstance(event, MembershipEvent):
+            observer("pre_membership", eng.router, event)
+            target = {int(w) for w in event.workers}
+            for dead in [r for r in eng.alive if r not in target]:
+                eng.fail_replica(dead)
+            for new in sorted(target - set(eng.alive)):
+                if new != eng.num_replicas:
+                    raise ValueError(
+                        f"serving engine cannot add replica {new}: replica "
+                        f"ids are never reused and must extend the range "
+                        f"contiguously (next id is {eng.num_replicas})")
+                eng.add_replica(speed=1.0,
+                                slots=self.engine.slots_per_replica)
+            observer("post_membership", eng.router, event)
+            if st.biller is not None:
+                # tick-billed migration: the keyed state this
+                # event shipped stalls its destination replicas — they
+                # neither admit nor decode while ingesting it
+                for wk, ticks in st.biller.pop_charges().items():
+                    eng.stall_replica(wk, ticks)
+        elif isinstance(event, CapacityEvent):
+            for wk, cap in event.capacities.items():
+                eng.set_replica_speed(int(wk), 1.0 / max(float(cap), 1e-9))
+            observer("capacity", eng.router, event)
+        else:  # pragma: no cover - ScopedEvent validates on construction
+            raise TypeError(f"unknown event type {type(event).__name__}")

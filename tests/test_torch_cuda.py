@@ -824,3 +824,71 @@ def test_cuda_mamba_prefill_and_decode_match_plain():
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
     assert ssd.LAUNCHES["ssd_chunk_state"] == \
         before["ssd_chunk_state"] + cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
+def test_cuda_worker_growth_in_an_open_pane_matches_plain(scheme):
+    """A fused edge that scales out (8 → 10 workers: the runner's worker
+    lanes grow, the old phantom lane becomes a real worker) and back in
+    (worker 9 and then worker 3 removed) inside one open 4,096-tuple pane,
+    on the card and on the CPU's plain versions: every segment's routing
+    and finish times, the merged windows and the replica sets are equal bit
+    for bit (DC/WC counts stay far below 2^24)."""
+    import repro_torch.core as C
+    import repro_torch.topology as TP
+
+    _card()
+    n = 6_000
+    keys = zipf_time_evolving(n, num_keys=900, z=1.3, seed=8)
+    values = np.random.default_rng(9).integers(1, 10, n).astype(float)
+    events = [TP.ScopedEvent("agg", C.MembershipEvent(
+                  at=1_300, workers=tuple(range(10)))),
+              TP.ScopedEvent("agg", C.MembershipEvent(
+                  at=2_600, workers=tuple(range(9)))),
+              TP.ScopedEvent("agg", C.MembershipEvent(
+                  at=3_500, workers=(0, 1, 2, 4, 5, 6, 7, 8)))]
+    real = ff.fifo_workers
+    runs = {}
+    for device in ("cuda", "cpu"):
+        seen = []
+
+        def spy(scheme_, m, **kw):
+            workers, fin = real(scheme_, m, **kw)
+            seen.append((workers[:m].cpu().clone(), fin[:m].cpu().clone()))
+            return workers, fin
+
+        ff.fifo_workers = spy
+        try:
+            op = TP.WindowOp(agg="sum", value="payload", size=4_096,
+                             backend="device")
+            topo = TP.Topology(name=scheme,
+                               stages=(TP.Stage("agg", 8, operator=op),),
+                               edges=(TP.Edge("source", "agg",
+                                              TP.config_for(scheme)),))
+            sess = TP.SimulatorEngine(mode="fused", device=device).open(
+                topo, arrival_rate=2e4)
+            sess.advance(events)
+            ts = np.arange(n) / 2e4
+            w1 = []
+            for lo in range(0, n, 1_000):
+                sess.feed(TP.RecordBatch(keys[lo:lo + 1_000],
+                                         ts[lo:lo + 1_000],
+                                         values[lo:lo + 1_000]))
+                st = sess._st["source->agg"]
+                w1.append(st.state.device._w1)
+            grouper = sess._st["source->agg"].grouper
+            replicas = {k: sorted(v) for k, v in
+                        getattr(grouper, "replicas", {}).items()}
+            rep = sess.close()
+        finally:
+            ff.fifo_workers = real
+        runs[device] = (seen, rep.to_dict(), w1, replicas)
+    card, plain = runs["cuda"], runs["cpu"]
+    assert card[2] == plain[2] and card[2][0] == 9 and max(card[2]) == 11
+    assert len(card[0]) == len(plain[0]) > n // 1_000
+    for (wc_, fc_), (wp, fp) in zip(card[0], plain[0]):
+        assert torch.equal(wc_, wp)
+        assert torch.equal(fc_, fp)
+    assert card[1] == plain[1]
+    assert card[3] == plain[3]

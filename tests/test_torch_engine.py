@@ -137,6 +137,82 @@ def test_fused_events_device_store_match_jax_fused(scheme, stream):
             rr.state["agg"]["migration_bytes"]
 
 
+def _two_hop(T, scheme, backend):
+    """source → split (hashed_fanout ×2) → windowed count sink, the scheme
+    on both edges."""
+    op = T.WindowOp(agg="count", size=1_200, backend=backend)
+    return T.Topology(
+        name="two-hop",
+        stages=(T.Stage("split", 4, transform=T.hashed_fanout(2, vocab=300)),
+                T.Stage("count", 8, operator=op)),
+        edges=(T.Edge("source", "split", T.config_for(scheme)),
+               T.Edge("split", "count", T.config_for(scheme))))
+
+
+def _two_hop_events(T):
+    C = PC if T is PT else RC
+    return [T.ScopedEvent("split", C.MembershipEvent(at=900,
+                                                     workers=(0, 1, 2))),
+            T.ScopedEvent("count", C.MembershipEvent(
+                at=2_000, workers=tuple(range(10)))),
+            T.ScopedEvent("count", C.CapacityEvent(at=3_100,
+                                                   capacities={0: 4e-3})),
+            T.ScopedEvent("count", C.MembershipEvent(
+                at=4_400, workers=tuple(range(1, 10))))]
+
+
+def _edge_row(e):
+    return dict(e.row(), n_tuples=e.n_tuples)
+
+
+@pytest.mark.parametrize("scheme", ["sg", "pkg", "fish"])
+def test_two_hop_with_scoped_events_matches_jax(scheme, stream):
+    """A word-count topology — a ``hashed_fanout`` stage, then a windowed
+    sink — with membership and capacity events scoped to both edges, fed in
+    three batches, under the array and the device store.
+
+    Batched: the port's report equals the JAX package's (array store; the
+    device store's run equals it in every edge and every merged window).
+    Fused (``device="cpu"``): the first edge meets its contract against
+    the JAX fused engine (``contracts.row_violations``).  The sink edge's
+    input is ordered by the first edge's finish times, which both fused
+    engines round differently from the host (the port in float64 relative
+    time, the reference in float32), so near-ties may swap and the sink
+    edge is held to the DESIGN.md §6 bands for every scheme; its merged
+    windows, segments and remaps equal the JAX fused engine's."""
+    from repro_torch.analysis.contracts import band_violations, \
+        row_violations
+
+    keys, values = stream
+    want_b = run_session(RT, "batched", _two_hop(RT, scheme, "array"), keys,
+                         values, feeds=3, events=_two_hop_events(RT))
+    want_f = run_session(RT, "fused", _two_hop(RT, scheme, "array"), keys,
+                         values, feeds=3, events=_two_hop_events(RT))
+    for backend in ("array", "device"):
+        got_b = run_session(PT, "batched", _two_hop(PT, scheme, backend),
+                            keys, values, feeds=3,
+                            events=_two_hop_events(PT), device=CPU)
+        db, dw = got_b.to_dict(), want_b.to_dict()
+        if backend == "array":
+            assert db == dw
+        assert db["edges"] == dw["edges"]
+        assert got_b.state["count"]["merged"] == \
+            want_b.state["count"]["merged"]
+        got_f = run_session(PT, "fused", _two_hop(PT, scheme, backend),
+                            keys, values, feeds=3,
+                            events=_two_hop_events(PT), device=CPU)
+        (p1, p2), (r1, r2) = got_f.edges, want_f.edges
+        assert row_violations(scheme, _edge_row(p1), _edge_row(r1)) == []
+        assert band_violations(_edge_row(p2), _edge_row(r2)) == []
+        for ep, er in ((p1, r1), (p2, r2)):
+            assert ep.n_tuples == er.n_tuples
+            assert ep.dispatches == er.dispatches
+            assert len(ep.remap_events) == len(er.remap_events)
+        assert len(p2.remap_events) == 2
+        assert got_f.state["count"]["merged"] == \
+            want_f.state["count"]["merged"]
+
+
 @pytest.mark.parametrize("scheme", DRIFT)
 def test_fused_same_seed_double_run_bit_identical(scheme, stream):
     keys, values = stream
