@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's four device paths, each with the launch counters of
+Drives the port's five device paths, each with the launch counters of
 its kernels set to 0 just before it and read just after, and checks each:
 
 A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
@@ -44,6 +44,25 @@ D. **The time-evolving control plane** on the fused engine, after path C:
    in the flash crowd that grows the runner's worker lanes on the card,
    SG/FG/PKG equal to the host engine.  D3 one traced FISH session,
    written through ``TraceWriter``, validated and summarized by span.
+E. **The dense decoder family**, after path D (it brings no kernel: its
+   attention is plain tensor ops, as the reference's XLA scan; the path
+   fails if it calls ``scaled_dot_product_attention`` or
+   ``torch.compile``).  E1 qwen1.5-0.5b at its published widths (24
+   layers, d_model 1024, 16 heads x 64, vocab 151,936, bf16, random
+   weights from the seed): a prefill of 4 x 4,096 (``prefill_32k`` cut
+   for time, as path C), the prefill-then-decode check (4,095 tokens, the
+   cache placed in one of 4,096 + 32, token 4,096 against the full
+   prefill), 32 decode steps at batch 4, and ``ServingEngine`` with
+   ``launch/serve.py``'s defaults (``max_seq`` 128, so decodes past the
+   cache's end take the reference's clamp).  E2 gemma2-2b at its
+   published widths: a prefill of 2 x 8,192 (past the 4,096 window of
+   the local layers), the same check at 8,191 -> 8,192, 8 decode steps,
+   every real logit within the softcap 30.  E3 the four dense archs at
+   ``reduced_config`` in float32, card against host on one set of
+   weights, prefill and 4 decode steps within 1e-3.  Then one E1 layer's
+   ``flash_attention`` (CUDA events) beside PyTorch's
+   ``scaled_dot_product_attention`` on the same float32 q/k/v (a library
+   time only).
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
@@ -108,6 +127,10 @@ OL_WORKERS, OL_MAX_WORKERS = 32, 128   # D2: the autoscaler's rails
 OL_RATE = 100_000.0  # D2: mean offered tuples/s (~5,000 a 0.05 s tick)
 OL_HORIZON = 4.0     # D2: seconds of arrivals
 OL_SLO_P99 = 0.05    # D2: the autoscaler's p99 target, s
+E2_PROMPTS, E2_LEN = 2, 8_192   # E2: gemma2-2b, past its 4,096 window
+E2_DECODE = 8        # E2: decode steps after the consistency step
+E3_LEN = 40          # E3: prompt, past the reduced gemma2's window of 32
+E3_TOL = 1e-3        # E3: card vs host, float32 (tests/test_torch_dense.py)
 
 REPO = Path(__file__).resolve().parent
 
@@ -1075,16 +1098,7 @@ def mamba_path(seed, dev, torch, np):
         step, _ = MT.decode_step(params, c2, toks[:, prompt_len - 1:
                                                   prompt_len], cfg)
         del c2
-        a_, b_ = step[:, :vocab].float(), logits[:, :vocab].float()
-        gap = (a_ - b_).abs()
-        bad = gap > CONSIST["atol"] + CONSIST["rtol"] * b_.abs()
-        if bool(bad.any()):
-            fail(f"mamba prefill-then-decode: {int(bad.sum())} logits beyond "
-                 f"rtol {CONSIST['rtol']} atol {CONSIST['atol']} (max gap "
-                 f"{float(gap.max())})")
-        log(f"check mamba prefill-then-decode: ok (max |gap| "
-            f"{float(gap.max()):.4f}, rtol {CONSIST['rtol']} atol "
-            f"{CONSIST['atol']})")
+        consistency("mamba", step, logits, vocab)
 
         # decode from the full prefill
         tok = torch.argmax(logits[:, :vocab], -1)[:, None].to(torch.int32)
@@ -1258,6 +1272,279 @@ def prefill_split(captured, rows, torch):
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# path E: the dense decoder family at full width
+# ---------------------------------------------------------------------------
+
+
+def consistency(what, step, full, vocab):
+    """Decoding token S after a prefill of S-1 gives the S-token prefill's
+    last logits within ``CONSIST``; returns the largest gap."""
+    a, b = step[:, :vocab].float(), full[:, :vocab].float()
+    gap = (a - b).abs()
+    bad = gap > CONSIST["atol"] + CONSIST["rtol"] * b.abs()
+    if bool(bad.any()):
+        fail(f"{what} prefill-then-decode: {int(bad.sum())} logits beyond "
+             f"rtol {CONSIST['rtol']} atol {CONSIST['atol']} (max gap "
+             f"{float(gap.max())})")
+    log(f"check {what} prefill-then-decode: ok (max |gap| "
+        f"{float(gap.max()):.4f}, rtol {CONSIST['rtol']} atol "
+        f"{CONSIST['atol']})")
+    return float(gap.max())
+
+
+def dense_prefill(what, MT, params, cfg, toks, torch):
+    """One timed prefill; fails on logits not finite or misshapen."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, logits = MT.prefill(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if logits.shape != (toks.shape[0], MT.padded_vocab(cfg)) or not bool(
+            torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        fail(f"{what} prefill: logits {tuple(logits.shape)} not finite")
+    return cache, logits, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def dense_decode(what, MT, params, cfg, cache, tok, steps, torch, np,
+                 cap=None):
+    """``steps`` greedy decode steps, each synchronized and timed; fails
+    on non-finite logits or, with ``cap``, a real logit beyond it."""
+    vocab, walls = cfg.vocab_size, []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = MT.decode_step(params, cache, tok, cfg)
+        tok = torch.argmax(lg[:, :vocab], -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        real = lg[:, :vocab]
+        if not bool(torch.isfinite(real).all()):
+            fail(f"{what} decode: non-finite logits")
+        if cap is not None and float(real.abs().max()) > cap + 1e-3:
+            fail(f"{what} decode: |logit| {float(real.abs().max())} beyond "
+                 f"the softcap {cap}")
+    w = np.asarray(walls) * 1e3
+    log(f"{what} decode {steps} steps, batch {tok.shape[0]}, to position "
+        f"{cache['pos']}: p50 {np.percentile(w, 50):.2f} ms p99 "
+        f"{np.percentile(w, 99):.2f} ms per step (host wall, "
+        f"synchronized)")
+    return cache
+
+
+def dense_path(seed, dev, torch, np):
+    """E1 qwen1.5-0.5b and E2 gemma2-2b at their published widths, E3 the
+    four dense archs on the card against the host.  Returns E1's first
+    prefill's layer-0 ``flash_attention`` call (args, kwargs) for the
+    timing line.  Fails if anything on the path calls PyTorch's fused
+    attention or ``torch.compile``."""
+    import copy
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as MT
+
+    captured, banned = {}, {"scaled_dot_product_attention": 0, "compile": 0}
+    real_flash, real_sdpa, real_compile = (
+        MT.flash_attention, F.scaled_dot_product_attention, torch.compile)
+
+    def flash(*args, **kwargs):
+        if "flash_attention" not in captured:  # E1's layer 0
+            captured["flash_attention"] = (
+                tuple(a.clone() for a in args), dict(kwargs))
+        return real_flash(*args, **kwargs)
+
+    def ban(name, fn):
+        def call(*args, **kwargs):
+            banned[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    MT.flash_attention = flash
+    F.scaled_dot_product_attention = ban("scaled_dot_product_attention",
+                                         real_sdpa)
+    torch.compile = ban("compile", real_compile)
+    try:
+        _dense_e1(seed, dev, torch, np, MT, serve, get_config)
+        _dense_e2(seed, dev, torch, np, MT, get_config)
+        # E3: the card against the host on one set of float32 weights
+        for arch in ("qwen1.5-0.5b", "starcoder2-3b", "olmo-1b",
+                     "gemma2-2b"):
+            cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                      dtype="float32")
+            host = MT.init_params(cfg, seed=seed, device="cpu")
+            card = copy.deepcopy(host).to(dev)
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (2, E3_LEN + 4)).astype(np.int32))
+            gaps = []
+            runs = []
+            for params, where in ((card, dev), (host, "cpu")):
+                t = toks.to(where)
+                cache, lg = MT.prefill(params, {"tokens": t[:, :E3_LEN]}, cfg)
+                cache = MT.grow_cache(cfg, cache, E3_LEN + 4)
+                out = [lg]
+                for i in range(E3_LEN, E3_LEN + 4):
+                    lg, cache = MT.decode_step(params, cache, t[:, i:i + 1],
+                                               cfg)
+                    out.append(lg)
+                runs.append([x[:, :cfg.vocab_size].cpu() for x in out])
+            for a, b in zip(*runs):
+                gap = (a - b).abs()
+                gaps.append(float(gap.max()))
+                if bool((gap > E3_TOL * (1.0 + b.abs())).any()):
+                    fail(f"E3 {arch}: card vs host max |gap| "
+                         f"{float(gap.max())} beyond {E3_TOL}")
+            log(f"check E3 {arch} (reduced, float32, prefill {E3_LEN} + 4 "
+                f"decode steps): card vs host ok, max |gap| prefill "
+                f"{gaps[0]:.2e}, decode {max(gaps[1:]):.2e} (tol {E3_TOL})")
+    finally:
+        MT.flash_attention = real_flash
+        F.scaled_dot_product_attention = real_sdpa
+        torch.compile = real_compile
+    if any(banned.values()):
+        fail(f"path E called a fused attention or torch.compile: {banned}")
+    log(f"path E: scaled_dot_product_attention and torch.compile called "
+        f"0 times")
+    return captured["flash_attention"]
+
+
+def _dense_e1(seed, dev, torch, np, MT, serve, get_config):
+    cfg = get_config("qwen1.5-0.5b")
+    vocab, prompts, n = cfg.vocab_size, PROMPTS, PROMPT_LEN
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    log(f"E1 qwen1.5-0.5b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {vocab}, {cfg.dtype}: "
+        f"{MT.num_params(params):,} parameters, random init (seed {seed})")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (prompts, n + 1)).astype(np.int32)).to(dev)
+    _, full, wall, peak = dense_prefill("E1", MT, params, cfg, toks[:, :n],
+                                        torch)
+    log(f"E1 prefill {prompts} x {n} (prefill_32k's 32 x 32,768 cut for "
+        f"time): {wall:.3f} s, {prompts * n / wall:,.0f} tokens/s, peak "
+        f"{peak:.2f} GiB")
+    cache, _, wall2, _ = dense_prefill("E1", MT, params, cfg,
+                                       toks[:, :n - 1], torch)
+    cache = MT.grow_cache(cfg, cache, n + DECODE_STEPS)
+    step, cache = MT.decode_step(params, cache, toks[:, n - 1:n], cfg)
+    consistency("E1 qwen1.5-0.5b", step, full, vocab)
+    log(f"E1 second prefill {prompts} x {n - 1}: {wall2:.3f} s, "
+        f"{prompts * (n - 1) / wall2:,.0f} tokens/s")
+    tok = torch.argmax(step[:, :vocab], -1)[:, None].to(torch.int32)
+    cache = dense_decode("E1", MT, params, cfg, cache, tok, DECODE_STEPS,
+                         torch, np)
+    if cache["pos"] != n - 1 + DECODE_STEPS:
+        fail(f"E1 decode: position {cache['pos']}")
+    del cache, full, step
+
+    # the serving engine over two replicas (launch/serve.py defaults):
+    # logits checked on the device, read once at the end
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    real_step = MT.decode_step
+
+    def checked(*args, **kwargs):
+        lg, c = real_step(*args, **kwargs)
+        bad.add_((~torch.isfinite(lg[:, :vocab])).sum())
+        return lg, c
+
+    MT.decode_step = checked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, reps = serve.serve(cfg, params, device=dev)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        MT.decode_step = real_step
+    m = eng.metrics()
+    steps = sum(r.tokens_generated for r in reps) // reps[0].tokens.shape[0]
+    max_seq = reps[0].cache["layers"][0].shape[-3]
+    clamped = sum(max(0, r.cache["pos"] + 1 - max_seq) for r in reps)
+    if len(eng.done) != 64 or m.shed or int(bad):
+        fail(f"E1 serving: {len(eng.done)} of 64 requests done, "
+             f"{int(bad)} non-finite logits")
+    log(f"check E1 serving: ok, 64 requests over 2 replicas x 4 slots in "
+        f"{eng.now:.0f} ticks, p50 {m.latency_p50:.1f} p99 "
+        f"{m.latency_p99:.1f} ticks, {m.throughput_tokens:.2f} tok/tick, "
+        f"session replication {m.session_replicas_norm:.2f}x; {steps} "
+        f"decode steps in {serve_s:.2f} s ({serve_s / max(steps, 1) * 1e3:.2f}"
+        f" ms per step), {clamped} of them at pos >= max_seq {max_seq} (the "
+        f"reference's clamp), every logit finite")
+
+
+def _dense_e2(seed, dev, torch, np, MT, get_config):
+    cfg = get_config("gemma2-2b")
+    vocab, prompts, n, cap = cfg.vocab_size, E2_PROMPTS, E2_LEN, \
+        cfg.logit_softcap
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    log(f"E2 gemma2-2b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads x {cfg.head_dim}, "
+        f"windows {cfg.local_global_pattern} of {cfg.sliding_window}, "
+        f"softcaps {cfg.attn_softcap} / {cap}, tied head, {cfg.dtype}: "
+        f"{MT.num_params(params):,} parameters, random init (seed {seed})")
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, vocab, (prompts, n)).astype(np.int32)).to(dev)
+    _, full, wall, peak = dense_prefill("E2", MT, params, cfg, toks, torch)
+    if float(full[:, :vocab].abs().max()) > cap + 1e-3:
+        fail(f"E2 prefill: |logit| beyond the softcap {cap}")
+    log(f"E2 prefill {prompts} x {n} (past the {cfg.sliding_window} window"
+        f" of the local layers): {wall:.3f} s, {prompts * n / wall:,.0f} "
+        f"tokens/s, peak {peak:.2f} GiB")
+    cache, _, _, _ = dense_prefill("E2", MT, params, cfg, toks[:, :n - 1],
+                                   torch)
+    cache = MT.grow_cache(cfg, cache, n + E2_DECODE)
+    step, cache = MT.decode_step(params, cache, toks[:, n - 1:n], cfg)
+    consistency("E2 gemma2-2b", step, full, vocab)
+    tok = torch.argmax(step[:, :vocab], -1)[:, None].to(torch.int32)
+    dense_decode("E2", MT, params, cfg, cache, tok, E2_DECODE, torch, np,
+                 cap=cap)
+    log(f"check E2 gemma2-2b softcap: ok, every real logit within "
+        f"{cap} + 1e-3")
+
+
+def attention_times(call, torch):
+    """E1's layer-0 ``flash_attention`` (CUDA events) beside PyTorch's
+    ``scaled_dot_product_attention`` on the same float32 q/k/v, as a
+    library time only, with the causal work's bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as attn
+
+    (q, k, v), kw = call
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    ms = time_cuda(lambda: attn.flash_attention(q, k, v, **kw), 5, torch)
+    out = attn.flash_attention(q, k, v, **kw).float()
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    extra = {"enable_gqa": True} if hq != hkv else {}
+    scale = kw.get("scale") or 1.0 / dh ** 0.5
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
+                                              scale=scale, **extra)
+
+    lib_ms = time_cuda(sdpa, 5, torch)
+    gap = float((sdpa().transpose(1, 2) - out).abs().max())
+    ops = 4.0 * b * hq * dh * s * (s + 1) / 2  # QK^T and PV, causal half
+    bytes_ = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(ops / F32_OPS, bytes_ / HBM_BPS) * 1e3
+    row = {"what": "flash_attention, E1 qwen1.5-0.5b layer 0",
+           "shape": [b, s, hq, hkv, dh], "block_k": kw.get("block_k"),
+           "ms": ms, "sdpa_f32_ms": lib_ms, "sdpa_max_abs_gap": gap,
+           "bound_ms": bound, "bound_by": "operations"
+           if ops / F32_OPS >= bytes_ / HBM_BPS else "bytes"}
+    log(f"attention E1 layer 0 ({b} x {s}, {hq} heads x {dh}, block_k "
+        f"{kw.get('block_k')}): flash_attention {ms:.3f} ms (CUDA events); "
+        f"scaled_dot_product_attention float32 {lib_ms:.3f} ms (library "
+        f"time only, max |gap| {gap:.2e}); bound {bound:.3f} ms (causal "
+        f"float32 operations at {F32_OPS / 1e12:.0f} TFLOP/s)")
+    log(f"attention: {json.dumps(row)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1837,6 +2124,10 @@ def main() -> int:
     scenario_path(dev, torch, syncs, n_tuples=args.scenario_tuples)
     log(f"path D (scenarios, open loop, trace) done at "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- path E: the dense decoder family -----------------------------------------
+    attention_times(dense_path(args.seed, dev, torch, np), torch)
+    log(f"path E (dense family) done at {time.perf_counter() - t_start:.1f} s")
 
     # path A's and B's kernels last: their device times come from
     # torch.profiler, whose tracing is kept away from the timed paths

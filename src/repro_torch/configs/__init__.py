@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures the port runs are registered: ``mamba2-780m``, the
-model whose prefill runs the SSD kernels.
+Only the architectures the port runs are registered: the dense family
+(``qwen1.5-0.5b``, ``starcoder2-3b``, ``olmo-1b``, ``gemma2-2b``) and
+``mamba2-780m``, the model whose prefill runs the SSD kernels.
 """
 
 import importlib
@@ -12,6 +13,10 @@ from .base import (MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SHAPES,
 
 _ARCH_MODULES = {
     "mamba2-780m": "mamba2_780m",
+    "qwen1.5-0.5b": "qwen15_05b",
+    "starcoder2-3b": "starcoder2_3b",
+    "olmo-1b": "olmo_1b",
+    "gemma2-2b": "gemma2_2b",
 }
 
 

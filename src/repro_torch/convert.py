@@ -242,21 +242,31 @@ def _tensor(a) -> torch.Tensor:
 
 def model_params_from_reference(np_params, cfg, device=None):
     """The port's model (:class:`repro_torch.models.transformer.Model`)
-    holding a reference parameter pytree, read as numpy arrays (the SSM
-    family's: ``embed``, ``final_norm``, ``head``, and ``stack`` with every
-    layer leaf stacked on a leading layer axis).  Values and dtypes carry
-    over bit for bit; ``device`` ``None`` = ``"cuda"``."""
-    from .models.transformer import Model
+    holding a reference parameter pytree, read as numpy arrays: ``embed``,
+    ``final_norm``, ``head`` unless tied, and ``stack`` with every layer
+    leaf stacked on a leading layer axis — two, ``(L // pat, pat)``, under
+    a local/global pattern of ``pat`` layers, layer ``i`` at
+    ``[i // pat, i % pat]``.  The port's parameter names are the
+    reference's paths (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``;
+    an empty norm dict, OLMo's, has no parameter).  Values and dtypes
+    carry over bit for bit; ``device`` ``None`` = ``"cuda"``."""
+    from .models.transformer import Model, _pattern
+
+    def leaf(tree, dotted):
+        for part in dotted.split("."):
+            tree = tree[part]
+        return tree
 
     model = Model(cfg, device=resolve_device(device))
-    stack = np_params["stack"]
+    pat = _pattern(cfg)
     with torch.no_grad():
-        model.embed.copy_(_tensor(np_params["embed"]))
-        model.final_norm.copy_(_tensor(np_params["final_norm"]["scale"]))
-        if model.head is not None:
-            model.head.copy_(_tensor(np_params["head"]))
-        for i, layer in enumerate(model.layers):
-            layer.ln1.copy_(_tensor(stack["ln1"]["scale"][i]))
-            for name, param in layer.mamba.named_parameters():
-                param.copy_(_tensor(stack["mamba"][name][i]))
+        for name, param in model.named_parameters():
+            if name.startswith("layers."):
+                _, i, rest = name.split(".", 2)
+                i = int(i)
+                a = leaf(np_params["stack"], rest)
+                a = a[i] if pat == 1 else a[i // pat][i % pat]
+            else:
+                a = leaf(np_params, name)
+            param.copy_(_tensor(a))
     return model

@@ -9,7 +9,7 @@ the model is the architecture's reduced config, as the JAX package's
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 64 --replicas 2 [--full] [--device cpu]
 """
 
@@ -78,7 +78,7 @@ def serve(cfg, params, *, replicas: int = 2, slots: int = 4,
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-780m", choices=list_archs())
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--replicas", type=int, default=2)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=64)

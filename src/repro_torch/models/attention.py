@@ -1,0 +1,120 @@
+"""Attention of the port: the blockwise (flash-style) prefill path and the
+O(S) decode path, with GQA/MQA, sliding windows and soft-capping.
+
+The JAX package runs both on XLA (a ``lax.scan`` over KV blocks and
+einsums), not on a Pallas kernel, and so does the port: plain tensor ops
+on the card too — per KV block two ``einsum``s and the elementwise online
+softmax, the (Sq, Skv) score matrix never materialised.  All score math
+is float32; the output is cast to q's dtype.  GQA reshapes q to
+``(B, Sq, Hkv, rep, dh)``: query head ``h`` reads kv head ``h // rep``.
+DeepSeek MLA waits for that family's slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .common import soft_cap
+
+__all__ = ["flash_attention", "decode_attention"]
+
+_NEG_INF = -1e30
+
+
+def _block_mask(q_pos, k_pos, window: Optional[int]):
+    """(Sq, Bk) causal mask from absolute positions: 0 <= q − k < window."""
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = rel >= 0
+    if window is not None:
+        mask &= rel < window
+    return mask
+
+
+def flash_attention(q, k, v, *, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, block_k: int = 1024):
+    """Causal blockwise attention with an online softmax (the decoders'
+    self-attention; the reference's non-causal encoder and cross
+    attention wait for the encoder-decoder slice).
+
+    q: (B, Sq, Hq, dh); k, v: (B, Skv, Hkv, dh) with Hq % Hkv == 0, query
+    ``i`` at position ``i``.  Returns (B, Sq, Hq, dv) in q.dtype.  The KV
+    axis is padded to a multiple of ``block_k`` and the padded positions
+    masked.
+    """
+    b, sq, hq, dh = q.shape
+    skv_orig, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    dev = q.device
+
+    block_k = min(block_k, skv_orig)
+    n_blocks = -(-skv_orig // block_k)
+    qf = (q.float() * scale).reshape(b, sq, hkv, rep, dh)
+    q_pos = torch.arange(sq, device=dev)
+
+    m_run = torch.full((b, hkv, rep, sq), _NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, rep, sq, dv), dtype=torch.float32, device=dev)
+    for blk in range(n_blocks):
+        lo = blk * block_k
+        k_blk = k[:, lo:lo + block_k].float()
+        v_blk = v[:, lo:lo + block_k].float()
+        pad = block_k - k_blk.shape[1]
+        if pad:  # the tail block, padded to block_k; its pad is masked
+            k_blk = torch.nn.functional.pad(k_blk, (0, 0, 0, 0, 0, pad))
+            v_blk = torch.nn.functional.pad(v_blk, (0, 0, 0, 0, 0, pad))
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qf, k_blk)  # (B,Hkv,rep,Sq,Bk)
+        s = soft_cap(s, softcap)  # before the mask, as the reference
+        k_pos = lo + torch.arange(block_k, device=dev)
+        mask = _block_mask(q_pos, k_pos, window)
+        mask &= (k_pos < skv_orig)[None, :]
+        s = torch.where(mask, s, _NEG_INF)
+
+        m_new = torch.maximum(m_run, s.amax(-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(m_new <= _NEG_INF, 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        corr = torch.exp(torch.where(m_run <= _NEG_INF, _NEG_INF,
+                                     m_run - m_safe))
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p,
+                                                   v_blk)
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]  # (B,Hkv,rep,Sq,dv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cur_pos: int, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None):
+    """One-token attention against a (possibly partially filled) KV cache.
+
+    q: (B, 1, Hq, dh); caches: (B, S, Hkv, dh); cur_pos: the position of
+    the new token (cache slots at positions <= cur_pos are valid, and
+    inside the window when one is given).
+    """
+    b, _, hq, dh = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+
+    qf = (q.float() * scale).reshape(b, hkv, rep, dh)
+    scores = torch.einsum("bhrd,bkhd->bhrk", qf, k_cache.float())
+    scores = soft_cap(scores, softcap)
+    k_pos = torch.arange(s, device=q.device)
+    valid = k_pos <= cur_pos
+    if window is not None:
+        valid &= (cur_pos - k_pos) < window
+    scores = torch.where(valid, scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrk,bkhd->bhrd", p, v_cache.float())
+    return out.reshape(b, 1, hq, -1).to(q.dtype)

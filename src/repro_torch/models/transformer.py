@@ -1,18 +1,26 @@
-"""Model assembly of the port: the SSM (Mamba-2) family.
+"""Model assembly of the port: the SSM (Mamba-2) and dense decoder families.
 
 Entry points as in the JAX package's ``models/transformer.py``:
 
 * :func:`init_params` — the model's parameters (an ``nn.Module``), drawn
   from a seeded ``torch.Generator`` on the device;
 * :func:`prefill` — the full-sequence pass that also builds the decode
-  cache, through the SSD chunk kernels;
+  cache (the SSM family's through the SSD chunk kernels);
 * :func:`decode_step` — one token against the cache (the serving step);
 * :func:`init_cache` — a zero decode cache.
 
+The dense family (qwen1.5, starcoder2, olmo, gemma2: GQA/MQA, QKV bias,
+sliding windows on a local/global pattern, soft-capping, post-norms,
+tied heads) runs its attention in plain tensor ops
+(:mod:`repro_torch.models.attention`), as the JAX package runs it on XLA.
+
 The JAX package scans over layers stacked on a leading axis; here the
 layers are an ``nn.ModuleList`` walked by a Python loop.  The decode
-cache keeps the stacked layout (``conv`` (L, B, d_conv−1, C), ``ssm``
-(L, B, H, N, P)).  Other families of the zoo are not ported yet.
+cache keeps the stacked layout: the SSM family's ``conv``
+(L, B, d_conv−1, C) and ``ssm`` (L, B, H, N, P); the dense family's
+(k, v), each (L, B, S, Hkv, dh), or (L//pat, pat, B, S, Hkv, dh) with a
+local/global pattern of ``pat`` layers.  MoE, MLA, Griffin,
+encoder-decoder and embedding-input models are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,10 +34,13 @@ from torch import nn
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from . import ssm as ssm_mod
-from .common import apply_norm, dtype_of
+from .attention import decode_attention, flash_attention
+from .common import activation_fn, apply_norm, apply_rope, dtype_of, soft_cap
 
 __all__ = ["Model", "padded_vocab", "init_params", "prefill", "decode_step",
-           "init_cache", "num_params"]
+           "init_cache", "grow_cache", "num_params"]
+
+BLOCK_K = 1024  # the KV block of the prefill's online softmax
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -39,9 +50,86 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.ssm is None:
+    """The SSM and dense families run; every other raises, with why."""
+    if cfg.ssm is not None:
+        return
+    missing = [what for what, on in (
+        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
+        ("Griffin (RG-LRU)", cfg.rglru is not None),
+        ("encoder-decoder", bool(cfg.encoder_layers)),
+        ("embedding input (frontend stubs)", cfg.embeds_input)) if on]
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the SSM (Mamba-2) family only")
+            f"{cfg.name}: {', '.join(missing)} is not ported yet; the port "
+            "runs the SSM (Mamba-2) and dense decoder families")
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE waits for the qwen2-vl slice")
+
+
+def _pattern(cfg: ModelConfig) -> int:
+    return len(cfg.local_global_pattern) if cfg.local_global_pattern else 1
+
+
+def _windows(cfg: ModelConfig):
+    """The attention window of each layer of a pattern group."""
+    pat = cfg.local_global_pattern
+    return [cfg.sliding_window if (pat and pat[i] == "local") else None
+            for i in range(_pattern(cfg))]
+
+
+def _param(shape, dtype, device):
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Norm(nn.Module):
+    """A norm's weights, as the JAX package's ``_norm_params``: ``scale``
+    (rmsnorm, rmsnorm_plus_one), ``scale`` and ``bias`` (layernorm), none
+    (nonparametric)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        has = cfg.norm != "nonparametric"
+        self.scale = _param(cfg.d_model, dtype, device) if has else None
+        self.bias = (_param(cfg.d_model, dtype, device)
+                     if cfg.norm == "layernorm" else None)
+
+
+class Attention(nn.Module):
+    """``wq`` (D, Hq·dh), ``wk``/``wv`` (D, Hkv·dh), ``wo`` (Hq·dh, D), and
+    ``bq``/``bk``/``bv`` with ``qkv_bias``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, hq, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim)
+        self.wq = _param((d, hq * dh), dtype, device)
+        self.wk = _param((d, hkv * dh), dtype, device)
+        self.wv = _param((d, hkv * dh), dtype, device)
+        self.wo = _param((hq * dh, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _param(hq * dh, dtype, device)
+            self.bk = _param(hkv * dh, dtype, device)
+            self.bv = _param(hkv * dh, dtype, device)
+
+
+class MLP(nn.Module):
+    """Gated (``w_gate``, ``w_up``, ``w_down``: swiglu, geglu) or plain
+    (``w_in``, ``b_in``, ``w_out``, ``b_out``: starcoder2)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            self.w_gate = _param((d, f), dtype, device)
+            self.w_up = _param((d, f), dtype, device)
+            self.w_down = _param((f, d), dtype, device)
+        else:
+            self.w_in = _param((d, f), dtype, device)
+            self.b_in = _param(f, dtype, device)
+            self.w_out = _param((f, d), dtype, device)
+            self.b_out = _param(d, dtype, device)
 
 
 class MambaLayer(nn.Module):
@@ -49,16 +137,30 @@ class MambaLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
+        self.ln1 = Norm(cfg, dtype, device)
         self.mamba = ssm_mod.Mamba2(cfg.d_model, cfg.ssm, dtype, device)
 
 
+class DenseLayer(nn.Module):
+    """norm → attention → residual, norm → MLP → residual; with
+    ``post_norms`` (gemma2) each sub-block's output is normed too."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, dtype, device)
+        self.ln2 = Norm(cfg, dtype, device)
+        if cfg.post_norms:
+            self.ln1_post = Norm(cfg, dtype, device)
+            self.ln2_post = Norm(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+
 class Model(nn.Module):
-    """The parameters of an SSM-family model, in the JAX package's layout
-    (``embed`` (PV, D), ``head`` (D, PV), layer ``i`` = its ``stack`` leaves'
-    row ``i``).  Uninitialised: :func:`init_params` draws them, or
+    """The parameters of a model, in the JAX package's layout (``embed``
+    (PV, D), ``head`` (D, PV), layer ``i`` = its ``stack`` leaves' row
+    ``i``, or ``[i // pat, i % pat]`` under a local/global pattern).
+    Uninitialised: :func:`init_params` draws them, or
     :func:`repro_torch.convert.model_params_from_reference` copies them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -66,17 +168,13 @@ class Model(nn.Module):
         _check_family(cfg)
         dtype = dtype_of(cfg.dtype)
         pv = padded_vocab(cfg)
-
-        def param(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
-
         self.cfg = cfg
-        self.embed = param(pv, cfg.d_model)
-        self.final_norm = param(cfg.d_model)
-        self.head = None if cfg.tie_embeddings else param(cfg.d_model, pv)
-        self.layers = nn.ModuleList(MambaLayer(cfg, dtype, device)
+        self.embed = _param((pv, cfg.d_model), dtype, device)
+        self.final_norm = Norm(cfg, dtype, device)
+        self.head = (None if cfg.tie_embeddings
+                     else _param((cfg.d_model, pv), dtype, device))
+        layer = MambaLayer if cfg.ssm is not None else DenseLayer
+        self.layers = nn.ModuleList(layer(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
 
 
@@ -92,14 +190,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
         t.copy_(torch.randn(t.shape, generator=gen, device=dev,
                             dtype=torch.float32) * std)
 
+    def norm(n: Norm):
+        if n.scale is not None:
+            n.scale.fill_(0.0 if cfg.norm == "rmsnorm_plus_one" else 1.0)
+        if n.bias is not None:
+            n.bias.zero_()
+
     with torch.no_grad():
         normal(model.embed, 0.02)
-        model.final_norm.fill_(1.0)
+        norm(model.final_norm)
         if model.head is not None:
             normal(model.head, 0.02)
         for layer in model.layers:
-            layer.ln1.fill_(1.0)
-            ssm_mod._init_mamba2_(layer.mamba, gen)
+            for child in layer.children():
+                if isinstance(child, Norm):
+                    norm(child)
+            if cfg.ssm is not None:
+                ssm_mod._init_mamba2_(layer.mamba, gen)
+                continue
+            # as _init_attn / _init_mlp: every matrix N(0, 1/fan_in), with
+            # fan_in its rows; every bias zero
+            for sub in (layer.attn, layer.mlp):
+                for w in sub.parameters():
+                    if w.dim() == 2:
+                        normal(w, 1.0 / math.sqrt(w.shape[0]))
+                    else:
+                        w.zero_()
     return model
 
 
@@ -107,12 +223,12 @@ def num_params(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _norm(cfg: ModelConfig, scale, x):
-    return apply_norm(x, scale, cfg.norm, cfg.norm_eps)
+def _norm(cfg: ModelConfig, n: Norm, x):
+    return apply_norm(x, n.scale, cfg.norm, cfg.norm_eps, bias=n.bias)
 
 
-def _embed(params: Model, batch, cfg: ModelConfig):
-    h = params.embed[batch["tokens"].long()]
+def _embed(params: Model, tokens, cfg: ModelConfig):
+    h = params.embed[tokens.long()]
     if cfg.scale_embeddings:
         h = h * math.sqrt(cfg.d_model)
     return h
@@ -123,9 +239,8 @@ def _head_matrix(params: Model, cfg: ModelConfig):
 
 
 def _masked_logits(h_last, params: Model, cfg: ModelConfig):
-    logits = (h_last @ _head_matrix(params, cfg)).float()
-    if cfg.logit_softcap is not None:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    logits = soft_cap((h_last @ _head_matrix(params, cfg)).float(),
+                      cfg.logit_softcap)
     pv = padded_vocab(cfg)
     if pv != cfg.vocab_size:
         pad = torch.arange(pv, device=logits.device) >= cfg.vocab_size
@@ -133,15 +248,90 @@ def _masked_logits(h_last, params: Model, cfg: ModelConfig):
     return logits
 
 
+# ---------------------------------------------------------------------------
+# Dense layer bodies
+# ---------------------------------------------------------------------------
+
+
+def _qkv(p: Attention, h, cfg: ModelConfig, positions):
+    """Projections (+ bias), heads split, RoPE.  h: (B, S, D)."""
+    b, s, _ = h.shape
+    q, k, v = h @ p.wq, h @ p.wk, h @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.rope_kind == "rope":
+        q, k = apply_rope(q, k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_block(p: Attention, h, cfg: ModelConfig, *, positions, window):
+    """Full-sequence attention sub-block.  Returns (out, (k_rot, v)); the
+    cache keeps the unrepeated kv heads."""
+    b, s, _ = h.shape
+    q, k, v = _qkv(p, h, cfg, positions)
+    out = flash_attention(q, k, v, window=window,
+                          softcap=cfg.attn_softcap, scale=cfg.query_scale,
+                          block_k=BLOCK_K)
+    out = out.reshape(b, s, -1) @ p.wo
+    return out.to(h.dtype), (k, v)
+
+
+def _mlp_block(p: MLP, h, cfg: ModelConfig):
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = activation_fn("silu" if cfg.mlp_kind == "swiglu"
+                            else "gelu_tanh")
+        return ((act(h @ p.w_gate) * (h @ p.w_up)) @ p.w_down).to(h.dtype)
+    act = activation_fn(cfg.activation)
+    return (act(h @ p.w_in + p.b_in) @ p.w_out + p.b_out).to(h.dtype)
+
+
+def _residual(cfg: ModelConfig, layer: DenseLayer, name: str, h, out):
+    """Residual add, with gemma2's post-norm sandwich if configured."""
+    if cfg.post_norms:
+        out = _norm(cfg, getattr(layer, f"{name}_post"), out)
+    return h + out
+
+
+def _mlp_half(layer: DenseLayer, h, cfg: ModelConfig):
+    out = _mlp_block(layer.mlp, _norm(cfg, layer.ln2, h), cfg)
+    return _residual(cfg, layer, "ln2", h, out)
+
+
+def _cache_view(cache_t, i: int, pat: int):
+    """Layer ``i``'s slice of a stacked cache tensor (a view)."""
+    return cache_t[i] if pat == 1 else cache_t[i // pat, i % pat]
+
+
 @torch.no_grad()
 def prefill(params: Model, batch, cfg: ModelConfig):
     """Full-sequence pass building the decode cache.
 
     batch: ``{"tokens": (B, S) int}``.
-    Returns (cache dict, last-token logits (B, PV) f32).
+    Returns (cache dict, last-token logits (B, PV) f32); a dense model's
+    cache is sized to the prompt, with ``pos = S - 1``.
     """
     _check_family(cfg)
-    return _mamba_prefill(params, _embed(params, batch, cfg), cfg)
+    h = _embed(params, batch["tokens"], cfg)
+    if cfg.ssm is not None:
+        return _mamba_prefill(params, h, cfg)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    windows, pat = _windows(cfg), _pattern(cfg)
+    shape = _cache_shape(cfg, b, s)
+    kc = torch.empty(shape, dtype=h.dtype, device=h.device)
+    vc = torch.empty(shape, dtype=h.dtype, device=h.device)
+    for i, layer in enumerate(params.layers):
+        out, (k, v) = _attn_block(layer.attn, _norm(cfg, layer.ln1, h), cfg,
+                                  positions=positions, window=windows[i % pat])
+        _cache_view(kc, i, pat).copy_(k)
+        _cache_view(vc, i, pat).copy_(v)
+        h = _mlp_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+    h = _norm(cfg, params.final_norm, h)
+    return {"pos": s - 1, "layers": (kc, vc)}, _masked_logits(h[:, -1],
+                                                             params, cfg)
 
 
 def _mamba_prefill(params: Model, h, cfg: ModelConfig):
@@ -159,18 +349,31 @@ def _mamba_prefill(params: Model, h, cfg: ModelConfig):
     return cache, logits
 
 
+def _cache_shape(cfg: ModelConfig, batch: int, max_seq: int):
+    pat, L = _pattern(cfg), cfg.num_layers
+    tail = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return (L // pat, pat) + tail if pat > 1 else (L,) + tail
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict:
-    """Zero decode cache (``max_seq`` is unused: the state is O(1))."""
+    """Zero decode cache (the SSM family's state is O(1): ``max_seq`` is
+    unused there)."""
     _check_family(cfg)
     dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    if cfg.ssm is None:
+        shape = _cache_shape(cfg, batch, max_seq)
+        return {"pos": 0, "layers": (
+            torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))}
     _, n_heads, conv_dim, _ = ssm_mod._mamba2_dims(cfg.d_model, cfg.ssm)
     L = cfg.num_layers
     return {
         "pos": 0,
         "layers": {
             "conv": torch.zeros((L, batch, cfg.ssm.d_conv - 1, conv_dim),
-                                dtype=dtype_of(cfg.dtype), device=dev),
+                                dtype=dtype, device=dev),
             "ssm": torch.zeros((L, batch, n_heads, cfg.ssm.d_state,
                                 cfg.ssm.head_dim), dtype=torch.float32,
                                device=dev),
@@ -178,21 +381,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     }
 
 
+def grow_cache(cfg: ModelConfig, cache: Dict, max_seq: int) -> Dict:
+    """A dense cache (a prefill's, sized to its prompt) placed at the head
+    of a zero cache of ``max_seq`` positions, so that decoding can go on
+    past the prompt."""
+    kc, vc = cache["layers"]
+    big = init_cache(cfg, kc.shape[-4], max_seq, device=kc.device)
+    n = kc.shape[-3]
+    for src, dst in zip((kc, vc), big["layers"]):
+        dst[..., :n, :, :].copy_(src)
+    big["pos"] = cache["pos"]
+    return big
+
+
 @torch.no_grad()
 def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) int.
 
-    Returns (logits (B, PV) f32, new cache); the cache passed in is left
-    as it was, as in the JAX package.
+    Returns (logits (B, PV) f32, new cache).  The SSM family's is
+    functional, as in the JAX package: the cache passed in is left as it
+    was.  A dense model writes the new token's K/V into the cache's
+    tensors in place (the returned cache holds the same tensors, with
+    ``pos`` one on), unlike the JAX package's functional cache: a copy
+    would move the whole cache every step.
     """
     _check_family(cfg)
-    h = params.embed[tokens.long()]
-    if cfg.scale_embeddings:
-        h = h * math.sqrt(cfg.d_model)
-    h, layers = _mamba_decode_stack(params, h, cache["layers"], cfg)
+    pos = cache["pos"] + 1
+    h = _embed(params, tokens, cfg)
+    if cfg.ssm is not None:
+        h, layers = _mamba_decode_stack(params, h, cache["layers"], cfg)
+    else:
+        layers = cache["layers"]
+        h = _attn_decode_stack(params, h, layers, cfg, pos)
     h = _norm(cfg, params.final_norm, h)
     logits = _masked_logits(h[:, 0], params, cfg)
-    return logits, {"pos": cache["pos"] + 1, "layers": layers}
+    return logits, {"pos": pos, "layers": layers}
 
 
 def _mamba_decode_stack(params: Model, h, states, cfg: ModelConfig):
@@ -206,3 +429,40 @@ def _mamba_decode_stack(params: Model, h, states, cfg: ModelConfig):
         ssm.append(new["ssm"])
         h = h + out
     return h, {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
+
+
+def _attn_decode_stack(params: Model, h, layers, cfg: ModelConfig, pos: int):
+    kc, vc = layers
+    windows, pat = _windows(cfg), _pattern(cfg)
+    for i, layer in enumerate(params.layers):
+        out = _attn_decode_full(layer.attn, _norm(cfg, layer.ln1, h),
+                                (_cache_view(kc, i, pat),
+                                 _cache_view(vc, i, pat)),
+                                pos, cfg, window=windows[i % pat])
+        h = _mlp_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+    return h
+
+
+def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
+                      *, window):
+    """Decode against a full-length cache (windowing by mask); writes the
+    token's K/V into ``kv_cache`` in place.
+
+    The slot is ``pos`` clamped into the cache, as the JAX package's
+    ``lax.dynamic_update_slice`` clamps its start: a decode at
+    ``pos >= S`` overwrites slot ``S - 1``, while the mask, at
+    ``cur_pos = pos``, takes every slot as valid.  The port keeps that
+    quirk of the reference (its serving runs into it: one cache of
+    ``max_seq`` 128 for every slot of a replica).
+    """
+    b = h.shape[0]
+    posv = torch.full((b, 1), pos, device=h.device)
+    q, k, v = _qkv(p, h, cfg, posv)
+    kc, vc = kv_cache
+    slot = min(max(pos, 0), kc.shape[1] - 1)
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    out = decode_attention(q, kc, vc, cur_pos=pos, window=window,
+                           softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    out = out.reshape(b, 1, -1) @ p.wo
+    return out.to(h.dtype)

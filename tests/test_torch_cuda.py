@@ -13,12 +13,15 @@ in another order than the plain einsums: within 3e-4
 (``tests/test_kernels.py``'s bound).
 """
 
+import copy
+import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.chash import ConsistentHashRing, hash32
 from repro_torch.data.synthetic import zipf_time_evolving
 from repro_torch.core import fish as F
@@ -27,6 +30,7 @@ from repro_torch.kernels import fish_count as fc
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd
 from repro_torch.kernels import store_probe as sp
+from repro_torch.models import transformer as PT
 
 import torch_helpers  # caps torch threads; shared cases
 
@@ -892,3 +896,31 @@ def test_cuda_worker_growth_in_an_open_pane_matches_plain(scheme):
         assert torch.equal(fc_, fp)
     assert card[1] == plain[1]
     assert card[3] == plain[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b"])
+def test_cuda_dense_model_matches_host(arch):
+    """The dense family has no kernel of its own: its plain tensor ops on
+    the card against the same ops on the host, one set of float32
+    weights (reduced config), a prefill of 40 tokens (past the reduced
+    gemma2's window of 32) and 4 decode steps, within 1e-3."""
+    dev = _card()
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    host = PT.init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for where, params in (("cuda", copy.deepcopy(host).to(dev)),
+                          ("cpu", host)):
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 44)).astype(np.int32)).to(where)
+        cache, lg = PT.prefill(params, {"tokens": toks[:, :40]}, cfg)
+        cache = PT.grow_cache(cfg, cache, 44)
+        out = [lg]
+        for i in range(40, 44):
+            lg, cache = PT.decode_step(params, cache, toks[:, i:i + 1], cfg)
+            out.append(lg)
+        runs[where] = [x[:, :cfg.vocab_size].cpu() for x in out] + [
+            t.cpu() for t in cache["layers"]]
+    for card, plain in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(card, plain, rtol=1e-3, atol=1e-3)

@@ -102,9 +102,10 @@ def test_prefill_then_decode_continues_the_prefill():
     np.testing.assert_allclose(step[0, :cfg.vocab_size].float().numpy(),
                                full[0, :cfg.vocab_size].float().numpy(),
                                rtol=0.08, atol=0.35)
-    assert list_archs() == ["mamba2-780m"]
+    assert list_archs() == ["mamba2-780m", "qwen1.5-0.5b", "starcoder2-3b",
+                            "olmo-1b", "gemma2-2b"]
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("qwen1.5-0.5b")
+        get_config("kimi-k2-1t-a32b")
 
 
 def _requests(mk, n=48, seed=3):

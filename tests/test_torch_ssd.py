@@ -243,6 +243,7 @@ def test_ssd_kernel_shape_limits(q, n, p):
             (100, 32, 32), (1, 16, 8), (256, 128, 64)}
     for arch in list_archs():
         for cfg in (get_config(arch), reduced_config(get_config(arch))):
-            runs.add((cfg.ssm.chunk, cfg.ssm.d_state, cfg.ssm.head_dim))
+            if cfg.ssm is not None:
+                runs.add((cfg.ssm.chunk, cfg.ssm.d_state, cfg.ssm.head_dim))
     for shape in sorted(runs):
         pssd.check_kernel_shape("ssd_chunk_state", *shape)
