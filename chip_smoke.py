@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's five device paths, each with the launch counters of
+Drives the port's six device paths, each with the launch counters of
 its kernels set to 0 just before it and read just after, and checks each:
 
 A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
@@ -63,6 +63,28 @@ E. **The dense decoder family**, after path D (it brings no kernel: its
    ``flash_attention`` (CUDA events) beside PyTorch's
    ``scaled_dot_product_attention`` on the same float32 q/k/v (a library
    time only).
+F. **The MoE family with FISH expert routing**, after path E (no kernel
+   either: MoE routing, dispatch, the expert FFN and MLA are plain tensor
+   ops, as the reference runs them on XLA; the path fails if a launch
+   counter of the repo's kernels moves, or on any
+   ``scaled_dot_product_attention`` or ``torch.compile`` call).  F1
+   deepseek-v2-lite-16b at its published widths (27 layers, d_model
+   2048, MLA r 512 / dn 128 / dr 64 / dv 128, 64 experts top-6 + 2
+   shared, one dense prefix layer, vocab 102,400; bf16, random weights
+   from the seed): a prefill of 4 x 4,096 (16 dispatch groups of 1,024)
+   with its drop fraction, 32 decode steps against 4,128 positions, the
+   prefill-then-decode check at 4 x 255 -> 256 on a copy of the config
+   with capacity factor 64 (no claim can overflow: drop fraction 0; at
+   the published 1.25 a decode step's group of 4 tokens drops what the
+   prefill keeps), and ``ServingEngine`` with ``launch/serve.py``'s
+   defaults.  F4 one F1 MoE layer's ``moe_ffn`` on its prefill input
+   under fish, pkg and fg, from a Zipf(1.2) hotness carried from call to
+   call: ``new_hotness`` and the fish capacities equal to the host's
+   arithmetic exactly.  F2 kimi-k2-1t-a32b at its published widths cut
+   to 2 of 61 layers (its dense prefix layer and one GQA + 384-expert
+   layer): a prefill of 4 x 4,096, 8 decode steps.  F3 both archs at
+   ``reduced_config`` in float32, card against host: logits within 1e-3,
+   every MoE routing's ids and keep equal.
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
@@ -104,6 +126,7 @@ SCHEMES = ("sg", "fg", "pkg", "dc", "wc", "fish")
 FLOAT_TOL = 1e-6     # kernel vs plain, relative, float outputs (expect 0)
 HBM_BPS = 3.35e12    # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS = 67e12      # H100 SXM float32 / int32-class ops outside tensor cores
+BF16_OPS = 989e12    # H100 SXM dense bf16 on the tensor cores
 TF32_OPS = 495e12    # H100 SXM dense TF32 on the tensor cores
 SSD_OPS = TF32_OPS / 3   # the SSD kernels: 3 TF32 products (3xTF32) each
 # dependency-chain bounds, in SM cycles per dependent step on one warp, as
@@ -131,6 +154,9 @@ E2_PROMPTS, E2_LEN = 2, 8_192   # E2: gemma2-2b, past its 4,096 window
 E2_DECODE = 8        # E2: decode steps after the consistency step
 E3_LEN = 40          # E3: prompt, past the reduced gemma2's window of 32
 E3_TOL = 1e-3        # E3: card vs host, float32 (tests/test_torch_dense.py)
+F1_CHECK_LEN = 256   # F1: the check's 4 x 255 -> 256 (groups divide 1,020)
+F2_DECODE = 8        # F2: decode steps after kimi-k2's prefill
+F3_LEN = 64          # F3: prompt, two dispatch groups of the reduced 64
 
 REPO = Path(__file__).resolve().parent
 
@@ -1341,18 +1367,14 @@ def dense_path(seed, dev, torch, np):
     prefill's layer-0 ``flash_attention`` call (args, kwargs) for the
     timing line.  Fails if anything on the path calls PyTorch's fused
     attention or ``torch.compile``."""
-    import copy
     import dataclasses
-
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as MT
 
-    captured, banned = {}, {"scaled_dot_product_attention": 0, "compile": 0}
-    real_flash, real_sdpa, real_compile = (
-        MT.flash_attention, F.scaled_dot_product_attention, torch.compile)
+    captured = {}
+    real_flash = MT.flash_attention
 
     def flash(*args, **kwargs):
         if "flash_attention" not in captured:  # E1's layer 0
@@ -1360,58 +1382,139 @@ def dense_path(seed, dev, torch, np):
                 tuple(a.clone() for a in args), dict(kwargs))
         return real_flash(*args, **kwargs)
 
+    MT.flash_attention = flash
+    try:
+        with no_fused_attention("E", torch):
+            _dense_e1(seed, dev, torch, np, MT, serve, get_config)
+            _dense_e2(seed, dev, torch, np, MT, get_config)
+            # E3: the card against the host on one set of float32 weights
+            for arch in ("qwen1.5-0.5b", "starcoder2-3b", "olmo-1b",
+                         "gemma2-2b"):
+                cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                          dtype="float32")
+                card_vs_host(f"E3 {arch}", MT, cfg, seed, dev, torch, np,
+                             E3_LEN)
+    finally:
+        MT.flash_attention = real_flash
+    return captured["flash_attention"]
+
+
+def card_vs_host(what, MT, cfg, seed, dev, torch, np, n, probe=None):
+    """``cfg`` (reduced, float32) on the card and on the host, one set of
+    weights: a prefill of 2 x ``n`` tokens, then 4 decode steps, every
+    logit within ``E3_TOL``.  With an ``MoEProbe``, each MoE routing's ids
+    and keep must also be equal on both."""
+    import copy
+
+    host = MT.init_params(cfg, seed=seed, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, n + 4)).astype(np.int32))
+    runs, routes = [], []
+    for params, where in ((card, dev), (host, "cpu")):
+        if probe is not None:
+            probe.clear()
+        t = toks.to(where)
+        cache, lg = MT.prefill(params, {"tokens": t[:, :n]}, cfg)
+        cache = MT.grow_cache(cfg, cache, n + 4)
+        out = [lg]
+        for i in range(n, n + 4):
+            lg, cache = MT.decode_step(params, cache, t[:, i:i + 1], cfg)
+            out.append(lg)
+        runs.append([x[:, :cfg.vocab_size].cpu() for x in out])
+        if probe is not None:
+            routes.append([(ids.cpu(), keep.cpu())
+                           for ids, keep, _ in probe.routes])
+    gaps = []
+    for a, b in zip(*runs):
+        gap = (a - b).abs()
+        gaps.append(float(gap.max()))
+        if bool((gap > E3_TOL * (1.0 + b.abs())).any()):
+            fail(f"{what}: card vs host max |gap| {float(gap.max())} beyond "
+                 f"{E3_TOL}")
+    tail = ""
+    if probe is not None:
+        diff = sum(int((a != b).sum()) for ra, rb in zip(*routes)
+                   for a, b in zip(ra, rb))
+        if len(routes[0]) != len(routes[1]) or not routes[0] or diff:
+            fail(f"{what}: card vs host routing: {len(routes[0])} / "
+                 f"{len(routes[1])} MoE routings, {diff} ids/keep "
+                 f"differences")
+        tail = (f"; {len(routes[0])} MoE routings, ids/keep differences "
+                f"{diff}")
+    log(f"check {what} (reduced, float32, prefill 2 x {n} + 4 decode "
+        f"steps): card vs host ok, max |gap| prefill {gaps[0]:.2e}, decode "
+        f"{max(gaps[1:]):.2e} (tol {E3_TOL}){tail}")
+
+
+@contextlib.contextmanager
+def no_fused_attention(path, torch):
+    """Counts every call of PyTorch's fused attention and of
+    ``torch.compile`` inside; the path fails if there was one."""
+    import torch.nn.functional as F
+
+    banned = {"scaled_dot_product_attention": 0, "compile": 0}
+    real_sdpa, real_compile = F.scaled_dot_product_attention, torch.compile
+
     def ban(name, fn):
         def call(*args, **kwargs):
             banned[name] += 1
             return fn(*args, **kwargs)
         return call
 
-    MT.flash_attention = flash
     F.scaled_dot_product_attention = ban("scaled_dot_product_attention",
                                          real_sdpa)
     torch.compile = ban("compile", real_compile)
     try:
-        _dense_e1(seed, dev, torch, np, MT, serve, get_config)
-        _dense_e2(seed, dev, torch, np, MT, get_config)
-        # E3: the card against the host on one set of float32 weights
-        for arch in ("qwen1.5-0.5b", "starcoder2-3b", "olmo-1b",
-                     "gemma2-2b"):
-            cfg = dataclasses.replace(reduced_config(get_config(arch)),
-                                      dtype="float32")
-            host = MT.init_params(cfg, seed=seed, device="cpu")
-            card = copy.deepcopy(host).to(dev)
-            toks = torch.from_numpy(np.random.default_rng(seed).integers(
-                0, cfg.vocab_size, (2, E3_LEN + 4)).astype(np.int32))
-            gaps = []
-            runs = []
-            for params, where in ((card, dev), (host, "cpu")):
-                t = toks.to(where)
-                cache, lg = MT.prefill(params, {"tokens": t[:, :E3_LEN]}, cfg)
-                cache = MT.grow_cache(cfg, cache, E3_LEN + 4)
-                out = [lg]
-                for i in range(E3_LEN, E3_LEN + 4):
-                    lg, cache = MT.decode_step(params, cache, t[:, i:i + 1],
-                                               cfg)
-                    out.append(lg)
-                runs.append([x[:, :cfg.vocab_size].cpu() for x in out])
-            for a, b in zip(*runs):
-                gap = (a - b).abs()
-                gaps.append(float(gap.max()))
-                if bool((gap > E3_TOL * (1.0 + b.abs())).any()):
-                    fail(f"E3 {arch}: card vs host max |gap| "
-                         f"{float(gap.max())} beyond {E3_TOL}")
-            log(f"check E3 {arch} (reduced, float32, prefill {E3_LEN} + 4 "
-                f"decode steps): card vs host ok, max |gap| prefill "
-                f"{gaps[0]:.2e}, decode {max(gaps[1:]):.2e} (tol {E3_TOL})")
+        yield
     finally:
-        MT.flash_attention = real_flash
         F.scaled_dot_product_attention = real_sdpa
         torch.compile = real_compile
     if any(banned.values()):
-        fail(f"path E called a fused attention or torch.compile: {banned}")
-    log(f"path E: scaled_dot_product_attention and torch.compile called "
-        f"0 times")
-    return captured["flash_attention"]
+        fail(f"path {path} called a fused attention or torch.compile: "
+             f"{banned}")
+    log(f"path {path}: scaled_dot_product_attention and torch.compile "
+        f"called 0 times")
+
+
+def serve_check(what, MT, serve, params, cfg, dev, torch):
+    """``ServingEngine`` through ``launch/serve.py``'s ``serve`` with its
+    defaults (FISH, 2 replicas x 4 slots, 64 requests, ``max_seq`` 128):
+    every request served, every logit finite (checked on the device, read
+    once at the end); decodes past the cache's end take the reference's
+    clamp, and are counted."""
+    vocab = cfg.vocab_size
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    real_step = MT.decode_step
+
+    def checked(*args, **kwargs):
+        lg, c = real_step(*args, **kwargs)
+        bad.add_((~torch.isfinite(lg[:, :vocab])).sum())
+        return lg, c
+
+    MT.decode_step = checked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, reps = serve.serve(cfg, params, device=dev)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        MT.decode_step = real_step
+    m = eng.metrics()
+    steps = sum(r.tokens_generated for r in reps) // reps[0].tokens.shape[0]
+    max_seq = reps[0].cache["layers"][0].shape[MT._seq_axis(cfg)]
+    clamped = sum(max(0, r.cache["pos"] + 1 - max_seq) for r in reps)
+    if len(eng.done) != 64 or m.shed or int(bad):
+        fail(f"{what} serving: {len(eng.done)} of 64 requests done, "
+             f"{int(bad)} non-finite logits")
+    log(f"check {what} serving: ok, 64 requests over 2 replicas x 4 slots "
+        f"in {eng.now:.0f} ticks, p50 {m.latency_p50:.1f} p99 "
+        f"{m.latency_p99:.1f} ticks, {m.throughput_tokens:.2f} tok/tick, "
+        f"session replication {m.session_replicas_norm:.2f}x; {steps} "
+        f"decode steps in {serve_s:.2f} s ({serve_s / max(steps, 1) * 1e3:.2f}"
+        f" ms per step), {clamped} of them at pos >= max_seq {max_seq} (the "
+        f"reference's clamp), every logit finite")
 
 
 def _dense_e1(seed, dev, torch, np, MT, serve, get_config):
@@ -1443,39 +1546,7 @@ def _dense_e1(seed, dev, torch, np, MT, serve, get_config):
         fail(f"E1 decode: position {cache['pos']}")
     del cache, full, step
 
-    # the serving engine over two replicas (launch/serve.py defaults):
-    # logits checked on the device, read once at the end
-    bad = torch.zeros((), dtype=torch.int64, device=dev)
-    real_step = MT.decode_step
-
-    def checked(*args, **kwargs):
-        lg, c = real_step(*args, **kwargs)
-        bad.add_((~torch.isfinite(lg[:, :vocab])).sum())
-        return lg, c
-
-    MT.decode_step = checked
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng, reps = serve.serve(cfg, params, device=dev)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-    finally:
-        MT.decode_step = real_step
-    m = eng.metrics()
-    steps = sum(r.tokens_generated for r in reps) // reps[0].tokens.shape[0]
-    max_seq = reps[0].cache["layers"][0].shape[-3]
-    clamped = sum(max(0, r.cache["pos"] + 1 - max_seq) for r in reps)
-    if len(eng.done) != 64 or m.shed or int(bad):
-        fail(f"E1 serving: {len(eng.done)} of 64 requests done, "
-             f"{int(bad)} non-finite logits")
-    log(f"check E1 serving: ok, 64 requests over 2 replicas x 4 slots in "
-        f"{eng.now:.0f} ticks, p50 {m.latency_p50:.1f} p99 "
-        f"{m.latency_p99:.1f} ticks, {m.throughput_tokens:.2f} tok/tick, "
-        f"session replication {m.session_replicas_norm:.2f}x; {steps} "
-        f"decode steps in {serve_s:.2f} s ({serve_s / max(steps, 1) * 1e3:.2f}"
-        f" ms per step), {clamped} of them at pos >= max_seq {max_seq} (the "
-        f"reference's clamp), every logit finite")
+    serve_check("E1", MT, serve, params, cfg, dev, torch)
 
 
 def _dense_e2(seed, dev, torch, np, MT, get_config):
@@ -1508,8 +1579,8 @@ def _dense_e2(seed, dev, torch, np, MT, get_config):
         f"{cap} + 1e-3")
 
 
-def attention_times(call, torch):
-    """E1's layer-0 ``flash_attention`` (CUDA events) beside PyTorch's
+def attention_times(what, call, torch):
+    """One layer's ``flash_attention`` (CUDA events) beside PyTorch's
     ``scaled_dot_product_attention`` on the same float32 q/k/v, as a
     library time only, with the causal work's bound."""
     import torch.nn.functional as F
@@ -1518,7 +1589,7 @@ def attention_times(call, torch):
 
     (q, k, v), kw = call
     b, s, hq, dh = q.shape
-    hkv = k.shape[2]
+    hkv, dv = k.shape[2], v.shape[-1]
     ms = time_cuda(lambda: attn.flash_attention(q, k, v, **kw), 5, torch)
     out = attn.flash_attention(q, k, v, **kw).float()
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
@@ -1531,20 +1602,429 @@ def attention_times(call, torch):
 
     lib_ms = time_cuda(sdpa, 5, torch)
     gap = float((sdpa().transpose(1, 2) - out).abs().max())
-    ops = 4.0 * b * hq * dh * s * (s + 1) / 2  # QK^T and PV, causal half
-    bytes_ = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    # QK^T and PV over the causal half
+    ops = 2.0 * b * hq * (dh + dv) * s * (s + 1) / 2
+    bytes_ = q.element_size() * (q.numel() + k.numel() + v.numel() +
+                                 v.numel() * hq // hkv)  # + the output
     bound = max(ops / F32_OPS, bytes_ / HBM_BPS) * 1e3
-    row = {"what": "flash_attention, E1 qwen1.5-0.5b layer 0",
-           "shape": [b, s, hq, hkv, dh], "block_k": kw.get("block_k"),
+    row = {"what": f"flash_attention, {what}",
+           "shape": [b, s, hq, hkv, dh, dv], "block_k": kw.get("block_k"),
            "ms": ms, "sdpa_f32_ms": lib_ms, "sdpa_max_abs_gap": gap,
            "bound_ms": bound, "bound_by": "operations"
            if ops / F32_OPS >= bytes_ / HBM_BPS else "bytes"}
-    log(f"attention E1 layer 0 ({b} x {s}, {hq} heads x {dh}, block_k "
+    log(f"attention {what} ({b} x {s}, {hq} heads x {dh} / {dv}, block_k "
         f"{kw.get('block_k')}): flash_attention {ms:.3f} ms (CUDA events); "
         f"scaled_dot_product_attention float32 {lib_ms:.3f} ms (library "
         f"time only, max |gap| {gap:.2e}); bound {bound:.3f} ms (causal "
         f"float32 operations at {F32_OPS / 1e12:.0f} TFLOP/s)")
     log(f"attention: {json.dumps(row)}")
+
+
+# ---------------------------------------------------------------------------
+# path F: the MoE family with FISH expert routing (MLA and GQA)
+# ---------------------------------------------------------------------------
+
+
+class MoEProbe:
+    """Wraps the port's ``moe_ffn`` where the model calls it and
+    ``_route`` where ``moe_ffn`` calls it.  While ``record`` is set, keeps
+    each ``moe_ffn`` call's metrics and each ``_route`` call's (ids, keep,
+    capacities), all left on the device; while ``capture`` is set, the
+    first ``moe_ffn`` call's tokens and the first ``flash_attention``
+    call (args, kwargs).  While ``pinned`` holds a list of (G, T, K) ids,
+    each ``_route`` call takes the next as its top-k choices, in place of
+    its own, with its own gates at those ids."""
+
+    def __init__(self, MT, MM):
+        self.MT, self.MM = MT, MM
+        self.metrics, self.routes = [], []
+        self.first_x = self.flash = self.pinned = None
+        self.record = self.capture = True
+
+    def __enter__(self):
+        real_ffn, real_route, real_flash = self.real = (
+            self.MT.moe_ffn, self.MM._route, self.MT.flash_attention)
+
+        def flash(*args, **kwargs):
+            if self.capture and self.flash is None:
+                self.flash = (tuple(a.clone() for a in args), dict(kwargs))
+            return real_flash(*args, **kwargs)
+
+        def ffn(params, x, *args, **kwargs):
+            if self.capture and self.first_x is None:
+                self.first_x = x.clone()
+            out = real_ffn(params, x, *args, **kwargs)
+            if self.record:
+                self.metrics.append(out[3])
+            return out
+
+        def route(gates, moe, capacities):
+            if self.pinned is None:
+                out = real_route(gates, moe, capacities)
+            else:
+                ids, real_top_k = self.pinned.pop(0), self.MM._top_k
+                self.MM._top_k = lambda g, k: (g.gather(-1, ids), ids)
+                try:
+                    out = real_route(gates, moe, capacities)
+                finally:
+                    self.MM._top_k = real_top_k
+            if self.record:
+                self.routes.append((out[0], out[2], capacities))
+            return out
+
+        self.MT.moe_ffn, self.MM._route, self.MT.flash_attention = (
+            ffn, route, flash)
+        return self
+
+    def __exit__(self, *exc):
+        self.MT.moe_ffn, self.MM._route, self.MT.flash_attention = self.real
+
+    def clear(self):
+        self.metrics.clear()
+        self.routes.clear()
+
+    def metric(self, name, torch):
+        """One metric of every recorded call, on the host."""
+        return torch.stack([m[name] for m in self.metrics]).float().cpu()
+
+
+def moe_path(seed, dev, torch, np):
+    """F1 deepseek-v2-lite-16b at its published widths, F4 FISH expert
+    routing on one F1 MoE layer, F2 kimi-k2's dense prefix layer and one
+    GQA + MoE layer at their published widths, F3 both archs reduced on
+    the card against the host.  No kernel of the repo runs here (MoE
+    routing, dispatch, the expert FFN and MLA are plain tensor ops, as the
+    reference runs them on XLA): every launch counter must stay as it
+    was.  Fails on any call of PyTorch's fused attention or
+    ``torch.compile``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import fish_count as fc
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels import store_probe as sp
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MM
+    from repro_torch.models import transformer as MT
+
+    counters = (ff.LAUNCHES, fc.LAUNCHES, ssd.LAUNCHES, sp.LAUNCHES)
+    before = [dict(c) for c in counters]
+    f1 = get_config("deepseek-v2-lite-16b")
+    with MoEProbe(MT, MM) as probe:
+        with no_fused_attention("F (F1, F4)", torch):
+            params = _moe_f1(seed, dev, torch, np, MT, MM, serve,
+                             get_config, probe)
+            _moe_f4(seed, dev, torch, np, MM, params.layers[0].moe, f1.moe,
+                    probe)
+        # where an F1 layer's time goes (SDPA's time a library one only)
+        probe.record = False
+        attention_times("F1 deepseek-v2-lite-16b layer 0 (MLA expanded)",
+                        probe.flash, torch)
+        moe_times(MT, MM, params, f1, probe.first_x, dev, torch, probe)
+        del params
+        probe.first_x = probe.flash = None
+        probe.capture = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        with no_fused_attention("F (F2, F3)", torch):
+            _moe_f2(seed, dev, torch, np, MT, MM, get_config, probe)
+            gc.collect()
+            torch.cuda.empty_cache()
+            probe.record = True
+            for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
+                cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                          dtype="float32")
+                card_vs_host(f"F3 {arch}", MT, cfg, seed, dev, torch, np,
+                             F3_LEN, probe=probe)
+    after = [dict(c) for c in counters]
+    if after != before:
+        fail(f"path F launched a kernel of the repo: {before} -> {after}")
+    log("path F: no kernel of the repo launched (every launch counter as "
+        "it was): MoE routing, dispatch, the expert FFN and MLA run as "
+        "plain tensor ops, as the reference runs them on XLA")
+
+
+def _moe_prefill(what, MT, MM, params, cfg, toks, torch, probe):
+    """A timed prefill with its MoE layers' drop fractions and loads."""
+    prompts, n = toks.shape
+    plan = MM.capacity_plan(cfg.moe, prompts * n)
+    probe.record = True
+    probe.clear()
+    cache, logits, wall, peak = dense_prefill(what, MT, params, cfg, toks,
+                                              torch)
+    drops = probe.metric("moe_drop_frac", torch)
+    loads = probe.metric("moe_load_max_over_mean", torch)
+    if len(drops) != cfg.num_layers - cfg.moe.first_dense_layers:
+        fail(f"{what} prefill: {len(drops)} MoE layers ran")
+    log(f"{what} prefill {prompts} x {n} (prefill_32k's 32 x 32,768 cut "
+        f"for time; {plan.groups} dispatch groups of {plan.group_size}, "
+        f"c_max {plan.c_max}): {wall:.3f} s, {prompts * n / wall:,.0f} "
+        f"tokens/s, peak {peak:.2f} GiB; moe_drop_frac mean "
+        f"{float(drops.mean()):.4f} min {float(drops.min()):.4f} max "
+        f"{float(drops.max()):.4f} over {len(drops)} MoE layers, load "
+        f"max/mean {float(loads.mean()):.3f} (mean over layers)")
+    return cache, logits
+
+
+def _moe_f1(seed, dev, torch, np, MT, MM, serve, get_config, probe):
+    import dataclasses
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    mla, moe = cfg.mla, cfg.moe
+    vocab, prompts, n = cfg.vocab_size, PROMPTS, PROMPT_LEN
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    log(f"F1 deepseek-v2-lite-16b: {cfg.num_layers} layers "
+        f"({moe.first_dense_layers} dense, d_ff {cfg.d_ff}), d_model "
+        f"{cfg.d_model}, MLA r {mla.kv_lora_rank} dn {mla.qk_nope_dim} dr "
+        f"{mla.qk_rope_dim} dv {mla.v_head_dim} x {cfg.num_heads} heads, "
+        f"{moe.num_experts} experts top-{moe.top_k} (d_ff "
+        f"{moe.d_ff_expert}) + {moe.shared_experts} shared, routing "
+        f"{moe.routing}, dispatch {moe.dispatch_impl}, capacity factor "
+        f"{moe.capacity_factor}, vocab {vocab}, {cfg.dtype}: "
+        f"{MT.num_params(params):,} parameters, random init (seed {seed})")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (prompts, n)).astype(np.int32)).to(dev)
+    cache, logits = _moe_prefill("F1", MT, MM, params, cfg, toks, torch,
+                                 probe)
+    cache = MT.grow_cache(cfg, cache, n + DECODE_STEPS)
+    tok = torch.argmax(logits[:, :vocab], -1)[:, None].to(torch.int32)
+    probe.record = False
+    cache = dense_decode("F1", MT, params, cfg, cache, tok, DECODE_STEPS,
+                         torch, np)
+    if cache["pos"] != n - 1 + DECODE_STEPS:
+        fail(f"F1 decode: position {cache['pos']}")
+    del cache, logits
+
+    # prefill-then-decode, with room in every expert for every claim: at
+    # the published capacity a decode step's group of 4 tokens drops
+    # claims that the prefill's groups of 1,024 keep
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=float(moe.num_experts)))
+    c, k = F1_CHECK_LEN, moe.top_k
+    probe.record = True
+    probe.clear()
+    _, full, _, _ = dense_prefill("F1", MT, params, roomy, toks[:, :c],
+                                  torch)
+    # each MoE layer's top-k for every token of the c-token prefill
+    want = [ids[0].view(prompts, c, k) for ids, _, _ in probe.routes]
+    drops = [probe.metric("moe_drop_frac", torch)]
+    gaps = {}
+    for how in ("own", "pinned", "wrong"):
+        # "own": each pass routes by its own gates; "pinned": the
+        # (c-1)-token prefill and the decode step take the c-token
+        # prefill's choices; "wrong": as pinned, but the decode step takes
+        # the next prompt's choices, which the check must see
+        if how != "own":
+            probe.pinned = [i[:, :c - 1].reshape(1, -1, k) for i in want]
+        probe.clear()
+        cache, _, _, _ = dense_prefill("F1", MT, params, roomy,
+                                       toks[:, :c - 1], torch)
+        cache = MT.grow_cache(roomy, cache, c)
+        drops.append(probe.metric("moe_drop_frac", torch))
+        pre = sum(int((a[:, :c - 1].reshape(-1, k).sort(-1).values !=
+                       ids[0].sort(-1).values).any(-1).sum())
+                  for a, (ids, _, _) in zip(want, probe.routes))
+        if how != "own":
+            probe.pinned = [i[:, c - 1].roll(int(how == "wrong"), 0)
+                          .reshape(1, prompts, k) for i in want]
+        probe.clear()
+        step, _ = MT.decode_step(params, cache, toks[:, c - 1:c], roomy)
+        drops.append(probe.metric("moe_drop_frac", torch))
+        if probe.pinned:
+            fail(f"F1 prefill-then-decode: {len(probe.pinned)} pinned "
+                 f"routings left over")
+        probe.pinned = None
+        flips = sum(int((a[:, c - 1].sort(-1).values !=
+                         ids[0].sort(-1).values).any())
+                    for a, (ids, _, _) in zip(want, probe.routes))
+        what = (f"F1 deepseek-v2-lite-16b ({prompts} x {c - 1} -> {c}, "
+                f"capacity factor {roomy.moe.capacity_factor:g}, routing "
+                f"{how})")
+        if how == "wrong":
+            a, b = step[:, :vocab].float(), full[:, :vocab].float()
+            gap = (a - b).abs()
+            seen = int((gap > CONSIST["atol"] +
+                        CONSIST["rtol"] * b.abs()).sum())
+            if not seen:
+                fail(f"{what}: the next prompt's experts in every layer "
+                     f"give logits within tolerance (max |gap| "
+                     f"{float(gap.max())}): the check cannot see a wrong "
+                     f"routing")
+            log(f"check {what}: ok, the decode step with the next prompt's "
+                f"experts in every MoE layer puts {seen} logits beyond the "
+                f"tolerance (max |gap| {float(gap.max()):.4f})")
+            continue
+        if how == "pinned" and (pre or flips):
+            fail(f"{what}: {pre} prefill and {flips} decode routings differ "
+                 f"from the pinned ones")
+        gaps[how] = consistency(what, step, full, vocab)
+        log(f"F1 prefill-then-decode, routing {how}: {pre} of "
+            f"{len(want) * prompts * (c - 1)} (MoE layer, token) top-{k} "
+            f"sets of the {c - 1}-token prefill and {flips} of {len(want)} "
+            f"MoE layers' token-{c} sets in the decode step differ from the "
+            f"{c}-token prefill's; max |logit| "
+            f"{float(full[:, :vocab].abs().max()):.4f}")
+    drop = max(float(d.max()) for d in drops)
+    if drop != 0.0:
+        fail(f"F1 prefill-then-decode at capacity factor "
+             f"{roomy.moe.capacity_factor}: drop fraction {drop}")
+    log(f"F1 prefill-then-decode: drop fraction 0 in every pass; max |gap| "
+        f"{gaps['own']:.4f} with each pass's own routing, {gaps['pinned']:.4f}"
+        f" with the routing pinned to the {c}-token prefill's")
+    del cache, full, step
+    probe.record = False
+    serve_check("F1", MT, serve, params, cfg, dev, torch)
+    return params
+
+
+def moe_times(MT, MM, params, cfg, x, dev, torch, probe):
+    """Where an F1 layer's time goes, CUDA events over back-to-back calls:
+    ``moe_ffn`` on the prefill's 16,384 tokens and on a decode step's 4,
+    and the MLA decode against 4,128 positions.  Each beside its bound:
+    ``moe_ffn``'s from the claims this run's dispatch keeps (their bf16
+    products at ``BF16_OPS``) and the weights of the experts they hit
+    (bytes at ``HBM_BPS``), and beside it the bound of the reference's
+    static shapes (every slot of every expert's buffer multiplied, every
+    expert's weights read), which the port computes as the reference
+    does."""
+    moe, mla = cfg.moe, cfg.mla
+    layer = params.layers[0]
+    e, d, f = moe.num_experts, cfg.d_model, moe.d_ff_expert
+    fs = f * moe.shared_experts
+    hot = torch.zeros(e, device=dev)
+    rows = []
+
+    def bound(ops, bytes_):
+        return (max(ops / BF16_OPS, bytes_ / HBM_BPS) * 1e3,
+                "operations" if ops / BF16_OPS >= bytes_ / HBM_BPS
+                else "bytes")
+
+    for what, t in (("prefill", x.shape[0]), ("decode", 4)):
+        xt = x[:t].contiguous()
+        plan = MM.capacity_plan(moe, t)
+        probe.record = True
+        probe.clear()
+        MM.moe_ffn(layer.moe, xt, moe, hot)
+        (ids, keep, _), = probe.routes
+        probe.record = False
+        kept, hit = int(keep.sum()), int(ids[keep].unique().numel())
+        ms = time_cuda(lambda: MM.moe_ffn(layer.moe, xt, moe, hot), 5, torch)
+        rest_ops = 2 * 3 * t * d * fs + 2 * t * d * e  # shared, router
+        rest_bytes = 2 * 3 * d * fs + 4 * d * e + 2 * 2 * t * d
+        ms_bound, by = bound(2 * 3 * kept * d * f + rest_ops,
+                             2 * 3 * hit * d * f + rest_bytes)
+        static, static_by = bound(
+            2 * 3 * plan.groups * e * plan.c_max * d * f + rest_ops,
+            2 * 3 * e * d * f + rest_bytes)
+        rows.append({"what": f"moe_ffn {what}", "tokens": t,
+                     "c_max": plan.c_max, "claims_kept": kept,
+                     "experts_hit": hit, "ms": ms, "bound_ms": ms_bound,
+                     "bound_by": by, "static_bound_ms": static,
+                     "static_bound_by": static_by})
+    b, s = 4, PROMPT_LEN + DECODE_STEPS
+    cache = (torch.zeros((b, s, mla.kv_lora_rank), dtype=x.dtype,
+                         device=dev),
+             torch.zeros((b, s, mla.qk_rope_dim), dtype=x.dtype,
+                         device=dev))
+    h = x[:b, None]
+    ms = time_cuda(lambda: MT._mla_decode(layer.attn, h, cache, s - 1, cfg),
+                   20, torch)
+    bytes_ = sum(t.numel() * t.element_size() for t in cache) + sum(
+        p.numel() * p.element_size() for p in layer.attn.parameters())
+    rows.append({"what": "mla decode", "positions": s, "ms": ms,
+                 "bound_ms": bytes_ / HBM_BPS * 1e3, "bound_by": "bytes"})
+    for r in rows:
+        static = (f"; the static shapes' bound {r['static_bound_ms']:.4f} ms "
+                  f"({r['static_bound_by']}), {r['claims_kept']} claims "
+                  f"kept, {r['experts_hit']} experts hit"
+                  if "static_bound_ms" in r else "")
+        log(f"F1 layer time: {r['what']}: {r['ms']:.3f} ms (CUDA events, "
+            f"back to back), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){static}")
+    log(f"F1 layer times: {json.dumps(rows)}")
+
+
+def _moe_f2(seed, dev, torch, np, MT, MM, get_config, probe):
+    import dataclasses
+
+    full = get_config("kimi-k2-1t-a32b")
+    moe = full.moe
+    cfg = dataclasses.replace(full, num_layers=moe.first_dense_layers + 1)
+    vocab, prompts, n = cfg.vocab_size, PROMPTS, PROMPT_LEN
+    whole = MT.num_params(MT.Model(full, device="meta"))
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    one = sum(p.numel() * p.element_size()
+              for p in params.layers[0].parameters())
+    log(f"F2 kimi-k2-1t-a32b: d_model {cfg.d_model}, {cfg.num_heads} q / "
+        f"{cfg.num_kv_heads} kv heads x {cfg.head_dim}, {moe.num_experts} "
+        f"experts top-{moe.top_k} (d_ff {moe.d_ff_expert}) + "
+        f"{moe.shared_experts} shared, vocab {vocab}, {cfg.dtype}; cut in "
+        f"depth to {cfg.num_layers} of {full.num_layers} layers (the dense "
+        f"prefix layer, d_ff {cfg.d_ff}, and one GQA + MoE layer; one MoE "
+        f"layer is {one / 1e9:.1f} GB, the whole model {whole:,} "
+        f"parameters, {whole * 2 / 2**30:,.0f} GiB in bf16): "
+        f"{MT.num_params(params):,} parameters, random init (seed {seed})")
+    toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, vocab, (prompts, n)).astype(np.int32)).to(dev)
+    cache, logits = _moe_prefill("F2", MT, MM, params, cfg, toks, torch,
+                                 probe)
+    cache = MT.grow_cache(cfg, cache, n + F2_DECODE)
+    tok = torch.argmax(logits[:, :vocab], -1)[:, None].to(torch.int32)
+    probe.record = False
+    cache = dense_decode("F2", MT, params, cfg, cache, tok, F2_DECODE, torch,
+                         np)
+    if cache["pos"] != n - 1 + F2_DECODE:
+        fail(f"F2 decode: position {cache['pos']}")
+
+
+def _moe_f4(seed, dev, torch, np, MM, layer, moe, probe):
+    """One F1 MoE layer's ``moe_ffn`` on its prefill input (16,384
+    tokens), under fish, pkg and fg in turn, from a Zipf(1.2)-skewed
+    hotness, carrying ``new_hotness`` from call to call."""
+    import dataclasses
+
+    x = probe.first_x
+    t, e, k = x.shape[0], moe.num_experts, moe.top_k
+    plan = MM.capacity_plan(moe, t)
+    zipf = np.arange(1, e + 1, dtype=np.float64) ** -1.2
+    rng = np.random.default_rng(seed)
+    hot = torch.from_numpy((zipf[rng.permutation(e)] / zipf.sum() * t * k
+                            ).astype(np.float32)).to(dev)
+    probe.record = True
+    for i, routing in enumerate(("fish", "pkg", "fg")):
+        mode = dataclasses.replace(moe, routing=routing)
+        probe.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, new, _, m = MM.moe_ffn(layer, x, mode, hot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (ids, _, caps), = probe.routes
+        counts = torch.bincount(ids.reshape(-1).cpu(), minlength=e).float()
+        if not torch.equal(new.cpu(), mode.fish_alpha * hot.cpu() + counts):
+            fail(f"F4 {routing}: new_hotness != alpha * hotness + counts")
+        what = "new_hotness == alpha * h + counts exactly"
+        if routing == "fish":
+            want = MM.fish_capacities(hot.cpu(), budget=plan.budget,
+                                      c_max=plan.c_max,
+                                      theta_frac=mode.fish_theta_frac)
+            if not torch.equal(caps.cpu(), want):
+                fail(f"F4 fish: card capacities {caps.tolist()} != the "
+                     f"CPU's {want.tolist()}")
+            what += ", capacities == the CPU's fish_capacities exactly"
+        if not bool(torch.isfinite(y).all()):
+            fail(f"F4 {routing}: non-finite output")
+        log(f"check F4 {routing}: ok, {t} tokens, hotness "
+            f"{'Zipf(1.2) from the seed' if i == 0 else 'carried'} (sum "
+            f"{float(hot.sum()):.1f}, max {float(hot.max()):.1f}), "
+            f"{wall * 1e3:.2f} ms; moe_drop_frac "
+            f"{float(m['moe_drop_frac']):.4f}, load max/mean "
+            f"{float(m['moe_load_max_over_mean']):.3f}, capacities min "
+            f"{int(caps.min())} max {int(caps.max())} sum {int(caps.sum())} "
+            f"(budget {plan.budget}, c_max {plan.c_max}); {what}")
+        hot = new
 
 
 # ---------------------------------------------------------------------------
@@ -2126,8 +2606,13 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
 
     # -- path E: the dense decoder family -----------------------------------------
-    attention_times(dense_path(args.seed, dev, torch, np), torch)
+    attention_times("E1 layer 0", dense_path(args.seed, dev, torch, np),
+                    torch)
     log(f"path E (dense family) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path F: the MoE family ----------------------------------------------------
+    moe_path(args.seed, dev, torch, np)
+    log(f"path F (MoE family) done at {time.perf_counter() - t_start:.1f} s")
 
     # path A's and B's kernels last: their device times come from
     # torch.profiler, whose tracing is kept away from the timed paths

@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures the port runs are registered: the dense family
-(``qwen1.5-0.5b``, ``starcoder2-3b``, ``olmo-1b``, ``gemma2-2b``) and
-``mamba2-780m``, the model whose prefill runs the SSD kernels.
+(``qwen1.5-0.5b``, ``starcoder2-3b``, ``olmo-1b``, ``gemma2-2b``),
+``mamba2-780m`` (the model whose prefill runs the SSD kernels) and the
+MoE family with FISH expert routing (``deepseek-v2-lite-16b`` with MLA,
+``kimi-k2-1t-a32b`` with GQA).
 """
 
 import importlib
@@ -17,6 +19,8 @@ _ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "olmo-1b": "olmo_1b",
     "gemma2-2b": "gemma2_2b",
+    "kimi-k2-1t-a32b": "kimi_k2",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
 }
 
 

@@ -246,10 +246,14 @@ def model_params_from_reference(np_params, cfg, device=None):
     ``final_norm``, ``head`` unless tied, and ``stack`` with every layer
     leaf stacked on a leading layer axis — two, ``(L // pat, pat)``, under
     a local/global pattern of ``pat`` layers, layer ``i`` at
-    ``[i // pat, i % pat]``.  The port's parameter names are the
-    reference's paths (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``;
-    an empty norm dict, OLMo's, has no parameter).  Values and dtypes
-    carry over bit for bit; ``device`` ``None`` = ``"cuda"``."""
+    ``[i // pat, i % pat]`` — and an MoE model's ``prefix`` list of dense
+    layers.  The port's parameter names are the reference's paths
+    (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``,
+    ``layers.3.moe.shared.w_up`` ↔ ``stack["moe"]["shared"]["w_up"][3]``,
+    ``prefix.0.attn.kv_norm.scale`` ↔
+    ``prefix[0]["attn"]["kv_norm"]["scale"]``; an empty norm dict, OLMo's,
+    has no parameter).  Values and dtypes carry over bit for bit (the
+    float32 MoE router too); ``device`` ``None`` = ``"cuda"``."""
     from .models.transformer import Model, _pattern
 
     def leaf(tree, dotted):
@@ -266,6 +270,9 @@ def model_params_from_reference(np_params, cfg, device=None):
                 i = int(i)
                 a = leaf(np_params["stack"], rest)
                 a = a[i] if pat == 1 else a[i // pat][i % pat]
+            elif name.startswith("prefix."):
+                _, j, rest = name.split(".", 2)
+                a = leaf(np_params["prefix"][int(j)], rest)
             else:
                 a = leaf(np_params, name)
             param.copy_(_tensor(a))

@@ -1,5 +1,6 @@
 """Attention of the port: the blockwise (flash-style) prefill path and the
-O(S) decode path, with GQA/MQA, sliding windows and soft-capping.
+O(S) decode path, with GQA/MQA, sliding windows and soft-capping, and
+DeepSeek's multi-head latent attention (MLA).
 
 The JAX package runs both on XLA (a ``lax.scan`` over KV blocks and
 einsums), not on a Pallas kernel, and so does the port: plain tensor ops
@@ -7,7 +8,9 @@ on the card too — per KV block two ``einsum``s and the elementwise online
 softmax, the (Sq, Skv) score matrix never materialised.  All score math
 is float32; the output is cast to q's dtype.  GQA reshapes q to
 ``(B, Sq, Hkv, rep, dh)``: query head ``h`` reads kv head ``h // rep``.
-DeepSeek MLA waits for that family's slice.
+MLA's prefill expands its latent into per-head K/V (:func:`mla_expand`)
+for :func:`flash_attention`; its decode attends in the latent space
+(:func:`mla_decode_scores`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from .common import soft_cap
 
-__all__ = ["flash_attention", "decode_attention"]
+__all__ = ["flash_attention", "decode_attention", "mla_expand",
+           "mla_decode_scores"]
 
 _NEG_INF = -1e30
 
@@ -118,3 +122,42 @@ def decode_attention(q, k_cache, v_cache, cur_pos: int, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrk,bkhd->bhrd", p, v_cache.float())
     return out.reshape(b, 1, hq, -1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+
+def mla_expand(c_kv, w_uk, w_uv):
+    """Expand the compressed KV latent into per-head K (nope part) and V.
+
+    c_kv: (B, S, R); w_uk: (R, H, dn); w_uv: (R, H, dv).  Returns k_nope
+    (B, S, H, dn) and v (B, S, H, dv).
+    """
+    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, w_uk)
+    v = torch.einsum("bsr,rhd->bshd", c_kv, w_uv)
+    return k_nope, v
+
+
+def mla_decode_scores(q_nope, q_rope, ckv_cache, krope_cache, w_uk, w_uv,
+                      cur_pos: int, *, scale: float):
+    """Weight-absorbed MLA decode (arXiv:2405.04434 §2.1.3), in float32.
+
+    q_nope: (B, H, dn); q_rope: (B, H, dr); ckv_cache: (B, S, R);
+    krope_cache: (B, S, dr).  Scores are taken in the latent space (q_c =
+    q_nope · W_uk, (B, H, R)) against slots at positions <= ``cur_pos``,
+    and the context is expanded back through W_uv.  Returns (B, 1, H, dv)
+    in q_nope's dtype.
+    """
+    ckv = ckv_cache.float()
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk.float())
+    s_c = torch.einsum("bhr,bsr->bhs", q_c, ckv)
+    s_r = torch.einsum("bhd,bsd->bhs", q_rope.float(), krope_cache.float())
+    scores = (s_c + s_r) * scale
+    valid = torch.arange(ckv.shape[1], device=ckv.device) <= cur_pos
+    scores = torch.where(valid, scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    ctx_c = torch.einsum("bhs,bsr->bhr", p, ckv)
+    ctx = torch.einsum("bhr,rhd->bhd", ctx_c, w_uv.float())
+    return ctx[:, None].to(q_nope.dtype)

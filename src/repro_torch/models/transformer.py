@@ -1,4 +1,5 @@
-"""Model assembly of the port: the SSM (Mamba-2) and dense decoder families.
+"""Model assembly of the port: the SSM (Mamba-2), dense decoder and MoE
+families.
 
 Entry points as in the JAX package's ``models/transformer.py``:
 
@@ -7,20 +8,30 @@ Entry points as in the JAX package's ``models/transformer.py``:
 * :func:`prefill` — the full-sequence pass that also builds the decode
   cache (the SSM family's through the SSD chunk kernels);
 * :func:`decode_step` — one token against the cache (the serving step);
-* :func:`init_cache` — a zero decode cache.
+* :func:`init_cache` — a zero decode cache (:func:`grow_cache` places a
+  prefill's in a longer one);
+* :func:`init_hotness_state` — the MoE layers' zero FISH hotness.
 
 The dense family (qwen1.5, starcoder2, olmo, gemma2: GQA/MQA, QKV bias,
 sliding windows on a local/global pattern, soft-capping, post-norms,
 tied heads) runs its attention in plain tensor ops
 (:mod:`repro_torch.models.attention`), as the JAX package runs it on XLA.
+The MoE family (deepseek-v2-lite with MLA, kimi-k2 with GQA) runs
+``first_dense_layers`` dense ``prefix`` layers, then layers whose FFN is
+:func:`repro_torch.models.moe.moe_ffn` with FISH expert routing; prefill
+and decode pass zero hotness, as the reference does.
 
 The JAX package scans over layers stacked on a leading axis; here the
 layers are an ``nn.ModuleList`` walked by a Python loop.  The decode
 cache keeps the stacked layout: the SSM family's ``conv``
 (L, B, d_conv−1, C) and ``ssm`` (L, B, H, N, P); the dense family's
 (k, v), each (L, B, S, Hkv, dh), or (L//pat, pat, B, S, Hkv, dh) with a
-local/global pattern of ``pat`` layers.  MoE, MLA, Griffin,
-encoder-decoder and embedding-input models are not ported yet.
+local/global pattern of ``pat`` layers.  An MoE model's stack holds its
+L − nd MoE layers and a ``prefix`` list holds one entry per dense prefix
+layer: (k, v) of (B, S, Hkv, dh) under GQA; under MLA the compressed
+(c_kv, k_rope), (L − nd, B, S, R) and (L − nd, B, S, dr) in the stack and
+(B, S, R), (B, S, dr) in the prefix.  Griffin, encoder-decoder and
+embedding-input models are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,12 +44,16 @@ from torch import nn
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import decode_attention, flash_attention
-from .common import activation_fn, apply_norm, apply_rope, dtype_of, soft_cap
+from .attention import (decode_attention, flash_attention, mla_decode_scores,
+                        mla_expand)
+from .common import (activation_fn, apply_norm, apply_rope, dtype_of,
+                     rms_norm, soft_cap)
+from .moe import moe_ffn
 
 __all__ = ["Model", "padded_vocab", "init_params", "prefill", "decode_step",
-           "init_cache", "grow_cache", "num_params"]
+           "init_cache", "grow_cache", "init_hotness_state", "num_params"]
 
 BLOCK_K = 1024  # the KV block of the prefill's online softmax
 
@@ -50,18 +65,18 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The SSM and dense families run; every other raises, with why."""
+    """The SSM, dense and MoE (GQA or MLA) families run; every other
+    raises, with why."""
     if cfg.ssm is not None:
         return
     missing = [what for what, on in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
         ("Griffin (RG-LRU)", cfg.rglru is not None),
         ("encoder-decoder", bool(cfg.encoder_layers)),
         ("embedding input (frontend stubs)", cfg.embeds_input)) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} is not ported yet; the port "
-            "runs the SSM (Mamba-2) and dense decoder families")
+            "runs the SSM (Mamba-2), dense and MoE decoder families")
     if cfg.rope_kind == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE waits for the qwen2-vl slice")
@@ -69,6 +84,11 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _pattern(cfg: ModelConfig) -> int:
     return len(cfg.local_global_pattern) if cfg.local_global_pattern else 1
+
+
+def _num_prefix(cfg: ModelConfig) -> int:
+    """The dense layers ahead of an MoE model's MoE stack."""
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 def _windows(cfg: ModelConfig):
@@ -114,13 +134,39 @@ class Attention(nn.Module):
             self.bv = _param(hkv * dh, dtype, device)
 
 
+class KVNorm(nn.Module):
+    """MLA's latent norm: always an RMS norm, ``scale`` (R,)."""
+
+    def __init__(self, dim: int, dtype, device):
+        super().__init__()
+        self.scale = _param(dim, dtype, device)
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention: ``w_q_mla`` (D,
+    H·(dn+dr)), ``w_dkv`` (D, R+dr), ``kv_norm``, ``w_uk`` (R, H, dn),
+    ``w_uv`` (R, H, dv), ``w_o_mla`` (H·dv, D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+        dn, dr, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                         m.kv_lora_rank)
+        self.w_q_mla = _param((d, h * (dn + dr)), dtype, device)
+        self.w_dkv = _param((d, r + dr), dtype, device)
+        self.kv_norm = KVNorm(r, dtype, device)
+        self.w_uk = _param((r, h, dn), dtype, device)
+        self.w_uv = _param((r, h, dv), dtype, device)
+        self.w_o_mla = _param((h * dv, d), dtype, device)
+
+
 class MLP(nn.Module):
     """Gated (``w_gate``, ``w_up``, ``w_down``: swiglu, geglu) or plain
     (``w_in``, ``b_in``, ``w_out``, ``b_out``: starcoder2)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, cfg.d_ff  # an MoE model's prefix layers too
         if cfg.mlp_kind in ("swiglu", "geglu"):
             self.w_gate = _param((d, f), dtype, device)
             self.w_up = _param((d, f), dtype, device)
@@ -141,26 +187,32 @@ class MambaLayer(nn.Module):
         self.mamba = ssm_mod.Mamba2(cfg.d_model, cfg.ssm, dtype, device)
 
 
-class DenseLayer(nn.Module):
-    """norm → attention → residual, norm → MLP → residual; with
-    ``post_norms`` (gemma2) each sub-block's output is normed too."""
+class DecoderLayer(nn.Module):
+    """norm → attention (GQA, or MLA with ``cfg.mla``) → residual, norm →
+    MLP, or with ``moe`` the MoE FFN → residual; with ``post_norms``
+    (gemma2) each sub-block's output is normed too."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg, dtype, device)
         self.ln2 = Norm(cfg, dtype, device)
         if cfg.post_norms:
             self.ln1_post = Norm(cfg, dtype, device)
             self.ln2_post = Norm(cfg, dtype, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        self.attn = (MLA if cfg.mla is not None else Attention)(cfg, dtype,
+                                                                device)
+        self.mlp = None if moe else MLP(cfg, dtype, device)
+        self.moe = (moe_mod.MoE(cfg.d_model, cfg.moe, dtype, device) if moe
+                    else None)
 
 
 class Model(nn.Module):
     """The parameters of a model, in the JAX package's layout (``embed``
     (PV, D), ``head`` (D, PV), layer ``i`` = its ``stack`` leaves' row
-    ``i``, or ``[i // pat, i % pat]`` under a local/global pattern).
-    Uninitialised: :func:`init_params` draws them, or
+    ``i``, or ``[i // pat, i % pat]`` under a local/global pattern; an MoE
+    model's ``prefix.<j>`` = the reference's ``prefix[j]``, and its
+    ``layers`` are the MoE layers after them).  Uninitialised:
+    :func:`init_params` draws them, or
     :func:`repro_torch.convert.model_params_from_reference` copies them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -173,9 +225,16 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg, dtype, device)
         self.head = (None if cfg.tie_embeddings
                      else _param((cfg.d_model, pv), dtype, device))
-        layer = MambaLayer if cfg.ssm is not None else DenseLayer
-        self.layers = nn.ModuleList(layer(cfg, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        nd = _num_prefix(cfg)
+        self.prefix = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+                                    for _ in range(nd))
+        if cfg.ssm is not None:
+            self.layers = nn.ModuleList(MambaLayer(cfg, dtype, device)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleList(
+                DecoderLayer(cfg, dtype, device, moe=cfg.moe is not None)
+                for _ in range(cfg.num_layers - nd))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
@@ -196,27 +255,46 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
         if n.bias is not None:
             n.bias.zero_()
 
+    def dense(sub):
+        # as _init_attn / _init_mlp / _init_mla: every matrix N(0,
+        # 1/fan_in), with fan_in its rows (MLA's (R, H, d) too); every bias
+        # zero, MLA's latent norm one
+        for w in sub.parameters():
+            if w.dim() >= 2:
+                normal(w, 1.0 / math.sqrt(w.shape[0]))
+            else:
+                w.zero_()
+        if isinstance(sub, MLA):
+            sub.kv_norm.scale.fill_(1.0)
+
     with torch.no_grad():
         normal(model.embed, 0.02)
         norm(model.final_norm)
         if model.head is not None:
             normal(model.head, 0.02)
-        for layer in model.layers:
+        for layer in [*model.prefix, *model.layers]:
             for child in layer.children():
                 if isinstance(child, Norm):
                     norm(child)
             if cfg.ssm is not None:
                 ssm_mod._init_mamba2_(layer.mamba, gen)
                 continue
-            # as _init_attn / _init_mlp: every matrix N(0, 1/fan_in), with
-            # fan_in its rows; every bias zero
-            for sub in (layer.attn, layer.mlp):
-                for w in sub.parameters():
-                    if w.dim() == 2:
-                        normal(w, 1.0 / math.sqrt(w.shape[0]))
-                    else:
-                        w.zero_()
+            dense(layer.attn)
+            if layer.moe is not None:  # the experts have their own draws
+                moe_mod._init_moe_(layer.moe, gen)
+            else:
+                dense(layer.mlp)
     return model
+
+
+def init_hotness_state(cfg: ModelConfig, device=None):
+    """Zero FISH hotness for each MoE layer, (L − nd, E) float32 on
+    ``device`` (``None`` = ``cuda``); ``None`` for a model without MoE."""
+    if cfg.moe is None:
+        return None
+    return torch.zeros((cfg.num_layers - _num_prefix(cfg),
+                        cfg.moe.num_experts), dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def num_params(model: Model) -> int:
@@ -249,7 +327,7 @@ def _masked_logits(h_last, params: Model, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Dense layer bodies
+# Layer bodies
 # ---------------------------------------------------------------------------
 
 
@@ -288,15 +366,46 @@ def _mlp_block(p: MLP, h, cfg: ModelConfig):
     return (act(h @ p.w_in + p.b_in) @ p.w_out + p.b_out).to(h.dtype)
 
 
-def _residual(cfg: ModelConfig, layer: DenseLayer, name: str, h, out):
+def _mla_block(p: MLA, h, cfg: ModelConfig, *, positions):
+    """DeepSeek-V2 MLA, expanded (prefill) form.  Returns (out, (c_kv,
+    k_rope)), the compressed cache entries (B, S, R) and (B, S, dr)."""
+    m, hq = cfg.mla, cfg.num_heads
+    b, s, _ = h.shape
+    dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    q = (h @ p.w_q_mla).reshape(b, s, hq, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    dkv = h @ p.w_dkv
+    c_kv = rms_norm(dkv[..., :r], p.kv_norm.scale, cfg.norm_eps)
+    k_rope = dkv[..., r:].reshape(b, s, 1, dr)  # one head, broadcast
+    q_rope, k_rope = apply_rope(q_rope, k_rope, positions,
+                                theta=cfg.rope_theta)
+    k_nope, v = mla_expand(c_kv, p.w_uk, p.w_uv)
+    k = torch.cat([k_nope, k_rope.expand(b, s, hq, dr)], dim=-1)
+    out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                          scale=1.0 / math.sqrt(dn + dr), block_k=BLOCK_K)
+    out = out.reshape(b, s, hq * dv) @ p.w_o_mla
+    return out.to(h.dtype), (c_kv, k_rope[:, :, 0])
+
+
+def _residual(cfg: ModelConfig, layer: DecoderLayer, name: str, h, out):
     """Residual add, with gemma2's post-norm sandwich if configured."""
     if cfg.post_norms:
         out = _norm(cfg, getattr(layer, f"{name}_post"), out)
     return h + out
 
 
-def _mlp_half(layer: DenseLayer, h, cfg: ModelConfig):
-    out = _mlp_block(layer.mlp, _norm(cfg, layer.ln2, h), cfg)
+def _ffn_half(layer: DecoderLayer, h, cfg: ModelConfig):
+    """norm → MLP, or the MoE FFN with zero hotness (prefill and decode
+    route statelessly, as the reference) → residual."""
+    hin = _norm(cfg, layer.ln2, h)
+    if layer.moe is None:
+        out = _mlp_block(layer.mlp, hin, cfg)
+    else:
+        b, s, d = hin.shape
+        hot = torch.zeros((cfg.moe.num_experts,), dtype=torch.float32,
+                          device=h.device)
+        y, _, _, _ = moe_ffn(layer.moe, hin.reshape(b * s, d), cfg.moe, hot)
+        out = y.reshape(b, s, d)
     return _residual(cfg, layer, "ln2", h, out)
 
 
@@ -305,13 +414,30 @@ def _cache_view(cache_t, i: int, pat: int):
     return cache_t[i] if pat == 1 else cache_t[i // pat, i % pat]
 
 
+def _layer_entries(cfg: ModelConfig, cache: Dict):
+    """Each attention layer's two cache tensors (views), prefix first, in
+    the order of ``[*params.prefix, *params.layers]``."""
+    pat = _pattern(cfg)
+    first, second = cache["layers"]
+    return list(cache.get("prefix", [])) + [
+        (_cache_view(first, i, pat), _cache_view(second, i, pat))
+        for i in range(cfg.num_layers - _num_prefix(cfg))]
+
+
+def _layer_windows(cfg: ModelConfig):
+    """Each attention layer's window, prefix first (the prefix has none)."""
+    windows, pat = _windows(cfg), _pattern(cfg)
+    return [None] * _num_prefix(cfg) + [
+        windows[i % pat] for i in range(cfg.num_layers - _num_prefix(cfg))]
+
+
 @torch.no_grad()
 def prefill(params: Model, batch, cfg: ModelConfig):
     """Full-sequence pass building the decode cache.
 
     batch: ``{"tokens": (B, S) int}``.
-    Returns (cache dict, last-token logits (B, PV) f32); a dense model's
-    cache is sized to the prompt, with ``pos = S - 1``.
+    Returns (cache dict, last-token logits (B, PV) f32); an attention
+    model's cache is sized to the prompt, with ``pos = S - 1``.
     """
     _check_family(cfg)
     h = _embed(params, batch["tokens"], cfg)
@@ -319,19 +445,22 @@ def prefill(params: Model, batch, cfg: ModelConfig):
         return _mamba_prefill(params, h, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
-    windows, pat = _windows(cfg), _pattern(cfg)
-    shape = _cache_shape(cfg, b, s)
-    kc = torch.empty(shape, dtype=h.dtype, device=h.device)
-    vc = torch.empty(shape, dtype=h.dtype, device=h.device)
-    for i, layer in enumerate(params.layers):
-        out, (k, v) = _attn_block(layer.attn, _norm(cfg, layer.ln1, h), cfg,
-                                  positions=positions, window=windows[i % pat])
-        _cache_view(kc, i, pat).copy_(k)
-        _cache_view(vc, i, pat).copy_(v)
-        h = _mlp_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+    cache = _new_cache(cfg, b, s, h.dtype, h.device, torch.empty)
+    for layer, entry, window in zip([*params.prefix, *params.layers],
+                                    _layer_entries(cfg, cache),
+                                    _layer_windows(cfg)):
+        hin = _norm(cfg, layer.ln1, h)
+        if cfg.mla is not None:
+            out, kv = _mla_block(layer.attn, hin, cfg, positions=positions)
+        else:
+            out, kv = _attn_block(layer.attn, hin, cfg, positions=positions,
+                                  window=window)
+        for dst, src in zip(entry, kv):
+            dst.copy_(src)
+        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
     h = _norm(cfg, params.final_norm, h)
-    return {"pos": s - 1, "layers": (kc, vc)}, _masked_logits(h[:, -1],
-                                                             params, cfg)
+    cache["pos"] = s - 1
+    return cache, _masked_logits(h[:, -1], params, cfg)
 
 
 def _mamba_prefill(params: Model, h, cfg: ModelConfig):
@@ -349,10 +478,31 @@ def _mamba_prefill(params: Model, h, cfg: ModelConfig):
     return cache, logits
 
 
-def _cache_shape(cfg: ModelConfig, batch: int, max_seq: int):
-    pat, L = _pattern(cfg), cfg.num_layers
-    tail = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return (L // pat, pat) + tail if pat > 1 else (L,) + tail
+def _seq_axis(cfg: ModelConfig) -> int:
+    """The position axis of an attention cache tensor: (…, S, R) and
+    (…, S, dr) under MLA, (…, S, Hkv, dh) else; the batch is the axis
+    before it."""
+    return -2 if cfg.mla is not None else -3
+
+
+def _new_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device,
+               alloc):
+    """An attention model's cache, its tensors made by ``alloc``
+    (``torch.zeros`` or ``torch.empty``)."""
+    if cfg.mla is not None:
+        shapes = ((batch, max_seq, cfg.mla.kv_lora_rank),
+                  (batch, max_seq, cfg.mla.qk_rope_dim))
+    else:
+        shapes = ((batch, max_seq, cfg.num_kv_heads, cfg.head_dim),) * 2
+    pat, nd = _pattern(cfg), _num_prefix(cfg)
+    ls = cfg.num_layers - nd
+    lead = (ls // pat, pat) if pat > 1 else (ls,)
+    cache = {"pos": 0, "layers": tuple(
+        alloc(lead + sh, dtype=dtype, device=device) for sh in shapes)}
+    if nd:
+        cache["prefix"] = [tuple(alloc(sh, dtype=dtype, device=device)
+                                 for sh in shapes) for _ in range(nd)]
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -363,10 +513,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     if cfg.ssm is None:
-        shape = _cache_shape(cfg, batch, max_seq)
-        return {"pos": 0, "layers": (
-            torch.zeros(shape, dtype=dtype, device=dev),
-            torch.zeros(shape, dtype=dtype, device=dev))}
+        return _new_cache(cfg, batch, max_seq, dtype, dev, torch.zeros)
     _, n_heads, conv_dim, _ = ssm_mod._mamba2_dims(cfg.d_model, cfg.ssm)
     L = cfg.num_layers
     return {
@@ -382,14 +529,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def grow_cache(cfg: ModelConfig, cache: Dict, max_seq: int) -> Dict:
-    """A dense cache (a prefill's, sized to its prompt) placed at the head
-    of a zero cache of ``max_seq`` positions, so that decoding can go on
-    past the prompt."""
-    kc, vc = cache["layers"]
-    big = init_cache(cfg, kc.shape[-4], max_seq, device=kc.device)
-    n = kc.shape[-3]
-    for src, dst in zip((kc, vc), big["layers"]):
-        dst[..., :n, :, :].copy_(src)
+    """An attention cache (a prefill's, sized to its prompt) placed at the
+    head of a zero cache of ``max_seq`` positions, so that decoding can go
+    on past the prompt.  The position axis is the layout's
+    (:func:`_seq_axis`): an MLA tensor has one axis fewer than a GQA one."""
+    axis = _seq_axis(cfg)
+    first = cache["layers"][0]
+    big = init_cache(cfg, first.shape[axis - 1], max_seq,
+                     device=first.device)
+    n = first.shape[axis]
+    for src, dst in zip(cache["layers"] + sum(cache.get("prefix", []), ()),
+                        big["layers"] + sum(big.get("prefix", []), ())):
+        dst.narrow(axis, 0, n).copy_(src)
     big["pos"] = cache["pos"]
     return big
 
@@ -400,22 +551,22 @@ def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
 
     Returns (logits (B, PV) f32, new cache).  The SSM family's is
     functional, as in the JAX package: the cache passed in is left as it
-    was.  A dense model writes the new token's K/V into the cache's
-    tensors in place (the returned cache holds the same tensors, with
-    ``pos`` one on), unlike the JAX package's functional cache: a copy
-    would move the whole cache every step.
+    was.  An attention model writes the new token's K/V (MLA: c_kv,
+    k_rope) into the cache's tensors in place (the returned cache holds
+    the same tensors, with ``pos`` one on), unlike the JAX package's
+    functional cache: a copy would move the whole cache every step.
     """
     _check_family(cfg)
     pos = cache["pos"] + 1
     h = _embed(params, tokens, cfg)
     if cfg.ssm is not None:
         h, layers = _mamba_decode_stack(params, h, cache["layers"], cfg)
+        new = {"pos": pos, "layers": layers}
     else:
-        layers = cache["layers"]
-        h = _attn_decode_stack(params, h, layers, cfg, pos)
+        h = _attn_decode_stack(params, h, cache, cfg, pos)
+        new = dict(cache, pos=pos)
     h = _norm(cfg, params.final_norm, h)
-    logits = _masked_logits(h[:, 0], params, cfg)
-    return logits, {"pos": pos, "layers": layers}
+    return _masked_logits(h[:, 0], params, cfg), new
 
 
 def _mamba_decode_stack(params: Model, h, states, cfg: ModelConfig):
@@ -431,16 +582,50 @@ def _mamba_decode_stack(params: Model, h, states, cfg: ModelConfig):
     return h, {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
 
 
-def _attn_decode_stack(params: Model, h, layers, cfg: ModelConfig, pos: int):
-    kc, vc = layers
-    windows, pat = _windows(cfg), _pattern(cfg)
-    for i, layer in enumerate(params.layers):
-        out = _attn_decode_full(layer.attn, _norm(cfg, layer.ln1, h),
-                                (_cache_view(kc, i, pat),
-                                 _cache_view(vc, i, pat)),
-                                pos, cfg, window=windows[i % pat])
-        h = _mlp_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+def _attn_decode_stack(params: Model, h, cache: Dict, cfg: ModelConfig,
+                       pos: int):
+    for layer, entry, window in zip([*params.prefix, *params.layers],
+                                    _layer_entries(cfg, cache),
+                                    _layer_windows(cfg)):
+        hin = _norm(cfg, layer.ln1, h)
+        if cfg.mla is not None:
+            out = _mla_decode(layer.attn, hin, entry, pos, cfg)
+        else:
+            out = _attn_decode_full(layer.attn, hin, entry, pos, cfg,
+                                    window=window)
+        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
     return h
+
+
+def _cache_slot(pos: int, size: int) -> int:
+    """The slot a decode at ``pos`` writes: ``pos`` clamped into the
+    cache, as the JAX package's ``lax.dynamic_update_slice`` clamps its
+    start."""
+    return min(max(pos, 0), size - 1)
+
+
+def _mla_decode(p: MLA, h, cache, pos: int, cfg: ModelConfig):
+    """MLA decode against the compressed cache, written in place at the
+    clamped slot; the weight-absorbed scores in float32."""
+    m, hq = cfg.mla, cfg.num_heads
+    b = h.shape[0]
+    dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    q = (h @ p.w_q_mla).reshape(b, 1, hq, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    dkv = h @ p.w_dkv
+    c_kv = rms_norm(dkv[..., :r], p.kv_norm.scale, cfg.norm_eps)
+    k_rope = dkv[..., r:].reshape(b, 1, 1, dr)
+    posv = torch.full((b, 1), pos, device=h.device)
+    q_rope, k_rope = apply_rope(q_rope, k_rope, posv, theta=cfg.rope_theta)
+    ckv_c, krope_c = cache
+    slot = _cache_slot(pos, ckv_c.shape[1])
+    ckv_c[:, slot] = c_kv[:, 0].to(ckv_c.dtype)
+    krope_c[:, slot] = k_rope[:, 0, 0].to(krope_c.dtype)
+    ctx = mla_decode_scores(q_nope[:, 0], q_rope[:, 0], ckv_c, krope_c,
+                            p.w_uk, p.w_uv, cur_pos=pos,
+                            scale=1.0 / math.sqrt(dn + dr))
+    out = ctx.reshape(b, 1, hq * dv) @ p.w_o_mla
+    return out.to(h.dtype)
 
 
 def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
@@ -459,7 +644,7 @@ def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
     posv = torch.full((b, 1), pos, device=h.device)
     q, k, v = _qkv(p, h, cfg, posv)
     kc, vc = kv_cache
-    slot = min(max(pos, 0), kc.shape[1] - 1)
+    slot = _cache_slot(pos, kc.shape[1])
     kc[:, slot] = k[:, 0].to(kc.dtype)
     vc[:, slot] = v[:, 0].to(vc.dtype)
     out = decode_attention(q, kc, vc, cur_pos=pos, window=window,

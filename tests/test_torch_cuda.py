@@ -924,3 +924,82 @@ def test_cuda_dense_model_matches_host(arch):
             t.cpu() for t in cache["layers"]]
     for card, plain in zip(runs["cuda"], runs["cpu"]):
         torch.testing.assert_close(card, plain, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_cuda_moe_model_matches_host(arch, monkeypatch):
+    """The MoE family (MLA or GQA, FISH expert routing) has no kernel of
+    its own: its plain tensor ops on the card against the same ops on the
+    host, one set of float32 weights (reduced config), a prefill of 2 x 64
+    tokens (two dispatch groups) and 4 decode steps within 1e-3, and every
+    MoE routing's ids, keep and pos equal on both."""
+    from repro_torch.models import moe as PM
+
+    dev = _card()
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    host = PT.init_params(cfg, seed=0, device="cpu")
+    real_route, routes = PM._route, []
+
+    def route(gates, moe, caps):
+        out = real_route(gates, moe, caps)
+        routes.append([out[i].cpu() for i in (0, 2, 3)])
+        return out
+
+    monkeypatch.setattr(PM, "_route", route)
+    runs = {}
+    for where, params in (("cuda", copy.deepcopy(host).to(dev)),
+                          ("cpu", host)):
+        routes.clear()
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 68)).astype(np.int32)).to(where)
+        cache, lg = PT.prefill(params, {"tokens": toks[:, :64]}, cfg)
+        cache = PT.grow_cache(cfg, cache, 68)
+        out = [lg]
+        for i in range(64, 68):
+            lg, cache = PT.decode_step(params, cache, toks[:, i:i + 1], cfg)
+            out.append(lg)
+        runs[where] = ([x[:, :cfg.vocab_size].cpu() for x in out] +
+                       [t.cpu() for t in cache["layers"]], list(routes))
+    (card, card_routes), (plain, plain_routes) = runs["cuda"], runs["cpu"]
+    for a, b in zip(card, plain):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    assert len(card_routes) == len(plain_routes) == 5
+    for a, b in zip(card_routes, plain_routes):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["scatter", "einsum"])
+@pytest.mark.parametrize("routing", ["fish", "pkg", "fg"])
+def test_cuda_moe_ffn_matches_host(routing, impl):
+    """``moe_ffn`` on 512 tokens (2 groups of 256), 16 experts top-4,
+    capacity factor 1, from a skewed hotness: on the card against the
+    host, ``new_hotness`` and the FISH capacities exact, ``y`` within
+    1e-5."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as PM
+
+    dev = _card()
+    moe = MoEConfig(num_experts=16, top_k=4, d_ff_expert=32,
+                    shared_experts=1, routing=routing, capacity_factor=1.0,
+                    tokens_per_group=256, dispatch_impl=impl,
+                    hot_headroom=2.0)
+    gen = torch.Generator().manual_seed(3)
+    host = PM.init_moe_params(gen, 64, moe, torch.float32, "cpu")
+    card = copy.deepcopy(host).to(dev)
+    x = torch.randn((512, 64), generator=gen)
+    hot = (torch.arange(1, 17, dtype=torch.float32) ** -1.2 * 2048)[
+        torch.randperm(16, generator=gen)]
+    y_c, nh_c, aux_c, m_c = PM.moe_ffn(card, x.to(dev), moe, hot.to(dev))
+    y_h, nh_h, aux_h, m_h = PM.moe_ffn(host, x, moe, hot)
+    torch.testing.assert_close(y_c.cpu(), y_h, rtol=1e-5, atol=1e-5)
+    assert torch.equal(nh_c.cpu(), nh_h)
+    assert float(m_c["moe_drop_frac"]) == float(m_h["moe_drop_frac"])
+    if routing == "fish":
+        plan = PM.capacity_plan(moe, 512)
+        caps = [PM.fish_capacities(h, budget=plan.budget, c_max=plan.c_max)
+                for h in (hot.to(dev), hot)]
+        assert torch.equal(caps[0].cpu(), caps[1])

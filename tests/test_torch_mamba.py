@@ -103,9 +103,10 @@ def test_prefill_then_decode_continues_the_prefill():
                                full[0, :cfg.vocab_size].float().numpy(),
                                rtol=0.08, atol=0.35)
     assert list_archs() == ["mamba2-780m", "qwen1.5-0.5b", "starcoder2-3b",
-                            "olmo-1b", "gemma2-2b"]
+                            "olmo-1b", "gemma2-2b", "kimi-k2-1t-a32b",
+                            "deepseek-v2-lite-16b"]
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("kimi-k2-1t-a32b")
+        get_config("recurrentgemma-9b")
 
 
 def _requests(mk, n=48, seed=3):
