@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's six device paths, each with the launch counters of
+Drives the port's seven device paths, each with the launch counters of
 its kernels set to 0 just before it and read just after, and checks each:
 
 A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
@@ -85,6 +85,30 @@ F. **The MoE family with FISH expert routing**, after path E (no kernel
    layer): a prefill of 4 x 4,096, 8 decode steps.  F3 both archs at
    ``reduced_config`` in float32, card against host: logits within 1e-3,
    every MoE routing's ids and keep equal.
+G. **Training, where FISH expert hotness evolves**, after path F (no
+   kernel either: the reference trains on XLA; the path fails as F
+   does).  G1 qwen1.5-0.5b at its published widths and depth (bf16,
+   random weights from the seed): ``TrainLoop`` over 4 FISH-grouped
+   hosts, 8 steps of 8 x 2,048 tokens with ``launch/train.py``'s
+   optimizer; after step 4 a checkpoint (the reference's format) that a
+   fresh loop restores with parameters, m, v and step bit-equal, and
+   whose next 2 losses match the uninterrupted run's within 1e-3.  G2
+   deepseek-v2-lite-16b at its published widths cut to 4 of 27 layers
+   (the dense prefix layer and 3 MoE layers; the whole model's training
+   state is 188 GB): 8 steps of 4 x 4,096 (16 dispatch groups of 1,024)
+   with the hotness carried; per step and MoE layer the drop fraction and
+   load, the counts summing to T·k, the new hotness equal to
+   ``alpha·h + counts`` bit for bit, the capacities the uniform split at
+   step 1 and the host's CHK of the carried hotness after, the remat
+   recompute routing as the forward, and the hotness sums on the float32
+   recurrence ``H <- alpha·H + T·k`` within its rounding.  G3
+   qwen1.5-0.5b, deepseek-v2-lite-16b and kimi-k2 (its bf16 factored
+   state and 8 microbatches) at ``reduced_config`` in float32: one
+   ``make_train_step`` on the card against the host, the loss within
+   1e-4, routings and hotness equal, the optimizer state within 1e-4.
+   Each step's wall, tokens/s, peak GiB and model-flops share, and one
+   layer's attention and ``moe_ffn`` forward + backward times (CUDA
+   events) are printed beside the card's name and power limit.
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
@@ -157,6 +181,14 @@ E3_TOL = 1e-3        # E3: card vs host, float32 (tests/test_torch_dense.py)
 F1_CHECK_LEN = 256   # F1: the check's 4 x 255 -> 256 (groups divide 1,020)
 F2_DECODE = 8        # F2: decode steps after kimi-k2's prefill
 F3_LEN = 64          # F3: prompt, two dispatch groups of the reduced 64
+G_STEPS = 8          # G1, G2: train steps
+G1_BATCH, G1_SEQ = 8, 2_048     # G1: qwen1.5-0.5b, 16,384 tokens a step
+G1_SAVE = 4          # G1: the step whose checkpoint a fresh loop restores
+G1_RESUME_TOL = 1e-3  # G1: resumed losses vs the uninterrupted run's
+G2_BATCH, G2_SEQ = 4, 4_096     # G2: deepseek-v2-lite, 16 groups of 1,024
+G2_LAYERS = 4        # G2: the dense prefix layer + 3 MoE layers of 27
+G3_BATCH, G3_SEQ = 8, 64        # G3: 8 microbatches of kimi-k2's accum 8
+G3_TOL = 1e-4        # G3: card vs host, float32, relative
 
 REPO = Path(__file__).resolve().parent
 
@@ -1628,8 +1660,10 @@ def attention_times(what, call, torch):
 class MoEProbe:
     """Wraps the port's ``moe_ffn`` where the model calls it and
     ``_route`` where ``moe_ffn`` calls it.  While ``record`` is set, keeps
-    each ``moe_ffn`` call's metrics and each ``_route`` call's (ids, keep,
-    capacities), all left on the device; while ``capture`` is set, the
+    each ``moe_ffn`` call's metrics and (hotness, new hotness) and each
+    ``_route`` call's (ids, keep, capacities), all left on the device
+    (under training's remat a layer's calls come twice: the forward's,
+    then the backward's recompute); while ``capture`` is set, the
     first ``moe_ffn`` call's tokens and the first ``flash_attention``
     call (args, kwargs).  While ``pinned`` holds a list of (G, T, K) ids,
     each ``_route`` call takes the next as its top-k choices, in place of
@@ -1637,7 +1671,7 @@ class MoEProbe:
 
     def __init__(self, MT, MM):
         self.MT, self.MM = MT, MM
-        self.metrics, self.routes = [], []
+        self.metrics, self.routes, self.hotness = [], [], []
         self.first_x = self.flash = self.pinned = None
         self.record = self.capture = True
 
@@ -1647,15 +1681,17 @@ class MoEProbe:
 
         def flash(*args, **kwargs):
             if self.capture and self.flash is None:
-                self.flash = (tuple(a.clone() for a in args), dict(kwargs))
+                self.flash = (tuple(a.detach().clone() for a in args),
+                              dict(kwargs))
             return real_flash(*args, **kwargs)
 
-        def ffn(params, x, *args, **kwargs):
+        def ffn(params, x, moe, hotness):
             if self.capture and self.first_x is None:
-                self.first_x = x.clone()
-            out = real_ffn(params, x, *args, **kwargs)
+                self.first_x = x.detach().clone()
+            out = real_ffn(params, x, moe, hotness)
             if self.record:
                 self.metrics.append(out[3])
+                self.hotness.append((hotness.clone(), out[1].clone()))
             return out
 
         def route(gates, moe, capacities):
@@ -1682,6 +1718,7 @@ class MoEProbe:
     def clear(self):
         self.metrics.clear()
         self.routes.clear()
+        self.hotness.clear()
 
     def metric(self, name, torch):
         """One metric of every recorded call, on the host."""
@@ -2025,6 +2062,496 @@ def _moe_f4(seed, dev, torch, np, MM, layer, moe, probe):
             f"{int(caps.min())} max {int(caps.max())} sum {int(caps.sum())} "
             f"(budget {plan.budget}, c_max {plan.c_max}); {what}")
         hot = new
+
+
+# ---------------------------------------------------------------------------
+# path G: training, where FISH expert hotness evolves
+# ---------------------------------------------------------------------------
+
+
+def train_path(seed, dev, torch, np):
+    """G1 qwen1.5-0.5b trained at its published widths and depth, with a
+    checkpoint restored bit for bit; G2 deepseek-v2-lite-16b at its
+    published widths cut to 4 of 27 layers, the FISH hotness carried from
+    step to step and held to Alg. 1's recurrence; G3 one train step of
+    three archs reduced on the card against the host.  No kernel of the
+    repo runs here (the reference trains on XLA): every launch counter
+    must stay as it was.  Fails on any call of PyTorch's fused attention
+    or ``torch.compile``."""
+    import gc
+
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import fish_count as fc
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels import store_probe as sp
+    from repro_torch.models import moe as MM
+    from repro_torch.models import transformer as MT
+
+    counters = (ff.LAUNCHES, fc.LAUNCHES, ssd.LAUNCHES, sp.LAUNCHES)
+    before = [dict(c) for c in counters]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with MoEProbe(MT, MM) as probe:
+        probe.record = False
+        with no_fused_attention("G", torch):
+            flash = _train_g1(seed, dev, torch, np, probe)
+            gc.collect()
+            torch.cuda.empty_cache()
+            layer_rows = [train_attention_time("G1 qwen1.5-0.5b layer 0",
+                                               flash, torch)]
+            layer_rows += _train_g2(seed, dev, torch, np, MT, MM, probe)
+            gc.collect()
+            torch.cuda.empty_cache()
+            for arch in ("qwen1.5-0.5b", "deepseek-v2-lite-16b",
+                         "kimi-k2-1t-a32b"):
+                train_card_vs_host(arch, seed, dev, torch, np, MT, probe)
+    log(f"G layer times: {json.dumps(layer_rows)}")
+    after = [dict(c) for c in counters]
+    if after != before:
+        fail(f"path G launched a kernel of the repo: {before} -> {after}")
+    log("path G: no kernel of the repo launched (every launch counter as "
+        "it was): the training path runs as plain tensor ops under "
+        "autograd, as the reference trains on XLA")
+
+
+def _opt_cfg(cfg):
+    """``launch/train.py main()``'s optimizer for ``cfg``."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=100,
+                       state_dtype=cfg.opt_state_dtype,
+                       factored_v=cfg.opt_factored)
+
+
+def touched_params(cfg, MT):
+    """Parameters one token's forward multiplies by: all but the routed
+    experts a token does not choose (top-k of E)."""
+    n = MT.num_params(MT.Model(cfg, device="meta"))
+    if cfg.moe is None:
+        return n
+    moe = cfg.moe
+    routed = 3 * cfg.d_model * moe.d_ff_expert * moe.num_experts
+    n_moe = cfg.num_layers - moe.first_dense_layers
+    return n - n_moe * routed * (1 - moe.top_k / moe.num_experts)
+
+
+def timed_steps(what, loop, steps, torch, np, cfg, MT, on_step=None):
+    """``steps`` train steps through ``TrainLoop.run``, each synchronized
+    and timed on the host clock (the pipeline's batch included).  Returns
+    the losses and each step's wall, s."""
+    losses, walls = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += loop.run(1, ckpt_every=0, log_every=10**9)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not np.isfinite(losses[-1]):
+            fail(f"{what} step {loop.step}: loss {losses[-1]}")
+        if on_step is not None:
+            on_step(i)
+    tokens, touched = loop.batch * loop.seq, touched_params(cfg, MT)
+    p50 = float(np.percentile(walls, 50))
+    share = 6.0 * touched * tokens / p50 / BF16_OPS
+    log(f"{what}: {steps} steps of {loop.batch} x {loop.seq} ({tokens:,} "
+        f"tokens): step wall p50 {p50:.3f} s (first {walls[0]:.3f} s, "
+        f"min {min(walls):.3f}, max {max(walls):.3f}), "
+        f"{tokens / p50:,.0f} tokens/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, model-flops "
+        f"share {share:.4f} (6 x {touched:,.0f} parameters "
+        f"touched x tokens / step wall / {BF16_OPS / 1e12:.0f} TFLOP/s "
+        f"bf16); losses {[round(x, 4) for x in losses]}; card "
+        f"{card_line()}")
+    return losses, walls
+
+
+def _snapshot(loop, MT, torch):
+    """Host copies of the loop's parameters (the reference's leaves), m, v,
+    step and hotness."""
+    st = loop.opt_state
+
+    def host(x):  # a copy, also of a tensor already on the host
+        return x.to("cpu", copy=True)
+
+    return {"params": MT.param_tree(loop.params, device="cpu"),
+            "m": {k: host(x) for k, x in st.m.items()},
+            "v": {k: host(x) for k, x in st.v.items()},
+            "step": int(st.step),
+            "hotness": None if loop.hotness is None else host(loop.hotness)}
+
+
+def _bit_equal(a, b, what, torch):
+    if a.keys() != b.keys():
+        fail(f"G1 restore: {what} leaves differ")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            fail(f"G1 restore: {what} {k} not bit-equal")
+
+
+def _train_g1(seed, dev, torch, np, probe):
+    """qwen1.5-0.5b at its published widths and depth: ``TrainLoop`` over 4
+    FISH-grouped hosts, 8 steps of 8 x 2,048; a checkpoint after step 4
+    that a fresh loop restores bit for bit and continues from.  Returns
+    the first step's layer-0 ``flash_attention`` call."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import transformer as MT
+
+    cfg = get_config("qwen1.5-0.5b")
+    ocfg = _opt_cfg(cfg)
+    (REPO / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=REPO / "build")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, ocfg, batch=G1_BATCH, seq=G1_SEQ,
+                         ckpt_dir=ckdir, seed=seed, device=dev)
+        log(f"G1 qwen1.5-0.5b: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}: "
+            f"{MT.num_params(loop.params):,} parameters, random init (seed "
+            f"{seed}); AdamW {ocfg.state_dtype} state, lr {ocfg.lr} after "
+            f"{ocfg.warmup_steps} warmup steps; TrainLoop over 4 FISH-grouped "
+            f"hosts")
+        probe.capture = True
+        losses, walls = timed_steps("G1 steps 1-4", loop, G1_SAVE, torch, np,
+                                    cfg, MT)
+        probe.capture = False
+        flash, probe.flash = probe.flash, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.save()
+        save_s = time.perf_counter() - t0
+        snap = _snapshot(loop, MT, torch)
+        more, walls2 = timed_steps("G1 steps 5-8", loop, G_STEPS - G1_SAVE,
+                                   torch, np, cfg, MT)
+        losses += more
+        walls += walls2
+        p50 = float(np.percentile(walls, 50))
+        log(f"G1 qwen1.5-0.5b train: {G_STEPS} steps, step wall p50 "
+            f"{p50:.3f} s, {G1_BATCH * G1_SEQ / p50:,.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; card {card_line()}")
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        size = sum(f.stat().st_size for f in Path(ckdir).rglob("*.npy"))
+        fresh = TrainLoop(cfg, ocfg, batch=G1_BATCH, seq=G1_SEQ,
+                          ckpt_dir=ckdir, seed=seed, device=dev)
+        t0 = time.perf_counter()
+        if not fresh.maybe_restore() or fresh.step != G1_SAVE:
+            fail(f"G1: the fresh loop restored step {fresh.step}, not "
+                 f"{G1_SAVE}")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = _snapshot(fresh, MT, torch)
+        _bit_equal(got["params"], snap["params"], "parameter", torch)
+        _bit_equal(got["m"], snap["m"], "m", torch)
+        _bit_equal(got["v"], snap["v"], "v", torch)
+        if got["step"] != snap["step"] or (got["hotness"] is None) != (
+                snap["hotness"] is None):
+            fail(f"G1 restore: step {got['step']} / {snap['step']}")
+        del got, snap
+        for _ in range(G1_SAVE):  # the batches the first loop trained on
+            fresh.next_batch()
+        resumed = fresh.run(2, ckpt_every=0, log_every=10**9)
+        gap = max(abs(a - b) for a, b in zip(resumed,
+                                             losses[G1_SAVE:G1_SAVE + 2]))
+        if not gap <= G1_RESUME_TOL:
+            fail(f"G1 resume: losses {resumed} vs the uninterrupted "
+                 f"{losses[G1_SAVE:G1_SAVE + 2]} (gap {gap})")
+        log(f"check G1 checkpoint: ok, step {G1_SAVE} saved in {save_s:.2f} "
+            f"s ({size / 1e9:.2f} GB on disk, bf16 as float32, the "
+            f"reference's format) and restored by a fresh loop in "
+            f"{restore_s:.2f} s: parameters, m, v and step "
+            f"bit-equal; its next 2 losses {[round(x, 6) for x in resumed]} "
+            f"vs the uninterrupted run's "
+            f"{[round(x, 6) for x in losses[G1_SAVE:G1_SAVE + 2]]} (max gap "
+            f"{gap:.2e}, tol {G1_RESUME_TOL})")
+        del fresh
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return flash
+
+
+def _train_g2(seed, dev, torch, np, MT, MM, probe):
+    """deepseek-v2-lite-16b at its published widths, cut to 4 of 27 layers:
+    8 steps of 4 x 4,096 with the hotness carried.  Per step and MoE layer:
+    the counts sum to T·k, the new hotness is ``α·h + counts`` exactly,
+    the capacities are the uniform split at step 1 and the host's CHK from
+    the carried hotness after, the recompute routes as the forward; the
+    hotness sums follow ``H ← α·H + T·k``.  Returns the layer time rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoop
+
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, num_layers=G2_LAYERS)
+    moe = cfg.moe
+    n_moe = G2_LAYERS - moe.first_dense_layers
+    t = G2_BATCH * G2_SEQ
+    plan = MM.capacity_plan(moe, t)
+    alpha = np.float32(moe.fish_alpha)
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, _opt_cfg(cfg), batch=G2_BATCH, seq=G2_SEQ,
+                     seed=seed, device=dev)
+    n = MT.num_params(loop.params)
+    log(f"G2 deepseek-v2-lite-16b: d_model {cfg.d_model}, MLA, "
+        f"{moe.num_experts} experts top-{moe.top_k} + {moe.shared_experts} "
+        f"shared, capacity factor {moe.capacity_factor}, FISH routing "
+        f"(alpha {moe.fish_alpha}), {cfg.dtype}; cut in depth to "
+        f"{G2_LAYERS} of {full.num_layers} layers (the dense prefix layer + "
+        f"{n_moe} MoE layers; the whole model's training state, bf16 "
+        f"weights and grads + float32 m and v, is 12 B a parameter, "
+        f"{MT.num_params(MT.Model(full, device='meta')) * 12 / 1e9:.0f} GB): "
+        f"{n:,} parameters ({n * 12 / 2**30:.1f} GiB of training state), "
+        f"random init (seed {seed}); {plan.groups} dispatch groups of "
+        f"{plan.group_size}, budget {plan.budget}, c_max {plan.c_max}")
+    H = [np.float32(0.0)] * n_moe
+    rows = []
+
+    def check(i):
+        # the forward's calls, then the backward's recompute of each MoE
+        # layer, last layer first (non-reentrant checkpointing stops a
+        # recompute once it has what the backward needs: past the routing,
+        # before moe_ffn returns)
+        fwd, routes = probe.hotness[:n_moe], probe.routes[:n_moe]
+        if len(fwd) != n_moe or len(probe.routes) != 2 * n_moe:
+            fail(f"G2 step {i + 1}: {len(probe.hotness)} moe_ffn calls, "
+                 f"{len(probe.routes)} routings (want {n_moe} forward calls "
+                 f"and 2 x {n_moe} routings, the remat recompute's too)")
+        drops = probe.metric("moe_drop_frac", torch)[:n_moe]
+        loads = probe.metric("moe_load_max_over_mean", torch)[:n_moe]
+        caps_txt, gaps = [], []
+        for layer in range(n_moe):
+            hot, new = (x.cpu() for x in fwd[layer])
+            ids, keep, caps = routes[layer]
+            r_ids, r_keep, _ = probe.routes[2 * n_moe - 1 - layer]
+            if not (torch.equal(ids, r_ids) and torch.equal(keep, r_keep)):
+                fail(f"G2 step {i + 1} layer {layer}: the recompute routed "
+                     f"otherwise than the forward")
+            counts = torch.bincount(ids.reshape(-1).cpu(),
+                                    minlength=moe.num_experts).float()
+            if int(counts.sum()) != t * moe.top_k:
+                fail(f"G2 step {i + 1} layer {layer}: counts sum "
+                     f"{int(counts.sum())} != {t * moe.top_k}")
+            if not torch.equal(new, moe.fish_alpha * hot + counts):
+                fail(f"G2 step {i + 1} layer {layer}: new hotness != "
+                     f"alpha * hotness + counts")
+            if not torch.equal(hot, loop_hot[layer]):
+                fail(f"G2 step {i + 1} layer {layer}: routed from another "
+                     f"hotness than the one carried")
+            want = MM.fish_capacities(hot, budget=plan.budget,
+                                      c_max=plan.c_max,
+                                      theta_frac=moe.fish_theta_frac)
+            caps = caps.cpu()
+            if not torch.equal(caps, want) or (i == 0) != bool(
+                    (caps == caps[0]).all()):
+                fail(f"G2 step {i + 1} layer {layer}: capacities "
+                     f"{caps.tolist()} (host CHK {want.tolist()})")
+            H[layer] = np.float32(alpha * H[layer] + np.float32(
+                t * moe.top_k))
+            gaps.append(float(new.double().sum()) - float(H[layer]))
+            caps_txt.append(f"{int(caps.min())}-{int(caps.max())}")
+        why = ("uniform split: no hotness yet" if i == 0
+               else "CHK from the carried hotness")
+        log(f"G2 step {i + 1}: moe_drop_frac per MoE layer "
+            f"{[round(float(x), 4) for x in drops]}, load max/mean "
+            f"{[round(float(x), 3) for x in loads]}, capacities "
+            f"{caps_txt} ({why}); "
+            f"hotness sum - the float32 recurrence H <- {moe.fish_alpha} H + "
+            f"{t * moe.top_k:,} (H = {float(H[0]):.4f}): "
+            f"{[f'{g:+.6g}' for g in gaps]}")
+        for layer, g in enumerate(gaps):
+            # each step rounds every expert's alpha * h + c and the
+            # recurrence once; decayed by alpha, the sums stay within
+            # 2^-21 H of each other
+            if abs(g) > 2.0 ** -21 * float(H[layer]):
+                fail(f"G2 step {i + 1} layer {layer}: hotness sum off the "
+                     f"recurrence by {g}")
+        probe.clear()
+        loop_hot[:] = [x.cpu() for x in loop.hotness]
+
+    loop_hot = [x.cpu() for x in loop.hotness]
+    probe.record = probe.capture = True
+    probe.clear()
+    timed_steps("G2 deepseek-v2-lite-16b (4 layers) train", loop, G_STEPS,
+                torch, np, cfg, MT, on_step=check)
+    probe.record = probe.capture = False
+    log(f"check G2 FISH hotness: ok, {G_STEPS} steps x {n_moe} MoE layers: "
+        f"counts sum to T.k = {t * moe.top_k:,} every step, new hotness == "
+        f"alpha * hotness + counts bit for bit, capacities the uniform "
+        f"split at step 1 and the host's CHK of the carried hotness after, "
+        f"the remat recompute routed as the forward")
+    layer = loop.params.layers[0]
+    rows.append(train_attention_time("G2 deepseek-v2-lite-16b layer 0 (MLA "
+                                     "expanded)", probe.flash, torch))
+    rows.append(train_moe_time(MM, layer.moe, moe, probe.first_x,
+                               loop.hotness[0], torch))
+    probe.flash = probe.first_x = None
+    del loop
+    return rows
+
+
+def train_attention_time(what, call, torch):
+    """One layer's ``flash_attention`` forward + backward (its KV blocks
+    checkpointed, as in training), CUDA events."""
+    from repro_torch.models import attention as attn
+
+    (q, k, v), kw = call
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ct = torch.randn(q.shape[:3] + v.shape[-1:], device=q.device,
+                     dtype=q.dtype)
+
+    def step():
+        torch.autograd.grad(attn.flash_attention(*xs, **kw), xs, ct)
+
+    ms = time_cuda(step, 3, torch)
+    b, s, hq, dh = q.shape
+    row = {"what": f"flash_attention forward + backward, {what}",
+           "shape": [b, s, hq, k.shape[2], dh, v.shape[-1]], "ms": ms}
+    log(f"G layer time: {row['what']} ({b} x {s}, {hq} heads x {dh} / "
+        f"{v.shape[-1]}): {ms:.3f} ms (CUDA events); card {card_line()}")
+    return row
+
+
+def train_moe_time(MM, params, moe, x, hot, torch):
+    """One layer's ``moe_ffn`` forward + backward at the step's tokens,
+    CUDA events; the gradients go to the tokens and the layer's weights
+    and are dropped."""
+    xs = x.detach().requires_grad_(True)
+    ws = list(params.parameters())
+    ct = torch.randn_like(x)
+
+    def step():
+        y, _, aux, _ = MM.moe_ffn(params, xs, moe, hot)
+        torch.autograd.grad((y.float() * ct.float()).sum() + aux, [xs, *ws])
+
+    ms = time_cuda(step, 3, torch)
+    row = {"what": "moe_ffn forward + backward, G2 MoE layer 0",
+           "tokens": int(x.shape[0]), "ms": ms}
+    log(f"G layer time: {row['what']} ({x.shape[0]:,} tokens): {ms:.3f} ms "
+        f"(CUDA events); card {card_line()}")
+    return row
+
+
+def _tree_close(what, got, want, torch):
+    """Each leaf of ``got`` within ``G3_TOL`` of ``want``'s largest
+    magnitude, or, for a bfloat16 leaf, within one bfloat16 ulp (2^-7) of
+    ``want`` (a float32 value an ulp off can round the other way); returns
+    the largest gap relative to the leaf's max."""
+    worst = 0.0
+    for k in want:
+        a, b = got[k].float().cpu(), want[k].float().cpu()
+        scale = max(float(b.abs().max()), 1e-30)
+        err = (a - b).abs()
+        slack = 2.0 ** -7 * b.abs() if want[k].dtype == torch.bfloat16 \
+            else 0.0
+        if bool((err > G3_TOL * scale + slack).any()):
+            fail(f"{what} {k}: card vs host {float(err.max()) / scale:.3e} "
+                 f"of the leaf's max")
+        worst = max(worst, float(err.max()) / scale)
+    return worst
+
+
+def train_card_vs_host(arch, seed, dev, torch, np, MT, probe):
+    """G3: one ``make_train_step`` of ``arch`` at ``reduced_config`` in
+    float32 on the card and on the host, one set of weights and a seeded
+    carried hotness: the loss within ``G3_TOL``, the new hotness and every
+    routing's ids and keep equal, m and v within ``G3_TOL`` of each leaf's
+    largest magnitude (a bfloat16 leaf: or one bfloat16 ulp), and the
+    parameters too wherever the gradient is not near zero (Adam's first
+    step moves an element by lr·g/(|g| + eps): a rounding of a near-zero
+    gradient moves it by up to ±lr, so there the bound is 2·lr)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    ocfg = _opt_cfg(cfg)
+    host = MT.init_params(cfg, seed=seed, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (G3_BATCH, G3_SEQ + 1)).astype(
+        np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    hot = None
+    if cfg.moe is not None:
+        hot = torch.from_numpy((rng.random(
+            (cfg.num_layers - cfg.moe.first_dense_layers,
+             cfg.moe.num_experts)) * 50).astype(np.float32))
+    step = make_train_step(cfg, ocfg)
+    runs = []
+    for params, where in ((card, dev), (host, torch.device("cpu"))):
+        probe.record = True
+        probe.clear()
+        _, state, new_hot, m = step(
+            params, init_opt_state(params, ocfg),
+            None if hot is None else hot.to(where),
+            {k: x.to(where) for k, x in batch.items()})
+        runs.append({"loss": float(m["loss"]), "lr": float(m["lr"]),
+                     "hot": new_hot,
+                     "params": MT.param_tree(params, device="cpu"),
+                     "m": state.m, "v": state.v,
+                     "routes": [(i.cpu(), k.cpu()) for i, k, _ in
+                                probe.routes]})
+    probe.record = False
+    probe.clear()
+    card_r, host_r = runs
+    lgap = abs(card_r["loss"] - host_r["loss"])
+    if not lgap <= G3_TOL * abs(host_r["loss"]):
+        fail(f"G3 {arch}: loss {card_r['loss']} vs {host_r['loss']}")
+    if (hot is None) != (card_r["hot"] is None) or (
+            hot is not None and not torch.equal(card_r["hot"].cpu(),
+                                                host_r["hot"])):
+        fail(f"G3 {arch}: new hotness differs card vs host")
+    diff = sum(int((a != b).sum()) for ra, rb in zip(card_r["routes"],
+                                                     host_r["routes"])
+               for a, b in zip(ra, rb))
+    if len(card_r["routes"]) != len(host_r["routes"]) or diff or (
+            cfg.moe is not None and not card_r["routes"]):
+        fail(f"G3 {arch}: routings {len(card_r['routes'])} / "
+             f"{len(host_r['routes'])}, {diff} ids/keep differences")
+    gm = _tree_close(f"G3 {arch} m", card_r["m"], host_r["m"], torch)
+
+    def flat_v(v):  # a factored leaf's r and c as leaves of their own
+        return {f"{k}/{part}" if part else k: y for k, x in v.items()
+                for part, y in (x.items() if isinstance(x, dict)
+                                else (("", x),))}
+
+    gv = _tree_close(f"G3 {arch} v", flat_v(card_r["v"]),
+                     flat_v(host_r["v"]), torch)
+    gp, lr = 0.0, host_r["lr"]
+    for k, want in host_r["params"].items():
+        err = (card_r["params"][k] - want).abs()
+        m = host_r["m"][k].float().abs()
+        stable = m > 1e-3 * m.max()
+        scale = max(float(want.abs().max()), 1e-30)
+        gap = (float(err[stable].max()) / scale if bool(stable.any())
+               else 0.0)
+        if gap > G3_TOL or float(err.max()) > 2 * lr + G3_TOL * scale:
+            fail(f"G3 {arch} parameters {k}: card vs host {gap:.3e} of the "
+                 f"leaf's max where the gradient is not near zero, "
+                 f"{float(err.max()):.3e} anywhere (lr {lr:.3e})")
+        gp = max(gp, gap)
+    log(f"check G3 {arch} (reduced, float32, {G3_BATCH} x {G3_SEQ}, "
+        f"grad_accum {cfg.grad_accum}, AdamW {ocfg.state_dtype} state"
+        f"{', factored v' if ocfg.factored_v else ''}): card vs host ok, "
+        f"loss {card_r['loss']:.6f} (gap {lgap:.2e}); "
+        f"{len(card_r['routes'])} routings, ids/keep differences {diff}, "
+        f"new hotness {'equal' if hot is not None else 'none'}; m, v, "
+        f"parameters within {gm:.2e}, {gv:.2e}, {gp:.2e} of each leaf's max "
+        f"(tol {G3_TOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -2613,6 +3140,10 @@ def main() -> int:
     # -- path F: the MoE family ----------------------------------------------------
     moe_path(args.seed, dev, torch, np)
     log(f"path F (MoE family) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path G: training ------------------------------------------------------------
+    train_path(args.seed, dev, torch, np)
+    log(f"path G (training) done at {time.perf_counter() - t_start:.1f} s")
 
     # path A's and B's kernels last: their device times come from
     # torch.profiler, whose tracing is kept away from the timed paths

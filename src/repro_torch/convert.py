@@ -17,7 +17,10 @@ Two more carry state and weights over: :func:`fish_state_from_reference`
 turns the reference's device ``FishState`` (the bounded epoch table) into
 the port's, and :func:`model_params_from_reference` maps the reference's
 model parameter pytree onto the port's modules, so that both packages
-compute from the same weights.
+compute from the same weights.  :func:`opt_state_from_reference` and
+:func:`train_state_from_reference` carry a whole train state: the
+parameters, the AdamW ``OptState`` (step, m and v, a factored v's
+``r``/``c`` included) and the MoE hotness.
 
 Only attributes and numpy arrays are read: this module imports nothing of
 the JAX package.
@@ -46,7 +49,8 @@ from .state.window import KeyedStateManager, WindowOp, WindowPartial, _Pane
 
 __all__ = ["grouper_from_reference", "state_from_reference",
            "runner_from_reference", "manager_from_reference",
-           "fish_state_from_reference", "model_params_from_reference"]
+           "fish_state_from_reference", "model_params_from_reference",
+           "opt_state_from_reference", "train_state_from_reference"]
 
 _CLASSES = {"sg": ShuffleGrouping, "fg": FieldGrouping,
             "pkg": PartialKeyGrouping, "dc": DChoices, "wc": WChoices,
@@ -277,3 +281,45 @@ def model_params_from_reference(np_params, cfg, device=None):
                 a = leaf(np_params, name)
             param.copy_(_tensor(a))
     return model
+
+
+def _at(tree, path: str):
+    """The node of a reference pytree (nested dicts and lists) at a
+    ``/``-joined leaf path."""
+    for part in path.split("/"):
+        tree = tree[int(part) if isinstance(tree, (list, tuple)) else part]
+    return tree
+
+
+def opt_state_from_reference(np_opt, device=None):
+    """The port's :class:`~repro_torch.optim.adamw.OptState` holding a
+    reference ``OptState`` (``step``, ``m``, ``v``; arrays read as numpy):
+    ``m`` and ``v`` keyed by the reference's leaf paths, each leaf in its
+    stacked shape and dtype, a factored ``v``'s ``{"r", "c"}`` kept.
+    ``device`` ``None`` = ``"cuda"``."""
+    from .checkpointing.checkpoint import _paths
+    from .optim.adamw import OptState
+
+    dev = resolve_device(device)
+
+    def up(a):
+        return _tensor(a).to(dev)
+
+    m, v = {}, {}
+    for path, leaf in _paths(np_opt.m):
+        m[path] = up(leaf)
+        node = _at(np_opt.v, path)
+        v[path] = ({"r": up(node["r"]), "c": up(node["c"])}
+                   if isinstance(node, dict) else up(node))
+    return OptState(step=up(np.asarray(np_opt.step, dtype=np.int32)), m=m,
+                    v=v)
+
+
+def train_state_from_reference(np_state, cfg, device=None):
+    """A reference train state ``{"params", "opt", "hotness"}`` (the tree
+    its ``TrainLoop`` checkpoints) as the port's (model, ``OptState``,
+    hotness tensor or ``None``) on ``device`` (``None`` = ``"cuda"``)."""
+    hot = np_state.get("hotness")
+    return (model_params_from_reference(np_state["params"], cfg, device),
+            opt_state_from_reference(np_state["opt"], device),
+            None if hot is None else _tensor(hot).to(resolve_device(device)))

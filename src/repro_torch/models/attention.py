@@ -6,8 +6,10 @@ The JAX package runs both on XLA (a ``lax.scan`` over KV blocks and
 einsums), not on a Pallas kernel, and so does the port: plain tensor ops
 on the card too — per KV block two ``einsum``s and the elementwise online
 softmax, the (Sq, Skv) score matrix never materialised.  All score math
-is float32; the output is cast to q's dtype.  GQA reshapes q to
-``(B, Sq, Hkv, rep, dh)``: query head ``h`` reads kv head ``h // rep``.
+is float32; the output is cast to q's dtype.  Under autograd (training)
+each KV block is checkpointed, as the reference's ``remat_blocks``.  GQA
+reshapes q to ``(B, Sq, Hkv, rep, dh)``: query head ``h`` reads kv head
+``h // rep``.
 MLA's prefill expands its latent into per-head K/V (:func:`mla_expand`)
 for :func:`flash_attention`; its decode attends in the latent space
 (:func:`mla_decode_scores`).
@@ -19,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import soft_cap
 
@@ -35,6 +38,26 @@ def _block_mask(q_pos, k_pos, window: Optional[int]):
     if window is not None:
         mask &= rel < window
     return mask
+
+
+def _block(qf, k_blk, v_blk, mask, m_run, l_run, acc, softcap):
+    """One KV block of the online softmax: the new (max, denominator,
+    accumulator).  A row the mask leaves empty keeps max -1e30 and adds 0;
+    its ``torch.where`` guards pick finite branches only, so no NaN or inf
+    reaches a gradient through the branch they discard."""
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qf, k_blk)  # (B,Hkv,rep,Sq,Bk)
+    s = soft_cap(s, softcap)  # before the mask, as the reference
+    s = torch.where(mask, s, _NEG_INF)
+    m_new = torch.maximum(m_run, s.amax(-1))
+    # guard fully-masked rows (m_new == -1e30)
+    m_safe = torch.where(m_new <= _NEG_INF, 0.0, m_new)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(mask, p, 0.0)
+    corr = torch.exp(torch.where(m_run <= _NEG_INF, _NEG_INF,
+                                 m_run - m_safe))
+    l_new = l_run * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p, v_blk)
+    return m_new, l_new, acc
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
@@ -65,6 +88,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
                        device=dev)
     l_run = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, rep, sq, dv), dtype=torch.float32, device=dev)
+    # under autograd each block is checkpointed, as the reference's
+    # remat_blocks: the backward recomputes a block's scores instead of
+    # keeping the (Sq, Skv) probabilities
+    grad = torch.is_grad_enabled()
     for blk in range(n_blocks):
         lo = blk * block_k
         k_blk = k[:, lo:lo + block_k].float()
@@ -73,24 +100,12 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
         if pad:  # the tail block, padded to block_k; its pad is masked
             k_blk = torch.nn.functional.pad(k_blk, (0, 0, 0, 0, 0, pad))
             v_blk = torch.nn.functional.pad(v_blk, (0, 0, 0, 0, 0, pad))
-        s = torch.einsum("bqhrd,bkhd->bhrqk", qf, k_blk)  # (B,Hkv,rep,Sq,Bk)
-        s = soft_cap(s, softcap)  # before the mask, as the reference
         k_pos = lo + torch.arange(block_k, device=dev)
         mask = _block_mask(q_pos, k_pos, window)
         mask &= (k_pos < skv_orig)[None, :]
-        s = torch.where(mask, s, _NEG_INF)
-
-        m_new = torch.maximum(m_run, s.amax(-1))
-        # guard fully-masked rows (m_new == -inf)
-        m_safe = torch.where(m_new <= _NEG_INF, 0.0, m_new)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(mask, p, 0.0)
-        corr = torch.exp(torch.where(m_run <= _NEG_INF, _NEG_INF,
-                                     m_run - m_safe))
-        l_run = l_run * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p,
-                                                   v_blk)
-        m_run = m_new
+        args = (qf, k_blk, v_blk, mask, m_run, l_run, acc, softcap)
+        m_run, l_run, acc = (checkpoint(_block, *args, use_reentrant=False)
+                             if grad else _block(*args))
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]  # (B,Hkv,rep,Sq,dv)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
     return out.to(q.dtype)

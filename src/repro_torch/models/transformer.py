@@ -10,7 +10,9 @@ Entry points as in the JAX package's ``models/transformer.py``:
 * :func:`decode_step` — one token against the cache (the serving step);
 * :func:`init_cache` — a zero decode cache (:func:`grow_cache` places a
   prefill's in a longer one);
-* :func:`init_hotness_state` — the MoE layers' zero FISH hotness.
+* :func:`init_hotness_state` — the MoE layers' zero FISH hotness;
+* :func:`forward_train` — the full-sequence loss under autograd, with the
+  MoE aux loss and the FISH hotness carried through the MoE layers.
 
 The dense family (qwen1.5, starcoder2, olmo, gemma2: GQA/MQA, QKV bias,
 sliding windows on a local/global pattern, soft-capping, post-norms,
@@ -19,7 +21,9 @@ tied heads) runs its attention in plain tensor ops
 The MoE family (deepseek-v2-lite with MLA, kimi-k2 with GQA) runs
 ``first_dense_layers`` dense ``prefix`` layers, then layers whose FFN is
 :func:`repro_torch.models.moe.moe_ffn` with FISH expert routing; prefill
-and decode pass zero hotness, as the reference does.
+and decode pass zero hotness, as the reference does, while
+:func:`forward_train` hands MoE layer ``i`` row ``i`` of the carried
+hotness and returns the new rows.
 
 The JAX package scans over layers stacked on a leading axis; here the
 layers are an ``nn.ModuleList`` walked by a Python loop.  The decode
@@ -31,16 +35,19 @@ L − nd MoE layers and a ``prefix`` list holds one entry per dense prefix
 layer: (k, v) of (B, S, Hkv, dh) under GQA; under MLA the compressed
 (c_kv, k_rope), (L − nd, B, S, R) and (L − nd, B, S, dr) in the stack and
 (B, S, R), (B, S, dr) in the prefix.  Griffin, encoder-decoder and
-embedding-input models are not ported yet.
+embedding-input models are not ported yet.  Where the reference's
+optimizer and checkpoints need its stacked leaves (a norm scale stacked
+over the layers is one (L, D) leaf), :func:`reference_leaves` names them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -53,7 +60,9 @@ from .common import (activation_fn, apply_norm, apply_rope, dtype_of,
 from .moe import moe_ffn
 
 __all__ = ["Model", "padded_vocab", "init_params", "prefill", "decode_step",
-           "init_cache", "grow_cache", "init_hotness_state", "num_params"]
+           "init_cache", "grow_cache", "init_hotness_state", "num_params",
+           "forward_train", "reference_leaves", "param_tree",
+           "load_param_tree"]
 
 BLOCK_K = 1024  # the KV block of the prefill's online softmax
 
@@ -301,6 +310,53 @@ def num_params(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def reference_leaves(params: Model
+                     ) -> List[Tuple[str, List[str], Tuple[int, ...]]]:
+    """The reference's parameter leaves: each leaf's path
+    (``stack/attn/wq``, ``prefix/0/ln1/scale``, ``embed``), the names of
+    the port parameters it holds (one per layer, in layer order, for a
+    ``stack`` leaf; one else) and its leading layer shape (``(L,)``,
+    ``(L // pat, pat)`` under a local/global pattern, ``()`` unstacked)."""
+    cfg = params.cfg
+    pat = _pattern(cfg)
+    n = len(params.layers)
+    lead = (n // pat, pat) if pat > 1 else (n,)
+    leaves: Dict[str, Tuple[List[str], Tuple[int, ...]]] = {}
+    for name, _ in params.named_parameters():
+        head, *rest = name.split(".")
+        if head == "layers":
+            path = "/".join(["stack", *rest[1:]])
+            leaves.setdefault(path, ([], lead))[0].append(name)
+        else:
+            leaves[name.replace(".", "/")] = ([name], ())
+    return [(path, names, shape) for path, (names, shape) in leaves.items()]
+
+
+def param_tree(params: Model, device=None) -> Dict[str, torch.Tensor]:
+    """The parameters as the reference's leaves, ``{path: tensor}``, each
+    ``stack`` leaf stacked on its leading layer shape; copies on ``device``
+    (``None``: where the parameters are)."""
+    named = dict(params.named_parameters())
+    out = {}
+    for path, names, lead in reference_leaves(params):
+        ts = [named[n].detach().to(device, copy=True) for n in names]
+        out[path] = (torch.stack(ts).reshape(lead + ts[0].shape) if lead
+                     else ts[0])
+    return out
+
+
+@torch.no_grad()
+def load_param_tree(params: Model, tree: Dict[str, torch.Tensor]) -> None:
+    """Copy a :func:`param_tree` (the reference's leaves) into the
+    parameters, layer ``i`` of a ``stack`` leaf into layer ``i``'s."""
+    named = dict(params.named_parameters())
+    for path, names, lead in reference_leaves(params):
+        rows = tree[path].reshape(-1, *named[names[0]].shape) if lead else \
+            tree[path][None]
+        for name, row in zip(names, rows):
+            named[name].copy_(row)
+
+
 def _norm(cfg: ModelConfig, n: Norm, x):
     return apply_norm(x, n.scale, cfg.norm, cfg.norm_eps, bias=n.bias)
 
@@ -394,19 +450,35 @@ def _residual(cfg: ModelConfig, layer: DecoderLayer, name: str, h, out):
     return h + out
 
 
-def _ffn_half(layer: DecoderLayer, h, cfg: ModelConfig):
-    """norm → MLP, or the MoE FFN with zero hotness (prefill and decode
-    route statelessly, as the reference) → residual."""
+def _attn_half(layer: DecoderLayer, h, cfg: ModelConfig, positions, window):
+    """norm → attention (MLA or GQA) → residual.  Returns (h, the layer's
+    cache entries)."""
+    hin = _norm(cfg, layer.ln1, h)
+    if cfg.mla is not None:
+        out, kv = _mla_block(layer.attn, hin, cfg, positions=positions)
+    else:
+        out, kv = _attn_block(layer.attn, hin, cfg, positions=positions,
+                              window=window)
+    return _residual(cfg, layer, "ln1", h, out), kv
+
+
+def _ffn_half(layer: DecoderLayer, h, cfg: ModelConfig, hot_row=None):
+    """norm → MLP, or the MoE FFN → residual.  Returns (h, new hotness row,
+    aux loss); the last two are ``None`` for a dense layer.  An MoE layer
+    given no hotness routes from zero hotness, statelessly, as prefill and
+    decode do in the reference."""
     hin = _norm(cfg, layer.ln2, h)
+    new_hot = aux = None
     if layer.moe is None:
         out = _mlp_block(layer.mlp, hin, cfg)
     else:
         b, s, d = hin.shape
-        hot = torch.zeros((cfg.moe.num_experts,), dtype=torch.float32,
-                          device=h.device)
-        y, _, _, _ = moe_ffn(layer.moe, hin.reshape(b * s, d), cfg.moe, hot)
+        hot = hot_row if hot_row is not None else torch.zeros(
+            (cfg.moe.num_experts,), dtype=torch.float32, device=h.device)
+        y, new_hot, aux, _ = moe_ffn(layer.moe, hin.reshape(b * s, d),
+                                     cfg.moe, hot)
         out = y.reshape(b, s, d)
-    return _residual(cfg, layer, "ln2", h, out)
+    return _residual(cfg, layer, "ln2", h, out), new_hot, aux
 
 
 def _cache_view(cache_t, i: int, pat: int):
@@ -449,15 +521,10 @@ def prefill(params: Model, batch, cfg: ModelConfig):
     for layer, entry, window in zip([*params.prefix, *params.layers],
                                     _layer_entries(cfg, cache),
                                     _layer_windows(cfg)):
-        hin = _norm(cfg, layer.ln1, h)
-        if cfg.mla is not None:
-            out, kv = _mla_block(layer.attn, hin, cfg, positions=positions)
-        else:
-            out, kv = _attn_block(layer.attn, hin, cfg, positions=positions,
-                                  window=window)
+        h, kv = _attn_half(layer, h, cfg, positions, window)
         for dst, src in zip(entry, kv):
             dst.copy_(src)
-        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+        h = _ffn_half(layer, h, cfg)[0]
     h = _norm(cfg, params.final_norm, h)
     cache["pos"] = s - 1
     return cache, _masked_logits(h[:, -1], params, cfg)
@@ -593,7 +660,7 @@ def _attn_decode_stack(params: Model, h, cache: Dict, cfg: ModelConfig,
         else:
             out = _attn_decode_full(layer.attn, hin, entry, pos, cfg,
                                     window=window)
-        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)
+        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)[0]
     return h
 
 
@@ -651,3 +718,116 @@ def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
                            softcap=cfg.attn_softcap, scale=cfg.query_scale)
     out = out.reshape(b, 1, -1) @ p.wo
     return out.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training: the full-sequence loss under autograd
+# ---------------------------------------------------------------------------
+
+
+def _check_train(cfg: ModelConfig) -> None:
+    """The dense and MoE families train; the SSM family raises, with why."""
+    _check_family(cfg)
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM training is not ported: its layers run the SSD "
+            "chunk kernels (K4/K5), for which neither package has a "
+            "backward (the JAX package defines no custom_vjp, and jax.grad "
+            "cannot differentiate the Pallas call), so the reference trains "
+            "mamba2 only through its plain jnp scan off the TPU")
+
+
+def _remat(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, checkpointed (non-reentrant: the backward
+    recomputes it, the forward keeps only its inputs) while autograd
+    records; the outputs are always the first forward's."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def _train_layer(layer: DecoderLayer, h, positions, hot_row, *,
+                 cfg: ModelConfig, window):
+    """One decoder layer: (h, new hotness row, aux loss)."""
+    h, _ = _attn_half(layer, h, cfg, positions, window)
+    return _ffn_half(layer, h, cfg, hot_row)
+
+
+def _train_stack(params: Model, h, cfg: ModelConfig, positions, hotness):
+    """The prefix layers, then the stack, each checkpointed when
+    ``cfg.remat`` is set (the reference checkpoints each scan step: a layer,
+    or a pattern group).  MoE layer ``i`` takes hotness row ``i``; the aux
+    losses are summed in layer order.  Returns (h, the new hotness (L − nd,
+    E) or ``None`` without hotness, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    rows = []
+    layers = [*params.prefix, *params.layers]
+    hot_rows = [None] * len(params.prefix) + (
+        list(hotness) if hotness is not None else [None] * len(params.layers))
+    for layer, window, hot in zip(layers, _layer_windows(cfg), hot_rows):
+        if cfg.remat:
+            h, new_hot, a = _remat(_train_layer, layer, h, positions, hot,
+                                   cfg=cfg, window=window)
+        else:
+            h, new_hot, a = _train_layer(layer, h, positions, hot, cfg=cfg,
+                                         window=window)
+        if a is not None:
+            aux = aux + a
+        if hot is not None:
+            rows.append(new_hot)
+    return h, (torch.stack(rows) if rows else None), aux
+
+
+def _chunk_nll(hx, lx, head, cfg: ModelConfig):
+    """One chunk's summed negative log-likelihood and label count: float32
+    logits, the padded vocab masked to -1e30, ``logsumexp`` minus the gold
+    logit, labels < 0 masked."""
+    logits = soft_cap((hx @ head).float(), cfg.logit_softcap)
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= \
+        cfg.vocab_size
+    logits = torch.where(pad, -1e30, logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lx.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lx >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def _lm_loss(params: Model, h, labels, cfg: ModelConfig, *,
+             loss_chunks: int = 8):
+    """Chunked cross-entropy over the sequence (``loss_chunks`` chunks when
+    S allows, each checkpointed, so the (B, S, PV) float32 logits are never
+    kept whole)."""
+    b, s, _ = h.shape
+    head = _head_matrix(params, cfg)
+    chunks = loss_chunks if s % loss_chunks == 0 and s >= loss_chunks else 1
+    sc = s // chunks
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(chunks):
+        nll, n = _remat(_chunk_nll, h[:, c * sc:(c + 1) * sc],
+                        labels[:, c * sc:(c + 1) * sc], head, cfg)
+        loss_sum = loss_sum + nll
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def forward_train(params: Model, batch, cfg: ModelConfig, hotness=None):
+    """The training loss: ``batch`` holds ``tokens`` and ``labels``, (B, S)
+    int (labels < 0 are ignored); ``hotness`` is the MoE layers' carried
+    FISH hotness, (L − nd, E) float32, or ``None`` (MoE layers then route
+    from zero hotness and no new hotness is returned).
+
+    Returns (CE + aux, {"ce_loss", "aux_loss", "new_hotness"}), as the
+    reference's ``forward_train``.  Gradients flow to every parameter that
+    requires one (``params.requires_grad_(True)``); the hotness carries
+    none.  An SSM config raises ``NotImplementedError``."""
+    _check_train(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = _embed(params, tokens, cfg)
+    h, new_hot, aux = _train_stack(params, h, cfg, positions, hotness)
+    h = _norm(cfg, params.final_norm, h)
+    loss = _lm_loss(params, h, batch["labels"], cfg)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux,
+                        "new_hotness": new_hot}

@@ -1003,3 +1003,67 @@ def test_cuda_moe_ffn_matches_host(routing, impl):
         caps = [PM.fish_capacities(h, budget=plan.budget, c_max=plan.c_max)
                 for h in (hot.to(dev), hot)]
         assert torch.equal(caps[0].cpu(), caps[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_cuda_train_step_matches_host(arch, monkeypatch):
+    """The training path has no kernel of its own: one ``make_train_step``
+    (reduced config, float32 weights, a carried hotness; kimi-k2 with its
+    bf16 factored state and 8 microbatches) on the card against the host:
+    the loss within 1e-4, every routing (the remat recompute's too) and
+    the new hotness equal, m and v within 1e-4 of each leaf's largest
+    magnitude (a bf16 leaf: or one bf16 ulp)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as PM
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    dev = _card()
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    ocfg = AdamWConfig(state_dtype=cfg.opt_state_dtype,
+                       factored_v=cfg.opt_factored)
+    host = PT.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 65)).astype(
+        np.int32))
+    hot = torch.from_numpy((rng.random(
+        (cfg.num_layers - cfg.moe.first_dense_layers,
+         cfg.moe.num_experts)) * 50).astype(np.float32))
+    real_route, routes = PM._route, []
+
+    def route(gates, moe, caps):
+        out = real_route(gates, moe, caps)
+        routes.append([out[i].cpu() for i in (0, 2)])
+        return out
+
+    monkeypatch.setattr(PM, "_route", route)
+    step = make_train_step(cfg, ocfg)
+    runs = []
+    for where, params in ((dev, copy.deepcopy(host).to(dev)), ("cpu", host)):
+        routes.clear()
+        batch = {"tokens": toks[:, :-1].to(where),
+                 "labels": toks[:, 1:].to(where)}
+        _, state, new_hot, m = step(params, init_opt_state(params, ocfg),
+                                    hot.to(where), batch)
+        runs.append((float(m["loss"]), new_hot.cpu(), state, list(routes)))
+    (loss, new_hot, state, card_routes), (want_loss, want_hot, want, rts) = \
+        runs
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    assert torch.equal(new_hot, want_hot)
+    assert len(card_routes) == len(rts) > 0
+    for a, b in zip(card_routes, rts):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for path, w in want.m.items():
+        got = state.m[path].float().cpu()
+        slack = 2.0 ** -7 * w.float().abs() if w.dtype == torch.bfloat16 \
+            else 0.0
+        assert bool(((got - w.float()).abs() <= 1e-4 * w.float().abs().max()
+                     + slack).all()), path
+        v, wv = state.v[path], want.v[path]
+        for a, b in ((v["r"], wv["r"]), (v["c"], wv["c"])) if isinstance(
+                wv, dict) else ((v, wv),):
+            b = b.float()
+            assert bool(((a.float().cpu() - b).abs() <= 1e-4 * b.abs().max()
+                         ).all()), path

@@ -44,30 +44,29 @@ def cfgs(arch, dtype, **kw):
     return ref, port
 
 
+def leaf_name(path):
+    """A reference pytree path as its ``/``-joined name."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
 def reference_params(params, rcfg):
     """The reference pytree (numpy leaves of its dtypes) holding the port
-    model's values: ``layers.<i>.<path>`` → ``stack[path][i]``,
-    ``prefix.<j>.<path>`` → ``prefix[j][path]``, the rest by path."""
+    model's values: ``PT.param_tree`` names every leaf by its reference
+    path (``stack`` leaves stacked over the layers, ``(L // pat, pat)``
+    under a local/global pattern); the tree's structure is the reference's
+    ``init_params`` under ``jax.eval_shape``."""
+    flat = PT.param_tree(params)
     shapes = jax.eval_shape(lambda k: RT.init_params(rcfg, k),
                             jax.random.PRNGKey(0))
-    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
-                                  shapes)
-    for name, p in params.named_parameters():
-        head, *rest = name.split(".")
-        if head == "layers":
-            node, index, path = tree["stack"], int(rest[0]), rest[1:]
-        elif head == "prefix":
-            node, index, path = tree["prefix"][int(rest[0])], None, rest[1:]
-        else:
-            node, index, path = tree, None, [head, *rest]
-        for part in path[:-1]:
-            node = node[part]
-        leaf = node[path[-1]]
-        value = p.detach().float().numpy().astype(leaf.dtype)
-        if index is None:
-            node[path[-1]] = value
-        else:
-            leaf[index] = value
+
+    def leaf(path, shape):
+        a = flat.pop(leaf_name(path)).float().numpy().astype(shape.dtype)
+        assert a.shape == shape.shape
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(leaf, shapes)
+    assert not flat
     return tree
 
 
@@ -179,3 +178,85 @@ def run_prefill_and_decode(arch, dtype, monkeypatch=None, **kw):
     for a, b in zip(cache_tensors(cache), cache_tensors(rcache)):
         assert a.shape == b.shape and a.dtype == getattr(torch, dtype)
         np.testing.assert_allclose(as_np(a), as_np(b), **tol)
+
+
+# ---------------------------------------------------------------------------
+# Training: the port's gradients and optimizer state beside the reference's
+# ---------------------------------------------------------------------------
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def flat_ref(tree):
+    """A reference pytree as ``{path: numpy array}``."""
+    return {leaf_name(path): np.asarray(x) for path, x in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def stacked(params, per_name):
+    """``{name: tensor}`` of the port's parameters as the reference's
+    leaves, ``{path: numpy array}``."""
+    named = dict(params.named_parameters())
+    out = {}
+    for path, names, lead in PT.reference_leaves(params):
+        rows = [per_name[n].detach().float() for n in names]
+        out[path] = (torch.stack(rows).reshape(lead + named[names[0]].shape)
+                     if lead else rows[0]).numpy()
+    return out
+
+
+def close_to_leaf(got, want, rel, what=""):
+    """``got`` within ``rel`` of ``want``'s largest magnitude."""
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape, what
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= rel, f"{what}: {err:.3e} of the leaf's max > {rel}"
+
+
+def batch_np(cfg, seed=3, b=B, s=S):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels[0, :5] = -1  # ignored positions
+    return {"tokens": toks, "labels": labels}
+
+
+def hotness_np(cfg, seed=4):
+    if cfg.moe is None:
+        return None
+    rows = cfg.num_layers - cfg.moe.first_dense_layers
+    return (np.random.default_rng(seed).random(
+        (rows, cfg.moe.num_experts)) * 50).astype(np.float32)
+
+
+def assert_hotness(got, want, hot, cfg):
+    """The port's new hotness is ``α·hotness + counts`` in float32, each
+    operation rounded, with the reference's counts (whole numbers: the
+    reference's value rounded recovers them); the reference's own value
+    comes from ``jit``, where XLA fuses the two operations on the CPU and
+    may land one ulp off."""
+    alpha = np.float32(cfg.moe.fish_alpha)
+    want = np.asarray(want)
+    counts = np.rint(want - alpha * hot).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), alpha * hot + counts)
+    np.testing.assert_array_max_ulp(got.numpy(), want, 1)
+
+
+def assert_adam_step_close(got_p, want_p, want_m, lr):
+    """Parameters after one Adam step from gradients that agree within
+    float32 rounding: within 1e-4 of the leaf's largest magnitude wherever
+    the reference's m (a multiple of the gradient) exceeds 1e-3 of its
+    leaf's largest; elsewhere within 2·lr.  Adam's first step moves an
+    element by lr·g/(|g| + eps), so a rounding of a near-zero gradient can
+    move it by up to ±lr whatever the gradients' agreement."""
+    for path, want in want_p.items():
+        got, m = got_p[path], np.abs(want_m[path])
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = np.abs(got - want)
+        stable = m > 1e-3 * m.max()
+        assert float(err[stable].max(initial=0.0)) <= 1e-4 * scale, path
+        assert float(err.max()) <= 2 * lr + 1e-4 * scale, path
