@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's seven device paths, each with the launch counters of
+Drives the port's eight device paths, each with the launch counters of
 its kernels set to 0 just before it and read just after, and checks each:
 
 A. **The keyed stream** — the paper's ZF stream routed onto 128 workers by
@@ -109,6 +109,25 @@ G. **Training, where FISH expert hotness evolves**, after path F (no
    Each step's wall, tokens/s, peak GiB and model-flops share, and one
    layer's attention and ``moe_ffn`` forward + backward times (CUDA
    events) are printed beside the card's name and power limit.
+H. **The Griffin family** (RG-LRU + local MQA with a ring-buffer decode
+   cache), after path G (no kernel either: the reference's RG-LRU scan
+   and local attention are XLA; the path fails as G does).  H1
+   recurrentgemma-9b at its published widths and depth (38 layers = 12
+   x (rec, rec, attn) + 2 rec, d_model 4,096, MQA 16 x 256 over a window
+   of 2,048, vocab 256,000, bf16, random weights from the seed;
+   8,578,306,048 parameters, checked): a cold and a warm prefill of 4 x
+   4,096 (two windows, so the ring continues exactly), the
+   prefill-then-decode check against a prefill of 4 x 4,097, 32 decode
+   steps within the softcap, ``ServingEngine`` with ``launch/serve.py``'s
+   defaults (128-slot rings), then one rec layer's ``rglru_block`` and
+   ``_lru_scan`` and one attention layer's ``flash_attention`` beside
+   SDPA's (a window mask; a library time only).  H2 the same widths cut
+   to 8 of 38 layers (2 groups + a tail of 2; 2,642,628,608 parameters):
+   ``TrainLoop``, 4 steps of 4 x 2,048, finite losses, each step's wall,
+   tokens/s and peak.  H3 the reduced model (5 layers, window 8) in
+   float32 on the card against the host: a prefill of 11 (the ring's
+   quirk on) and 8 decode steps (logits within 1e-4, caches 1e-5), one
+   ``forward_train`` (loss 1e-5, gradients 1e-4 of each leaf's max).
 
 Every kernel is built from ``src/repro_torch/csrc`` first (one ``nvcc``
 per source, started together; ptxas's registers and spills per kernel and
@@ -189,6 +208,12 @@ G2_BATCH, G2_SEQ = 4, 4_096     # G2: deepseek-v2-lite, 16 groups of 1,024
 G2_LAYERS = 4        # G2: the dense prefix layer + 3 MoE layers of 27
 G3_BATCH, G3_SEQ = 8, 64        # G3: 8 microbatches of kimi-k2's accum 8
 G3_TOL = 1e-4        # G3: card vs host, float32, relative
+H1_PROMPTS, H1_LEN = 4, 4_096    # H1: 2 windows of 2,048; prefill_32k cut
+H1_PARAMS = 8_578_306_048        # recurrentgemma-9b (a jax.eval_shape count)
+H2_LAYERS, H2_PARAMS = 8, 2_642_628_608   # H2: 2 groups + a tail of 2
+H2_BATCH, H2_SEQ, H2_STEPS = 4, 2_048, 4
+H3_LEN = 11          # H3: prompt, not a multiple of the reduced window 8
+H3_TOL = {"logits": 1e-4, "cache": 1e-5, "loss": 1e-5, "grad": 1e-4}
 
 REPO = Path(__file__).resolve().parent
 
@@ -1389,7 +1414,7 @@ def dense_decode(what, MT, params, cfg, cache, tok, steps, torch, np,
     log(f"{what} decode {steps} steps, batch {tok.shape[0]}, to position "
         f"{cache['pos']}: p50 {np.percentile(w, 50):.2f} ms p99 "
         f"{np.percentile(w, 99):.2f} ms per step (host wall, "
-        f"synchronized)")
+        f"synchronized); card {card_line()}")
     return cache
 
 
@@ -1514,7 +1539,7 @@ def serve_check(what, MT, serve, params, cfg, dev, torch):
     defaults (FISH, 2 replicas x 4 slots, 64 requests, ``max_seq`` 128):
     every request served, every logit finite (checked on the device, read
     once at the end); decodes past the cache's end take the reference's
-    clamp, and are counted."""
+    clamp, and are counted (Griffin's: those that wrap its ring)."""
     vocab = cfg.vocab_size
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     real_step = MT.decode_step
@@ -1535,7 +1560,13 @@ def serve_check(what, MT, serve, params, cfg, dev, torch):
         MT.decode_step = real_step
     m = eng.metrics()
     steps = sum(r.tokens_generated for r in reps) // reps[0].tokens.shape[0]
-    max_seq = reps[0].cache["layers"][0].shape[MT._seq_axis(cfg)]
+    if cfg.rglru is not None:
+        max_seq = reps[0].cache["attn"][0].shape[2]
+        past = (f"at pos >= its ring's {max_seq} slots (written at pos % "
+                f"{max_seq})")
+    else:
+        max_seq = reps[0].cache["layers"][0].shape[MT._seq_axis(cfg)]
+        past = f"at pos >= max_seq {max_seq} (the reference's clamp)"
     clamped = sum(max(0, r.cache["pos"] + 1 - max_seq) for r in reps)
     if len(eng.done) != 64 or m.shed or int(bad):
         fail(f"{what} serving: {len(eng.done)} of 64 requests done, "
@@ -1545,8 +1576,8 @@ def serve_check(what, MT, serve, params, cfg, dev, torch):
         f"{m.latency_p99:.1f} ticks, {m.throughput_tokens:.2f} tok/tick, "
         f"session replication {m.session_replicas_norm:.2f}x; {steps} "
         f"decode steps in {serve_s:.2f} s ({serve_s / max(steps, 1) * 1e3:.2f}"
-        f" ms per step), {clamped} of them at pos >= max_seq {max_seq} (the "
-        f"reference's clamp), every logit finite")
+        f" ms per step), {clamped} of them {past}, every logit finite; card "
+        f"{card_line()}")
 
 
 def _dense_e1(seed, dev, torch, np, MT, serve, get_config):
@@ -1613,8 +1644,9 @@ def _dense_e2(seed, dev, torch, np, MT, get_config):
 
 def attention_times(what, call, torch):
     """One layer's ``flash_attention`` (CUDA events) beside PyTorch's
-    ``scaled_dot_product_attention`` on the same float32 q/k/v, as a
-    library time only, with the causal work's bound."""
+    ``scaled_dot_product_attention`` on the same float32 q/k/v (the kv
+    heads repeated to the query heads; a window as a boolean mask), as a
+    library time only, with the bound of the causal (windowed) work."""
     import torch.nn.functional as F
 
     from repro_torch.models import attention as attn
@@ -1625,30 +1657,43 @@ def attention_times(what, call, torch):
     ms = time_cuda(lambda: attn.flash_attention(q, k, v, **kw), 5, torch)
     out = attn.flash_attention(q, k, v, **kw).float()
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
-    extra = {"enable_gqa": True} if hq != hkv else {}
+    kf, vf = (x.repeat_interleave(hq // hkv, dim=1) for x in (kf, vf))
     scale = kw.get("scale") or 1.0 / dh ** 0.5
+    window = kw.get("window")
+    if window is None:
+        mask = {"is_causal": True}
+        pairs = s * (s + 1) / 2  # the causal half
+    else:
+        rel = torch.arange(s, device=q.device)
+        rel = rel[:, None] - rel[None, :]
+        mask = {"attn_mask": (rel >= 0) & (rel < window)}
+        w = min(window, s)  # query i sees min(i + 1, window) keys
+        pairs = w * (w + 1) / 2 + (s - w) * w
 
     def sdpa():
-        return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
-                                              scale=scale, **extra)
+        return F.scaled_dot_product_attention(qf, kf, vf, scale=scale,
+                                              **mask)
 
     lib_ms = time_cuda(sdpa, 5, torch)
     gap = float((sdpa().transpose(1, 2) - out).abs().max())
-    # QK^T and PV over the causal half
-    ops = 2.0 * b * hq * (dh + dv) * s * (s + 1) / 2
+    # QK^T and PV over the (key, query) pairs the mask keeps
+    ops = 2.0 * b * hq * (dh + dv) * pairs
     bytes_ = q.element_size() * (q.numel() + k.numel() + v.numel() +
                                  v.numel() * hq // hkv)  # + the output
     bound = max(ops / F32_OPS, bytes_ / HBM_BPS) * 1e3
     row = {"what": f"flash_attention, {what}",
            "shape": [b, s, hq, hkv, dh, dv], "block_k": kw.get("block_k"),
+           "window": window,
            "ms": ms, "sdpa_f32_ms": lib_ms, "sdpa_max_abs_gap": gap,
            "bound_ms": bound, "bound_by": "operations"
            if ops / F32_OPS >= bytes_ / HBM_BPS else "bytes"}
-    log(f"attention {what} ({b} x {s}, {hq} heads x {dh} / {dv}, block_k "
-        f"{kw.get('block_k')}): flash_attention {ms:.3f} ms (CUDA events); "
+    log(f"attention {what} ({b} x {s}, {hq} q / {hkv} kv heads x {dh} / "
+        f"{dv}, window {window}, block_k {kw.get('block_k')}): "
+        f"flash_attention {ms:.3f} ms (CUDA events); "
         f"scaled_dot_product_attention float32 {lib_ms:.3f} ms (library "
         f"time only, max |gap| {gap:.2e}); bound {bound:.3f} ms (causal "
-        f"float32 operations at {F32_OPS / 1e12:.0f} TFLOP/s)")
+        f"float32 operations at {F32_OPS / 1e12:.0f} TFLOP/s); card "
+        f"{card_line()}")
     log(f"attention: {json.dumps(row)}")
 
 
@@ -2555,6 +2600,242 @@ def train_card_vs_host(arch, seed, dev, torch, np, MT, probe):
 
 
 # ---------------------------------------------------------------------------
+# path H: the Griffin family (RG-LRU + local MQA, a ring-buffer decode cache)
+# ---------------------------------------------------------------------------
+
+
+def griffin_path(seed, dev, torch, np):
+    """H1 recurrentgemma-9b at its published widths and depth: prefill,
+    the prefill-then-decode check, decode, serving, one layer's times; H2
+    the model at full width cut to 8 layers trained by ``TrainLoop``; H3
+    the reduced model on the card against the host.  No kernel of the repo
+    runs here (the reference's RG-LRU scan and local attention are XLA):
+    every launch counter must stay as it was.  Fails on any call of
+    PyTorch's fused attention or ``torch.compile`` outside the layer
+    times' library call."""
+    import gc
+
+    from repro_torch.kernels import feed_fused as ff
+    from repro_torch.kernels import fish_count as fc
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels import store_probe as sp
+    from repro_torch.models import ssm as MS
+    from repro_torch.models import transformer as MT
+
+    counters = (ff.LAUNCHES, fc.LAUNCHES, ssd.LAUNCHES, sp.LAUNCHES)
+    before = [dict(c) for c in counters]
+    gc.collect()
+    torch.cuda.empty_cache()
+    captured = {}
+    real_flash, real_block = MT.flash_attention, MS.rglru_block
+
+    def cap(name, fn):
+        def call(*args, **kwargs):
+            if captured.get("on") and name not in captured:  # H1's first
+                captured[name] = (tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args), dict(kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    MT.flash_attention = cap("flash_attention", real_flash)
+    MS.rglru_block = cap("rglru_block", real_block)
+    try:
+        with no_fused_attention("H1", torch):
+            params = _griffin_h1(seed, dev, torch, np, MT, captured)
+    finally:
+        MT.flash_attention, MS.rglru_block = real_flash, real_block
+    griffin_layer_times(MS, captured, torch)
+    attention_times("H1 attention layer 2 (local MQA)",
+                    captured.pop("flash_attention"), torch)
+    del params, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    with no_fused_attention("H2, H3", torch):
+        _griffin_h2(seed, dev, torch, np, MT)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _griffin_h3(seed, dev, torch, np, MT)
+    after = [dict(c) for c in counters]
+    if after != before:
+        fail(f"path H launched a kernel of the repo: {before} -> {after}")
+    log("path H: no kernel of the repo launched (every launch counter as "
+        "it was): the RG-LRU scan and the local attention run as plain "
+        "tensor ops, as the reference runs them on XLA")
+
+
+def _griffin_h1(seed, dev, torch, np, MT, captured):
+    """recurrentgemma-9b at its published widths and depth: a cold and a
+    warm prefill of 4 x 4,096, the check against a prefill of 4 x 4,097,
+    32 decode steps and ``serve()``.  Returns the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("recurrentgemma-9b")
+    rg, vocab, n = cfg.rglru, cfg.vocab_size, H1_LEN
+    t0 = time.perf_counter()
+    params = MT.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    count = MT.num_params(params)
+    if count != H1_PARAMS:
+        fail(f"H1: {count:,} parameters, not {H1_PARAMS:,}")
+    groups, tail = MT._griffin_layout(cfg)
+    log(f"H1 recurrentgemma-9b: {cfg.num_layers} layers ({groups} x (rec, "
+        f"rec, attn) + {tail} rec), d_model {cfg.d_model}, RG-LRU width "
+        f"{rg.lru_width} ({rg.gate_blocks} gate blocks, conv {rg.conv_width}"
+        f"), local MQA {cfg.num_heads} q / {cfg.num_kv_heads} kv heads x "
+        f"{cfg.head_dim} over a window of {rg.local_window}, d_ff "
+        f"{cfg.d_ff} GeGLU, vocab {vocab}, softcap {cfg.logit_softcap}, "
+        f"{cfg.dtype}: {count:,} parameters, random init (seed {seed}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (H1_PROMPTS, n + 1)).astype(np.int32)).to(dev)
+    captured["on"] = True
+    cache, _, cold, peak = dense_prefill("H1", MT, params, cfg,
+                                         toks[:, :n], torch)
+    captured["on"] = False
+    _, _, warm, _ = dense_prefill("H1", MT, params, cfg, toks[:, :n], torch)
+    log(f"H1 prefill {H1_PROMPTS} x {n} (prefill_32k's 32 x 32,768 cut for "
+        f"time; {n // rg.local_window} windows): cold {cold:.3f} s, warm "
+        f"{warm:.3f} s, {H1_PROMPTS * n / warm:,.0f} tokens/s, peak "
+        f"{peak:.2f} GiB; card {card_line()}")
+    step, cache = MT.decode_step(params, cache, toks[:, n:n + 1], cfg)
+    _, full, _, _ = dense_prefill("H1", MT, params, cfg, toks, torch)
+    consistency("H1 recurrentgemma-9b (ring of "
+                f"{cache['attn'][0].shape[2]} slots after {n} tokens)",
+                step, full, vocab)
+    del full
+    tok = torch.argmax(step[:, :vocab], -1)[:, None].to(torch.int32)
+    cache = dense_decode("H1", MT, params, cfg, cache, tok, DECODE_STEPS,
+                         torch, np, cap=cfg.logit_softcap)
+    if cache["pos"] != n + DECODE_STEPS:
+        fail(f"H1 decode: position {cache['pos']}")
+    del cache
+    serve_check("H1", MT, serve, params, cfg, dev, torch)
+    log(f"H1 peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(since the last prefill)")
+    return params
+
+
+def griffin_layer_times(MS, captured, torch):
+    """One H1 rec layer's ``rglru_block`` and its ``_lru_scan`` at the
+    prefill's shapes (CUDA events), each beside its bound: the block's
+    bf16 products at 989 TFLOP/s, the scan's bytes (a and b read, h
+    written, float32) at 3.35 TB/s."""
+    (p, x, rg), _ = captured.pop("rglru_block")
+    b, s, d = x.shape
+    w = p.w_x.shape[1]
+    ms_block = time_cuda(lambda: MS.rglru_block(p, x, rg), 5, torch)
+    a, bb = MS._rglru_gates(p, MS._rglru_conv(x @ p.w_x, p))
+    ms_scan = time_cuda(lambda: MS._lru_scan(a, bb), 5, torch)
+    block_bound = 3 * 2.0 * b * s * d * w / BF16_OPS * 1e3
+    scan_bound = 3 * a.numel() * 4 / HBM_BPS * 1e3
+    row = {"what": "H1 rec layer 0", "shape": [b, s, d, w],
+           "rglru_block_ms": ms_block, "rglru_block_bound_ms": block_bound,
+           "lru_scan_ms": ms_scan, "lru_scan_bound_ms": scan_bound}
+    log(f"H1 layer time: rglru_block {ms_block:.3f} ms (bound "
+        f"{block_bound:.3f}, its three bf16 products), of which _lru_scan "
+        f"{ms_scan:.3f} ms (bound {scan_bound:.3f}, bytes; {b} x {s} x {w} "
+        f"float32, 16 chunk scans of {s // 16}); CUDA events; card "
+        f"{card_line()}")
+    log(f"H1 layer times: {json.dumps(row)}")
+
+
+def _griffin_h2(seed, dev, torch, np, MT):
+    """recurrentgemma-9b at its published widths cut to 8 of 38 layers (2
+    groups + a tail of 2): ``TrainLoop``, 4 steps of 4 x 2,048."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoop
+
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, num_layers=H2_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, _opt_cfg(cfg), batch=H2_BATCH, seq=H2_SEQ,
+                     seed=seed, device=dev)
+    n = MT.num_params(loop.params)
+    if n != H2_PARAMS:
+        fail(f"H2: {n:,} parameters, not {H2_PARAMS:,}")
+    groups, tail = MT._griffin_layout(cfg)
+    log(f"H2 recurrentgemma-9b: its published widths cut in depth to "
+        f"{H2_LAYERS} of {full.num_layers} layers ({groups} groups + {tail} "
+        f"rec; the whole model's training state, bf16 weights and grads + "
+        f"float32 m and v, is 12 B a parameter, {H1_PARAMS * 12 / 1e9:.0f} "
+        f"GB): {n:,} parameters ({n * 12 / 2**30:.1f} GiB of training "
+        f"state), random init (seed {seed}), remat {cfg.remat} (each group "
+        f"checkpointed); TrainLoop over 4 FISH-grouped hosts")
+    losses, _ = timed_steps(f"H2 recurrentgemma-9b ({H2_LAYERS} layers) "
+                            "train", loop, H2_STEPS, torch, np, cfg, MT)
+    log(f"check H2: ok, {H2_STEPS} steps, every loss finite "
+        f"({[round(x, 4) for x in losses]})")
+    del loop
+
+
+def _griffin_h3(seed, dev, torch, np, MT):
+    """The reduced model (5 layers: a group and a tail of 2; window 8) in
+    float32 on the card against the host, one set of weights: a prefill
+    of 2 x 11 (not a multiple of the window: the ring's quirk on) and 8
+    decode steps, then one ``forward_train``'s loss and gradients, within
+    ``tests/test_torch_griffin.py``'s bounds."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+
+    base = reduced_config(get_config("recurrentgemma-9b"))
+    cfg = dataclasses.replace(base, num_layers=5, dtype="float32",
+                              rglru=dataclasses.replace(base.rglru,
+                                                        local_window=8))
+    host = MT.init_params(cfg, seed=seed, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(seed)
+    n = H3_LEN
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n + 8)
+                                         ).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)
+                                           ).astype(np.int32))
+    runs = []
+    for params, where in ((card, dev), (host, "cpu")):
+        t = toks.to(where)
+        cache, lg = MT.prefill(params, {"tokens": t[:, :n]}, cfg)
+        out = [lg]
+        for i in range(n, n + 8):
+            lg, cache = MT.decode_step(params, cache, t[:, i:i + 1], cfg)
+            out.append(lg)
+        leaves = [cache["rec"]["conv"], cache["rec"]["h"], *cache["attn"],
+                  *[st[k] for st in cache["tail"] for k in ("conv", "h")]]
+        params.requires_grad_(True)
+        loss, _ = MT.forward_train(params, {
+            "tokens": labels.roll(1, 1).to(where),
+            "labels": labels.to(where)}, cfg)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        runs.append(([x[:, :cfg.vocab_size].cpu() for x in out],
+                     [x.cpu() for x in leaves], float(loss.detach()),
+                     [g.cpu() for g in grads]))
+    (logits, leaves, loss, grads), (w_logits, w_leaves, w_loss, w_grads) = \
+        runs
+    lgap = max(float((a - b).abs().max()) for a, b in zip(logits, w_logits))
+    cgap = max(float((a - b).abs().max()) for a, b in zip(leaves, w_leaves))
+    ggap = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(grads, w_grads))
+    if lgap > H3_TOL["logits"] or cgap > H3_TOL["cache"] or abs(
+            loss - w_loss) > H3_TOL["loss"] * abs(w_loss) or \
+            ggap > H3_TOL["grad"]:
+        fail(f"H3: card vs host logits {lgap:.2e}, caches {cgap:.2e}, loss "
+             f"{loss} / {w_loss}, gradients {ggap:.2e} of the leaf's max "
+             f"(tol {H3_TOL})")
+    log(f"check H3 recurrentgemma-9b (reduced, 5 layers, window 8, float32"
+        f"): card vs host ok: prefill 2 x {n} (ring of "
+        f"{min(n, 8)} slots, {n} % 8 != 0: the reference's quirk on) + 8 "
+        f"decode steps, logits within {lgap:.2e} (tol "
+        f"{H3_TOL['logits']}), caches {cgap:.2e} (tol {H3_TOL['cache']}); "
+        f"forward_train at 2 x 32: loss {loss:.6f} (gap "
+        f"{abs(loss - w_loss):.2e}), gradients within {ggap:.2e} of each "
+        f"leaf's max (tol {H3_TOL['grad']})")
+
+
+# ---------------------------------------------------------------------------
 # path D: the time-evolving control plane on the fused engine
 # ---------------------------------------------------------------------------
 
@@ -3144,6 +3425,10 @@ def main() -> int:
     # -- path G: training ------------------------------------------------------------
     train_path(args.seed, dev, torch, np)
     log(f"path G (training) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- path H: the Griffin family --------------------------------------------
+    griffin_path(args.seed, dev, torch, np)
+    log(f"path H (Griffin) done at {time.perf_counter() - t_start:.1f} s")
 
     # path A's and B's kernels last: their device times come from
     # torch.profiler, whose tracing is kept away from the timed paths

@@ -4,7 +4,8 @@ Only the architectures the port runs are registered: the dense family
 (``qwen1.5-0.5b``, ``starcoder2-3b``, ``olmo-1b``, ``gemma2-2b``),
 ``mamba2-780m`` (the model whose prefill runs the SSD kernels) and the
 MoE family with FISH expert routing (``deepseek-v2-lite-16b`` with MLA,
-``kimi-k2-1t-a32b`` with GQA).
+``kimi-k2-1t-a32b`` with GQA) and the Griffin hybrid
+(``recurrentgemma-9b``: RG-LRU blocks and local MQA).
 """
 
 import importlib
@@ -21,6 +22,7 @@ _ARCH_MODULES = {
     "gemma2-2b": "gemma2_2b",
     "kimi-k2-1t-a32b": "kimi_k2",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -251,14 +251,17 @@ def model_params_from_reference(np_params, cfg, device=None):
     leaf stacked on a leading layer axis — two, ``(L // pat, pat)``, under
     a local/global pattern of ``pat`` layers, layer ``i`` at
     ``[i // pat, i % pat]`` — and an MoE model's ``prefix`` list of dense
-    layers.  The port's parameter names are the reference's paths
-    (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``,
+    layers; Griffin's ``rec_stack`` ``(G, 2, …)`` (layer ``3g + j`` at
+    ``[g, j]``), ``attn_stack`` ``(G, …)`` (layer ``3g + 2`` at ``[g]``)
+    and ``rec_tail`` ``(tail, …)``.  The port's parameter names are the
+    reference's paths (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``,
     ``layers.3.moe.shared.w_up`` ↔ ``stack["moe"]["shared"]["w_up"][3]``,
     ``prefix.0.attn.kv_norm.scale`` ↔
     ``prefix[0]["attn"]["kv_norm"]["scale"]``; an empty norm dict, OLMo's,
     has no parameter).  Values and dtypes carry over bit for bit (the
-    float32 MoE router too); ``device`` ``None`` = ``"cuda"``."""
-    from .models.transformer import Model, _pattern
+    float32 MoE router and RG-LRU ``lambda`` too); ``device`` ``None`` =
+    ``"cuda"``."""
+    from .models.transformer import Model, _stack_index
 
     def leaf(tree, dotted):
         for part in dotted.split("."):
@@ -266,14 +269,14 @@ def model_params_from_reference(np_params, cfg, device=None):
         return tree
 
     model = Model(cfg, device=resolve_device(device))
-    pat = _pattern(cfg)
     with torch.no_grad():
         for name, param in model.named_parameters():
             if name.startswith("layers."):
                 _, i, rest = name.split(".", 2)
-                i = int(i)
-                a = leaf(np_params["stack"], rest)
-                a = a[i] if pat == 1 else a[i // pat][i % pat]
+                stack, idx = _stack_index(cfg, int(i))
+                a = leaf(np_params[stack], rest)
+                for j in idx:
+                    a = a[j]
             elif name.startswith("prefix."):
                 _, j, rest = name.split(".", 2)
                 a = leaf(np_params["prefix"][int(j)], rest)

@@ -1,5 +1,5 @@
-"""Model assembly of the port: the SSM (Mamba-2), dense decoder and MoE
-families.
+"""Model assembly of the port: the SSM (Mamba-2), dense decoder, MoE and
+Griffin (RG-LRU + local attention) families.
 
 Entry points as in the JAX package's ``models/transformer.py``:
 
@@ -23,7 +23,11 @@ The MoE family (deepseek-v2-lite with MLA, kimi-k2 with GQA) runs
 :func:`repro_torch.models.moe.moe_ffn` with FISH expert routing; prefill
 and decode pass zero hotness, as the reference does, while
 :func:`forward_train` hands MoE layer ``i`` row ``i`` of the carried
-hotness and returns the new rows.
+hotness and returns the new rows.  The Griffin family (recurrentgemma)
+runs (rec, rec, attn) groups and a tail of rec layers: a rec layer is an
+RG-LRU block (:mod:`repro_torch.models.ssm`) and an MLP, an attn layer
+local MQA over ``rglru.local_window`` keys and an MLP; its decode keeps a
+ring buffer of the last ``window`` keys per attention layer.
 
 The JAX package scans over layers stacked on a leading axis; here the
 layers are an ``nn.ModuleList`` walked by a Python loop.  The decode
@@ -34,10 +38,16 @@ local/global pattern of ``pat`` layers.  An MoE model's stack holds its
 L − nd MoE layers and a ``prefix`` list holds one entry per dense prefix
 layer: (k, v) of (B, S, Hkv, dh) under GQA; under MLA the compressed
 (c_kv, k_rope), (L − nd, B, S, R) and (L − nd, B, S, dr) in the stack and
-(B, S, R), (B, S, dr) in the prefix.  Griffin, encoder-decoder and
-embedding-input models are not ported yet.  Where the reference's
-optimizer and checkpoints need its stacked leaves (a norm scale stacked
-over the layers is one (L, D) leaf), :func:`reference_leaves` names them.
+(B, S, R), (B, S, dr) in the prefix.  Griffin's cache is the reference's:
+``rec`` ``{"conv": (G, 2, B, K−1, W), "h": (G, 2, B, W)}`` float32 for
+the G groups' rec layers, ``attn`` (k, v) each (G, B, w, Hkv, dh) for
+their attention layers (w = the window, or fewer positions), ``tail`` a
+``{"conv", "h"}`` per tail layer.  Encoder-decoder and embedding-input
+models are not ported yet.  Where the reference's optimizer and
+checkpoints need its stacked leaves (a norm scale stacked over the layers
+is one (L, D) leaf; Griffin's ``rec_stack`` leaves lead with (G, 2),
+``attn_stack``'s with (G,), ``rec_tail``'s with (tail,)),
+:func:`reference_leaves` names them.
 """
 
 from __future__ import annotations
@@ -74,18 +84,19 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The SSM, dense and MoE (GQA or MLA) families run; every other
-    raises, with why."""
+    """The SSM (Mamba-2), dense, MoE (GQA or MLA) and Griffin (RG-LRU)
+    families run; the encoder-decoder and embedding-input families, and
+    M-RoPE, raise, with why."""
     if cfg.ssm is not None:
         return
     missing = [what for what, on in (
-        ("Griffin (RG-LRU)", cfg.rglru is not None),
         ("encoder-decoder", bool(cfg.encoder_layers)),
         ("embedding input (frontend stubs)", cfg.embeds_input)) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} is not ported yet; the port "
-            "runs the SSM (Mamba-2), dense and MoE decoder families")
+            "runs the SSM (Mamba-2), dense, MoE and Griffin decoder "
+            "families")
     if cfg.rope_kind == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE waits for the qwen2-vl slice")
@@ -98,6 +109,42 @@ def _pattern(cfg: ModelConfig) -> int:
 def _num_prefix(cfg: ModelConfig) -> int:
     """The dense layers ahead of an MoE model's MoE stack."""
     return cfg.moe.first_dense_layers if cfg.moe is not None else 0
+
+
+def _griffin_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(full rec-rec-attn groups, trailing rec layers)."""
+    every = cfg.rglru.attention_every
+    if every != 3:
+        raise ValueError("the Griffin layout assumes (rec, rec, attn)")
+    n_groups = cfg.num_layers // every
+    return n_groups, cfg.num_layers - n_groups * every
+
+
+def _stack_index(cfg: ModelConfig, i: int) -> Tuple[str, Tuple[int, ...]]:
+    """The reference's stack that holds layer ``i`` (of ``Model.layers``)
+    and the layer's index on its leading axes: ``stack`` ``(i,)``, or
+    ``(i // pat, i % pat)`` under a local/global pattern; Griffin's
+    ``rec_stack`` ``(g, j)`` for layer ``3g + j``, ``attn_stack`` ``(g,)``
+    for layer ``3g + 2`` and ``rec_tail`` ``(t,)`` for layer ``3G + t``."""
+    if cfg.rglru is not None:
+        n_groups, _ = _griffin_layout(cfg)
+        g, j = divmod(i, 3)
+        if g >= n_groups:
+            return "rec_tail", (i - 3 * n_groups,)
+        return ("rec_stack", (g, j)) if j < 2 else ("attn_stack", (g,))
+    pat = _pattern(cfg)
+    return "stack", ((i // pat, i % pat) if pat > 1 else (i,))
+
+
+def _stack_leads(cfg: ModelConfig, n: int) -> Dict[str, Tuple[int, ...]]:
+    """The leading (layer) shape of each stack of a model of ``n`` stacked
+    layers."""
+    if cfg.rglru is not None:
+        n_groups, tail = _griffin_layout(cfg)
+        return {"rec_stack": (n_groups, 2), "attn_stack": (n_groups,),
+                "rec_tail": (tail,)}
+    pat = _pattern(cfg)
+    return {"stack": (n // pat, pat) if pat > 1 else (n,)}
 
 
 def _windows(cfg: ModelConfig):
@@ -187,6 +234,22 @@ class MLP(nn.Module):
             self.b_out = _param(d, dtype, device)
 
 
+class RecLayer(nn.Module):
+    """Griffin's rec layer: norm → RG-LRU block → residual, norm → MLP →
+    residual."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, dtype, device)
+        self.ln2 = Norm(cfg, dtype, device)
+        if cfg.post_norms:
+            self.ln1_post = Norm(cfg, dtype, device)
+            self.ln2_post = Norm(cfg, dtype, device)
+        self.rec = ssm_mod.RGLRU(cfg.d_model, cfg.rglru, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+        self.moe = None
+
+
 class MambaLayer(nn.Module):
     """norm → Mamba-2 mixer → residual."""
 
@@ -220,7 +283,9 @@ class Model(nn.Module):
     (PV, D), ``head`` (D, PV), layer ``i`` = its ``stack`` leaves' row
     ``i``, or ``[i // pat, i % pat]`` under a local/global pattern; an MoE
     model's ``prefix.<j>`` = the reference's ``prefix[j]``, and its
-    ``layers`` are the MoE layers after them).  Uninitialised:
+    ``layers`` are the MoE layers after them; Griffin's ``layers`` are its
+    rec and attention layers in order, each at :func:`_stack_index` of
+    the reference's stacks).  Uninitialised:
     :func:`init_params` draws them, or
     :func:`repro_torch.convert.model_params_from_reference` copies them."""
 
@@ -240,6 +305,11 @@ class Model(nn.Module):
         if cfg.ssm is not None:
             self.layers = nn.ModuleList(MambaLayer(cfg, dtype, device)
                                         for _ in range(cfg.num_layers))
+        elif cfg.rglru is not None:
+            self.layers = nn.ModuleList(
+                (DecoderLayer if _stack_index(cfg, i)[0] == "attn_stack"
+                 else RecLayer)(cfg, dtype, device)
+                for i in range(cfg.num_layers))
         else:
             self.layers = nn.ModuleList(
                 DecoderLayer(cfg, dtype, device, moe=cfg.moe is not None)
@@ -288,7 +358,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
             if cfg.ssm is not None:
                 ssm_mod._init_mamba2_(layer.mamba, gen)
                 continue
-            dense(layer.attn)
+            if isinstance(layer, RecLayer):
+                ssm_mod._init_rglru_(layer.rec, gen)
+            else:
+                dense(layer.attn)
             if layer.moe is not None:  # the experts have their own draws
                 moe_mod._init_moe_(layer.moe, gen)
             else:
@@ -313,20 +386,20 @@ def num_params(model: Model) -> int:
 def reference_leaves(params: Model
                      ) -> List[Tuple[str, List[str], Tuple[int, ...]]]:
     """The reference's parameter leaves: each leaf's path
-    (``stack/attn/wq``, ``prefix/0/ln1/scale``, ``embed``), the names of
-    the port parameters it holds (one per layer, in layer order, for a
-    ``stack`` leaf; one else) and its leading layer shape (``(L,)``,
-    ``(L // pat, pat)`` under a local/global pattern, ``()`` unstacked)."""
+    (``stack/attn/wq``, ``prefix/0/ln1/scale``, ``rec_stack/rec/lambda``,
+    ``embed``), the names of the port parameters it holds (one per layer,
+    in layer order, for a stacked leaf; one else) and its leading layer
+    shape (``(L,)``, ``(L // pat, pat)`` under a local/global pattern,
+    Griffin's ``(G, 2)``, ``(G,)`` and ``(tail,)``, ``()`` unstacked)."""
     cfg = params.cfg
-    pat = _pattern(cfg)
-    n = len(params.layers)
-    lead = (n // pat, pat) if pat > 1 else (n,)
+    leads = _stack_leads(cfg, len(params.layers))
     leaves: Dict[str, Tuple[List[str], Tuple[int, ...]]] = {}
     for name, _ in params.named_parameters():
         head, *rest = name.split(".")
         if head == "layers":
-            path = "/".join(["stack", *rest[1:]])
-            leaves.setdefault(path, ([], lead))[0].append(name)
+            stack, _ = _stack_index(cfg, int(rest[0]))
+            path = "/".join([stack, *rest[1:]])
+            leaves.setdefault(path, ([], leads[stack]))[0].append(name)
         else:
             leaves[name.replace(".", "/")] = ([name], ())
     return [(path, names, shape) for path, (names, shape) in leaves.items()]
@@ -509,7 +582,8 @@ def prefill(params: Model, batch, cfg: ModelConfig):
 
     batch: ``{"tokens": (B, S) int}``.
     Returns (cache dict, last-token logits (B, PV) f32); an attention
-    model's cache is sized to the prompt, with ``pos = S - 1``.
+    model's cache is sized to the prompt, with ``pos = S - 1``; Griffin's
+    attention cache holds the last min(S, window) positions.
     """
     _check_family(cfg)
     h = _embed(params, batch["tokens"], cfg)
@@ -517,6 +591,8 @@ def prefill(params: Model, batch, cfg: ModelConfig):
         return _mamba_prefill(params, h, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
+    if cfg.rglru is not None:
+        return _griffin_prefill(params, h, cfg, positions)
     cache = _new_cache(cfg, b, s, h.dtype, h.device, torch.empty)
     for layer, entry, window in zip([*params.prefix, *params.layers],
                                     _layer_entries(cfg, cache),
@@ -543,6 +619,48 @@ def _mamba_prefill(params: Model, h, cfg: ModelConfig):
     cache = {"pos": h.shape[1] - 1,
              "layers": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}}
     return cache, logits
+
+
+def _rec_half(layer: RecLayer, h, cfg: ModelConfig):
+    """norm → RG-LRU block → residual.  Returns (h, the block's decode
+    state after the last token)."""
+    out, state = ssm_mod.rglru_block(layer.rec, _norm(cfg, layer.ln1, h),
+                                     cfg.rglru)
+    return _residual(cfg, layer, "ln1", h, out), state
+
+
+def _griffin_prefill(params: Model, h, cfg: ModelConfig, positions):
+    """The layers in order (attention over ``rglru.local_window`` keys);
+    the cache keeps each rec layer's state and each attention layer's last
+    ``window`` keys and values in sequence order (slots 0..w−1), as the
+    reference clips them.  A decode writes slot ``pos % w``
+    (:func:`_attn_decode_ring`), so it continues this ring exactly only
+    when S is a multiple of the window, and with S < window the ring is S
+    slots long: the reference's quirk, kept."""
+    b, s, _ = h.shape
+    window = cfg.rglru.local_window
+    cache = _griffin_cache(cfg, b, s, h.dtype, h.device)
+    for i, layer in enumerate(params.layers):
+        stack, idx = _stack_index(cfg, i)
+        if stack == "attn_stack":
+            h, kv = _attn_half(layer, h, cfg, positions, window)
+            for dst, src in zip(cache["attn"], kv):
+                dst[idx].copy_(src[:, -window:])
+        else:
+            h, state = _rec_half(layer, h, cfg)
+            for k, dst in _rec_state(cache, stack, idx).items():
+                dst.copy_(state[k])
+        h = _ffn_half(layer, h, cfg)[0]
+    h = _norm(cfg, params.final_norm, h)
+    cache["pos"] = s - 1
+    return cache, _masked_logits(h[:, -1], params, cfg)
+
+
+def _rec_state(cache: Dict, stack: str, idx) -> Dict:
+    """A rec layer's ``{"conv", "h"}`` in a Griffin cache (views)."""
+    if stack == "rec_tail":
+        return cache["tail"][idx[0]]
+    return {k: x[idx] for k, x in cache["rec"].items()}
 
 
 def _seq_axis(cfg: ModelConfig) -> int:
@@ -575,10 +693,13 @@ def _new_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict:
     """Zero decode cache (the SSM family's state is O(1): ``max_seq`` is
-    unused there)."""
+    unused there; Griffin's attention keeps a ring of min(``max_seq``,
+    ``local_window``) slots)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
+    if cfg.rglru is not None:
+        return _griffin_cache(cfg, batch, max_seq, dtype, dev)
     if cfg.ssm is None:
         return _new_cache(cfg, batch, max_seq, dtype, dev, torch.zeros)
     _, n_heads, conv_dim, _ = ssm_mod._mamba2_dims(cfg.d_model, cfg.ssm)
@@ -592,6 +713,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                 cfg.ssm.head_dim), dtype=torch.float32,
                                device=dev),
         },
+    }
+
+
+def _griffin_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device) -> Dict:
+    n_groups, tail = _griffin_layout(cfg)
+    rg = cfg.rglru
+    w = min(max_seq, rg.local_window)
+    kv = (n_groups, batch, w, cfg.num_kv_heads, cfg.head_dim)
+    state = ssm_mod.init_rglru_state(cfg.d_model, rg, batch, device)
+    return {
+        "pos": 0,
+        "rec": {k: torch.zeros((n_groups, 2) + x.shape, dtype=x.dtype,
+                               device=device) for k, x in state.items()},
+        "attn": tuple(torch.zeros(kv, dtype=dtype, device=device)
+                      for _ in range(2)),
+        "tail": [ssm_mod.init_rglru_state(cfg.d_model, rg, batch, device)
+                 for _ in range(tail)],
     }
 
 
@@ -622,6 +761,7 @@ def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
     k_rope) into the cache's tensors in place (the returned cache holds
     the same tensors, with ``pos`` one on), unlike the JAX package's
     functional cache: a copy would move the whole cache every step.
+    Griffin's too, its rec states included.
     """
     _check_family(cfg)
     pos = cache["pos"] + 1
@@ -629,6 +769,9 @@ def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
     if cfg.ssm is not None:
         h, layers = _mamba_decode_stack(params, h, cache["layers"], cfg)
         new = {"pos": pos, "layers": layers}
+    elif cfg.rglru is not None:
+        h = _griffin_decode_stack(params, h, cache, cfg, pos)
+        new = dict(cache, pos=pos)
     else:
         h = _attn_decode_stack(params, h, cache, cfg, pos)
         new = dict(cache, pos=pos)
@@ -662,6 +805,42 @@ def _attn_decode_stack(params: Model, h, cache: Dict, cfg: ModelConfig,
                                     window=window)
         h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)[0]
     return h
+
+
+def _griffin_decode_stack(params: Model, h, cache: Dict, cfg: ModelConfig,
+                          pos: int):
+    """The layers in order; each rec layer's state and each attention
+    layer's ring slot are written in place."""
+    kc, vc = cache["attn"]
+    for i, layer in enumerate(params.layers):
+        stack, idx = _stack_index(cfg, i)
+        hin = _norm(cfg, layer.ln1, h)
+        if stack == "attn_stack":
+            out = _attn_decode_ring(layer.attn, hin, (kc[idx], vc[idx]), pos,
+                                    cfg)
+        else:
+            state = _rec_state(cache, stack, idx)
+            out, new = ssm_mod.rglru_decode(layer.rec, hin, state, cfg.rglru)
+            for k, x in new.items():
+                state[k].copy_(x)
+        h = _ffn_half(layer, _residual(cfg, layer, "ln1", h, out), cfg)[0]
+    return h
+
+
+def _attn_decode_ring(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig):
+    """Decode against a ring-buffer cache of w slots: the token's K/V go
+    to slot ``pos % w`` in place, and every slot up to ``min(pos, w − 1)``
+    is attended (no window mask: the ring holds only the window)."""
+    b = h.shape[0]
+    posv = torch.full((b, 1), pos, device=h.device)
+    q, k, v = _qkv(p, h, cfg, posv)
+    kc, vc = kv_cache
+    w = kc.shape[1]
+    kc[:, pos % w] = k[:, 0].to(kc.dtype)
+    vc[:, pos % w] = v[:, 0].to(vc.dtype)
+    out = decode_attention(q, kc, vc, cur_pos=min(pos, w - 1),
+                           softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    return (out.reshape(b, 1, -1) @ p.wo).to(h.dtype)
 
 
 def _cache_slot(pos: int, size: int) -> int:
@@ -726,7 +905,8 @@ def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
 
 
 def _check_train(cfg: ModelConfig) -> None:
-    """The dense and MoE families train; the SSM family raises, with why."""
+    """The dense, MoE and Griffin families train; the SSM family raises,
+    with why."""
     _check_family(cfg)
     if cfg.ssm is not None:
         raise NotImplementedError(
@@ -753,13 +933,43 @@ def _train_layer(layer: DecoderLayer, h, positions, hot_row, *,
     return _ffn_half(layer, h, cfg, hot_row)
 
 
+def _train_group(group, h, positions, *, cfg: ModelConfig):
+    """Griffin layers in order: a (rec, rec, attn) group, or the
+    tail's rec layers."""
+    for layer in group:
+        if isinstance(layer, RecLayer):
+            h, _ = _rec_half(layer, h, cfg)
+        else:
+            h, _ = _attn_half(layer, h, cfg, positions,
+                              cfg.rglru.local_window)
+        h = _ffn_half(layer, h, cfg)[0]
+    return h
+
+
+def _griffin_train_stack(params: Model, h, cfg: ModelConfig, positions):
+    """Each (rec, rec, attn) group checkpointed as one unit when
+    ``cfg.remat`` is set (the reference checkpoints its scan body), then
+    the tail's rec layers, not checkpointed (the reference runs them
+    outside the scan)."""
+    n_groups, _ = _griffin_layout(cfg)
+    layers = list(params.layers)
+    for g in range(n_groups):
+        group = layers[3 * g:3 * g + 3]
+        h = (_remat(_train_group, group, h, positions, cfg=cfg) if cfg.remat
+             else _train_group(group, h, positions, cfg=cfg))
+    return _train_group(layers[3 * n_groups:], h, positions, cfg=cfg)
+
+
 def _train_stack(params: Model, h, cfg: ModelConfig, positions, hotness):
     """The prefix layers, then the stack, each checkpointed when
     ``cfg.remat`` is set (the reference checkpoints each scan step: a layer,
-    or a pattern group).  MoE layer ``i`` takes hotness row ``i``; the aux
-    losses are summed in layer order.  Returns (h, the new hotness (L − nd,
-    E) or ``None`` without hotness, aux)."""
+    or a pattern group; Griffin's: :func:`_griffin_train_stack`).  MoE
+    layer ``i`` takes hotness row ``i``; the aux losses are summed in layer
+    order.  Returns (h, the new hotness (L − nd, E) or ``None`` without
+    hotness, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.rglru is not None:
+        return _griffin_train_stack(params, h, cfg, positions), None, aux
     rows = []
     layers = [*params.prefix, *params.layers]
     hot_rows = [None] * len(params.prefix) + (

@@ -4,20 +4,27 @@ package's ``optim/adamw.py``.
 
 The reference keeps its state as pytrees of its stacked parameter leaves:
 a per-layer tensor is row ``i`` of one leaf stacked over the layers (two
-leading axes under a local/global pattern), the MoE model's ``prefix``
-layers are a list of unstacked leaves.  The port keeps the same state:
+leading axes under a local/global pattern, and for Griffin's
+``rec_stack``), the MoE model's ``prefix`` layers are a list of unstacked
+leaves.  The port keeps the same state:
 ``m`` and ``v`` map each reference leaf path (``stack/attn/wq``,
 :func:`repro_torch.models.transformer.reference_leaves`) to a tensor of
 the stacked shape.  Two things depend on that layout:
 
 * the decay mask goes by the reference's leaf paths (``_NO_DECAY``):
-  ``stack/moe/router`` decays, ``stack/attn/kv_norm/scale`` does not;
+  ``stack/moe/router`` decays, ``stack/attn/kv_norm/scale`` does not,
+  nor does ``rec_stack/rec/lambda``, while ``rec_stack/rec/conv_b``
+  decays (no name of ``_NO_DECAY`` matches it);
 * the factored second moment factors the stacked leaf (``ndim >= 2``):
   a per-layer vector (a norm scale, a bias) is an (L, D) leaf, whose
   column means ``c`` and whose mean of ``r`` run over the layers, so the
   layers' updates are coupled.  The port computes a factored leaf's update
   on the stacked leaf for that reason; every other leaf is elementwise, so
-  it is updated one layer at a time, on views of the stacked state.
+  it is updated one layer at a time, on views of the stacked state, in
+  runs of rows of at most ``_PIECE`` elements: the update's float32
+  temporaries stay small beside a large leaf (a tied embedding of 1 G
+  elements would need ~8 × 4 GB of them at once), and each element's
+  arithmetic is the same.
 
 Parameters are updated in place; the state's ``m`` and ``v`` too.
 """
@@ -108,6 +115,17 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
                                    for x in tensors]).sum())
 
 
+_PIECE = 1 << 24  # elements an elementwise update takes at a time
+
+
+def _pieces(*xs):
+    """Equal runs of rows (views) of equally shaped tensors, each of at
+    most ``_PIECE`` elements, one row at least."""
+    row = xs[0][0].numel() if xs[0].dim() > 1 else 1
+    rows = max(1, _PIECE // row)
+    return zip(*(x.split(rows) for x in xs))
+
+
 _NO_DECAY = ("scale", "bias", "a_log", "dt_bias", "d_skip", "lambda",
              "norm", "b_in", "b_out", "bq", "bk", "bv", "bo")
 
@@ -174,14 +192,16 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: OptState,
             for pm, row in zip(ps, newp.reshape(len(ps), *ps[0].shape)):
                 pm.copy_(row)
             continue
-        # elementwise: one layer at a time, on views of the stacked state
+        # elementwise: one layer at a time, on views of the stacked state,
+        # in runs of rows
         rows = len(ps)
         for pm, n, m_i, v_i in zip(ps, names, m.view(rows, *ps[0].shape),
                                    v.view(rows, *ps[0].shape)):
-            newp, new_m, new_v = _update(grads[n], m_i, v_i, pm, decay,
-                                         *hyper)
-            pm.copy_(newp)
-            m_i.copy_(new_m)
-            v_i.copy_(new_v)
+            for g_r, m_r, v_r, p_r in _pieces(grads[n], m_i, v_i, pm):
+                newp, new_m, new_v = _update(g_r, m_r, v_r, p_r, decay,
+                                             *hyper)
+                p_r.copy_(newp)
+                m_r.copy_(new_m)
+                v_r.copy_(new_v)
     return params, OptState(step=step, m=state.m, v=state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -1067,3 +1067,55 @@ def test_cuda_train_step_matches_host(arch, monkeypatch):
             b = b.float()
             assert bool(((a.float().cpu() - b).abs() <= 1e-4 * b.abs().max()
                          ).all()), path
+
+
+@pytest.mark.cuda
+def test_cuda_griffin_model_matches_host():
+    """The Griffin family (RG-LRU + local MQA) has no kernel of its own:
+    its plain tensor ops on the card against the same ops on the host, one
+    set of float32 weights (reduced config, 5 layers: one (rec, rec, attn)
+    group and a tail of 2; window 8).  A prefill of 2 x 11 (not a multiple
+    of the window: the ring's quirk is on) and 8 decode steps, logits
+    within 1e-4 and the caches within 1e-5; one ``forward_train`` at 2 x
+    32, the loss within 1e-5 and every gradient within 1e-4 of its
+    parameter's largest gradient (``tests/test_torch_griffin.py``'s
+    bounds)."""
+    dev = _card()
+    base = reduced_config(get_config("recurrentgemma-9b"))
+    cfg = dataclasses.replace(base, num_layers=5, dtype="float32",
+                              rglru=dataclasses.replace(base.rglru,
+                                                        local_window=8))
+    host = PT.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 19)).astype(
+        np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(
+        np.int32))
+    runs = []
+    for where, params in ((dev, copy.deepcopy(host).to(dev)), ("cpu", host)):
+        t = toks.to(where)
+        cache, lg = PT.prefill(params, {"tokens": t[:, :11]}, cfg)
+        out = [lg]
+        for i in range(11, 19):
+            lg, cache = PT.decode_step(params, cache, t[:, i:i + 1], cfg)
+            out.append(lg)
+        leaves = [cache["rec"]["conv"], cache["rec"]["h"], *cache["attn"],
+                  *[st[k] for st in cache["tail"] for k in ("conv", "h")]]
+        params.requires_grad_(True)
+        batch = {"tokens": labels.roll(1, 1).to(where),
+                 "labels": labels.to(where)}
+        loss, _ = PT.forward_train(params, batch, cfg)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        runs.append(([x[:, :cfg.vocab_size].cpu() for x in out],
+                     [x.cpu() for x in leaves], float(loss.detach()),
+                     [g.cpu() for g in grads]))
+    (logits, leaves, loss, grads), (w_logits, w_leaves, w_loss, w_grads) = \
+        runs
+    for a, b in zip(logits, w_logits):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(leaves, w_leaves, strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert abs(loss - w_loss) <= 1e-5 * abs(w_loss)
+    for (name, _), a, b in zip(host.named_parameters(), grads, w_grads):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-30), name

@@ -263,8 +263,7 @@ def test_serve_runs_the_reduced_dense_model_on_the_cpu():
 
 
 def test_unported_families_raise_with_the_reason():
-    for arch, why in (("recurrentgemma-9b", "Griffin"),
-                      ("whisper-large-v3", "encoder-decoder"),
+    for arch, why in (("whisper-large-v3", "encoder-decoder"),
                       ("qwen2-vl-2b", "embedding input")):
         cfg = ref_reduced(ref_get_config(arch))
         with pytest.raises(NotImplementedError, match=why):

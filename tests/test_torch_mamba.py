@@ -104,9 +104,9 @@ def test_prefill_then_decode_continues_the_prefill():
                                rtol=0.08, atol=0.35)
     assert list_archs() == ["mamba2-780m", "qwen1.5-0.5b", "starcoder2-3b",
                             "olmo-1b", "gemma2-2b", "kimi-k2-1t-a32b",
-                            "deepseek-v2-lite-16b"]
+                            "deepseek-v2-lite-16b", "recurrentgemma-9b"]
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("recurrentgemma-9b")
+        get_config("whisper-large-v3")
 
 
 def _requests(mk, n=48, seed=3):

@@ -50,9 +50,10 @@ from repro_torch.optim import adamw as PO
 
 import torch_helpers  # noqa: F401  (caps torch threads)
 import torch_model_pairs as pairs
-from torch_model_pairs import (assert_adam_step_close, assert_hotness,
-                               batch_np, close_to_leaf, flat_ref,
-                               hotness_np, stacked, t)
+from torch_model_pairs import (as_numpy, assert_adam_step_close,
+                               assert_hotness, assert_same_leaves, batch_np,
+                               close_to_leaf, flat_ref, hotness_np, stacked,
+                               t)
 
 # the reference's update, compiled once per tree and config
 REF_ADAMW = jax.jit(RO.adamw_update, static_argnums=3)
@@ -165,25 +166,6 @@ def kimi_train_state():
 
 def port_tree(params, state, hot):
     return {"params": PT.param_tree(params), "opt": state, "hotness": hot}
-
-
-def assert_same_leaves(got, want):
-    """Two trees' leaves ({path: array}) equal bit for bit."""
-    assert list(got) == list(want)
-    for path in want:
-        a, b = np.asarray(got[path]), np.asarray(want[path])
-        assert a.shape == b.shape and a.dtype == b.dtype, path
-        assert np.array_equal(a.reshape(-1).view(np.uint8),
-                              b.reshape(-1).view(np.uint8)), path
-
-
-def as_numpy(x):
-    if isinstance(x, torch.Tensor):
-        x = x.detach()
-        return (x.view(torch.int16).numpy() if x.dtype == torch.bfloat16
-                else x.numpy())
-    a = np.asarray(x)
-    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
 
 
 def test_reference_checkpoint_restores_in_the_port(tmp_path):

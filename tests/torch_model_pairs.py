@@ -246,6 +246,26 @@ def assert_hotness(got, want, hot, cfg):
     np.testing.assert_array_max_ulp(got.numpy(), want, 1)
 
 
+def assert_same_leaves(got, want):
+    """Two trees' leaves ({path: array}) equal bit for bit."""
+    assert list(got) == list(want)
+    for path in want:
+        a, b = np.asarray(got[path]), np.asarray(want[path])
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        assert np.array_equal(a.reshape(-1).view(np.uint8),
+                              b.reshape(-1).view(np.uint8)), path
+
+
+def as_numpy(x):
+    """A tensor or array as numpy, bfloat16 as its bits (int16)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.view(torch.int16).numpy() if x.dtype == torch.bfloat16
+                else x.numpy())
+    a = np.asarray(x)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
 def assert_adam_step_close(got_p, want_p, want_m, lr):
     """Parameters after one Adam step from gradients that agree within
     float32 rounding: within 1e-4 of the leaf's largest magnitude wherever
