@@ -1,11 +1,14 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures the port runs are registered: the dense family
+The dense family
 (``qwen1.5-0.5b``, ``starcoder2-3b``, ``olmo-1b``, ``gemma2-2b``),
-``mamba2-780m`` (the model whose prefill runs the SSD kernels) and the
+``mamba2-780m`` (the model whose prefill runs the SSD kernels), the
 MoE family with FISH expert routing (``deepseek-v2-lite-16b`` with MLA,
 ``kimi-k2-1t-a32b`` with GQA) and the Griffin hybrid
-(``recurrentgemma-9b``: RG-LRU blocks and local MQA).
+(``recurrentgemma-9b``: RG-LRU blocks and local MQA), and the two
+frontend-stub models: ``qwen2-vl-2b`` (embedding input, M-RoPE) and
+``whisper-large-v3`` (encoder-decoder with cross attention): the JAX
+package's registry, in its order.
 """
 
 import importlib
@@ -20,9 +23,11 @@ _ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "olmo-1b": "olmo_1b",
     "gemma2-2b": "gemma2_2b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "kimi-k2-1t-a32b": "kimi_k2",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
-    "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

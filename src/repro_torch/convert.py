@@ -253,8 +253,11 @@ def model_params_from_reference(np_params, cfg, device=None):
     ``[i // pat, i % pat]`` — and an MoE model's ``prefix`` list of dense
     layers; Griffin's ``rec_stack`` ``(G, 2, …)`` (layer ``3g + j`` at
     ``[g, j]``), ``attn_stack`` ``(G, …)`` (layer ``3g + 2`` at ``[g]``)
-    and ``rec_tail`` ``(tail, …)``.  The port's parameter names are the
-    reference's paths (``layers.3.attn.wq`` ↔ ``stack["attn"]["wq"][3]``,
+    and ``rec_tail`` ``(tail, …)``; whisper's ``enc_stack`` ``(E, …)``
+    (encoder layer ``i`` at ``[i]``; its decoder ``stack`` leaves include
+    ``cross`` and ``ln_cross``) and ``enc_final_norm``.  The port's
+    parameter names are the reference's paths (``layers.3.attn.wq`` ↔
+    ``stack["attn"]["wq"][3]``,
     ``layers.3.moe.shared.w_up`` ↔ ``stack["moe"]["shared"]["w_up"][3]``,
     ``prefix.0.attn.kv_norm.scale`` ↔
     ``prefix[0]["attn"]["kv_norm"]["scale"]``; an empty norm dict, OLMo's,
@@ -277,6 +280,9 @@ def model_params_from_reference(np_params, cfg, device=None):
                 a = leaf(np_params[stack], rest)
                 for j in idx:
                     a = a[j]
+            elif name.startswith("enc_stack."):
+                _, i, rest = name.split(".", 2)
+                a = leaf(np_params["enc_stack"], rest)[int(i)]
             elif name.startswith("prefix."):
                 _, j, rest = name.split(".", 2)
                 a = leaf(np_params["prefix"][int(j)], rest)

@@ -93,6 +93,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced_config(cfg)
+    if cfg.embeds_input or cfg.encoder_layers:  # as the reference refuses
+        raise SystemExit(f"{args.arch}: serving driver supports token-input "
+                         "decoders; use the engine simulation for "
+                         "frontend-stub archs")
     params = T.init_params(cfg, seed=0, device=args.device)
     eng, reps = serve(cfg, params, replicas=args.replicas, slots=args.slots,
                       requests=args.requests, max_seq=args.max_seq,

@@ -20,12 +20,14 @@ __all__ = ["make_train_step"]
 
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
     """``n`` microbatches, each leaf's batch axis cut into ``n`` equal
-    runs, in order."""
+    runs, in order: axis 0, but axis 1 of M-RoPE's (3, B, S)
+    ``positions``, as the reference splits them."""
+    axes = {k: 1 if k == "positions" else 0 for k in batch}
     for k, x in batch.items():
-        if x.shape[0] % n:
-            raise ValueError(f"batch {x.shape[0]} of {k!r} not divisible by "
-                             f"grad_accum {n}")
-    parts = {k: x.chunk(n, dim=0) for k, x in batch.items()}
+        if x.shape[axes[k]] % n:
+            raise ValueError(f"batch {x.shape[axes[k]]} of {k!r} not "
+                             f"divisible by grad_accum {n}")
+    parts = {k: x.chunk(n, dim=axes[k]) for k, x in batch.items()}
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 

@@ -1,6 +1,7 @@
 """Attention of the port: the blockwise (flash-style) prefill path and the
-O(S) decode path, with GQA/MQA, sliding windows and soft-capping, and
-DeepSeek's multi-head latent attention (MLA).
+O(S) decode path, with GQA/MQA, sliding windows, soft-capping and the
+non-causal form (whisper's encoder and cross attention), and DeepSeek's
+multi-head latent attention (MLA).
 
 The JAX package runs both on XLA (a ``lax.scan`` over KV blocks and
 einsums), not on a Pallas kernel, and so does the port: plain tensor ops
@@ -31,10 +32,13 @@ __all__ = ["flash_attention", "decode_attention", "mla_expand",
 _NEG_INF = -1e30
 
 
-def _block_mask(q_pos, k_pos, window: Optional[int]):
-    """(Sq, Bk) causal mask from absolute positions: 0 <= q − k < window."""
+def _block_mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
+    """(Sq, Bk) mask from absolute positions: q − k >= 0 when ``causal``,
+    q − k < window with a window."""
     rel = q_pos[:, None] - k_pos[None, :]
-    mask = rel >= 0
+    mask = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        mask &= rel >= 0
     if window is not None:
         mask &= rel < window
     return mask
@@ -60,12 +64,13 @@ def _block(qf, k_blk, v_blk, mask, m_run, l_run, acc, softcap):
     return m_new, l_new, acc
 
 
-def flash_attention(q, k, v, *, window: Optional[int] = None,
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None, block_k: int = 1024):
-    """Causal blockwise attention with an online softmax (the decoders'
-    self-attention; the reference's non-causal encoder and cross
-    attention wait for the encoder-decoder slice).
+    """Blockwise attention with an online softmax: causal for the
+    decoders' self-attention, ``causal=False`` for whisper's encoder and
+    its cross attention.
 
     q: (B, Sq, Hq, dh); k, v: (B, Skv, Hkv, dh) with Hq % Hkv == 0, query
     ``i`` at position ``i``.  Returns (B, Sq, Hq, dv) in q.dtype.  The KV
@@ -101,7 +106,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
             k_blk = torch.nn.functional.pad(k_blk, (0, 0, 0, 0, 0, pad))
             v_blk = torch.nn.functional.pad(v_blk, (0, 0, 0, 0, 0, pad))
         k_pos = lo + torch.arange(block_k, device=dev)
-        mask = _block_mask(q_pos, k_pos, window)
+        mask = _block_mask(q_pos, k_pos, causal=causal, window=window)
         mask &= (k_pos < skv_orig)[None, :]
         args = (qf, k_blk, v_blk, mask, m_run, l_run, acc, softcap)
         m_run, l_run, acc = (checkpoint(_block, *args, use_reentrant=False)

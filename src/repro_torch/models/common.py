@@ -1,17 +1,17 @@
-"""Shared model building blocks of the port: norms, RoPE, soft-capping and
-activations, as the JAX package's ``models/common.py`` has them.  M-RoPE
-(qwen2-vl) waits for that family's slice."""
+"""Shared model building blocks of the port: norms, RoPE and Qwen2-VL's
+multimodal RoPE, soft-capping and activations, as the JAX package's
+``models/common.py`` has them."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "layer_norm", "nonparametric_layer_norm",
            "apply_norm", "soft_cap", "rope_freqs", "apply_rope",
-           "activation_fn", "dtype_of"]
+           "mrope_streams", "apply_mrope", "activation_fn", "dtype_of"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -98,6 +98,36 @@ def apply_rope(q, k, positions, *, theta: float = 10_000.0):
     inputs' dtype.  q/k: (B, S, H, dh); positions: (B, S) int."""
     inv = rope_freqs(q.shape[-1], theta, device=q.device)  # (dh/2,)
     angles = positions[..., None].float() * inv  # (B, S, dh/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    cos = torch.cos(angles)[:, :, None, :]
+    return tuple(_rotate(x.float(), sin, cos).to(x.dtype) for x in (q, k))
+
+
+def mrope_streams(sections: Sequence[int], half: int) -> List[int]:
+    """The position stream (0 temporal, 1 height, 2 width) that drives each
+    of the ``half`` frequency slots: ``sections[i]`` slots of stream ``i``
+    in order, cut at ``half`` when they sum to more and padded with stream
+    2 when they sum to less — the rule of the JAX package's
+    ``jnp.repeat(arange(3), sections, total_repeat_length=half)``."""
+    idx = [i for i, n in enumerate(sections) for _ in range(n)][:half]
+    return idx + [2] * (half - len(idx))
+
+
+def apply_mrope(q, k, positions, sections: Sequence[int], *,
+                theta: float = 1_000_000.0):
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191), in float32, cast back
+    to the inputs' dtype.
+
+    q/k: (B, S, H, dh); positions: (3, B, S) int — the temporal, height
+    and width position ids.  The rotary spectrum's dh/2 slots are split
+    into ``sections`` (half-dim units, e.g. (16, 24, 24) at head_dim 128;
+    :func:`mrope_streams`) and each slot takes its angle from its stream.
+    """
+    half = q.shape[-1] // 2
+    inv = rope_freqs(q.shape[-1], theta, device=q.device)  # (dh/2,)
+    angles = positions[..., None].float() * inv  # (3, B, S, dh/2)
+    idx = torch.tensor(mrope_streams(sections, half), device=q.device)
+    angles = angles.gather(0, idx.expand(1, *angles.shape[1:]))[0]
     sin = torch.sin(angles)[:, :, None, :]
     cos = torch.cos(angles)[:, :, None, :]
     return tuple(_rotate(x.float(), sin, cos).to(x.dtype) for x in (q, k))

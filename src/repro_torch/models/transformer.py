@@ -1,5 +1,6 @@
-"""Model assembly of the port: the SSM (Mamba-2), dense decoder, MoE and
-Griffin (RG-LRU + local attention) families.
+"""Model assembly of the port: the SSM (Mamba-2), dense decoder, MoE,
+Griffin (RG-LRU + local attention) and frontend-stub (whisper's
+encoder-decoder, qwen2-vl's embedding input with M-RoPE) families.
 
 Entry points as in the JAX package's ``models/transformer.py``:
 
@@ -27,7 +28,15 @@ hotness and returns the new rows.  The Griffin family (recurrentgemma)
 runs (rec, rec, attn) groups and a tail of rec layers: a rec layer is an
 RG-LRU block (:mod:`repro_torch.models.ssm`) and an MLP, an attn layer
 local MQA over ``rglru.local_window`` keys and an MLP; its decode keeps a
-ring buffer of the last ``window`` keys per attention layer.
+ring buffer of the last ``window`` keys per attention layer.  The
+frontend stubs take what their stubbed frontends would give: qwen2-vl a
+batch's ``embeds`` (B, S, D) and its (3, B, S) M-RoPE ``positions``
+(temporal, height, width; a decode step puts its position on all three,
+as the reference does) in place of token embeddings, and whisper an
+``enc_embeds`` (B, encoder_seq, D) that a stack of non-causal encoder
+layers (``enc_stack``, then ``enc_final_norm``) turns into the states
+each decoder layer's cross attention reads; whisper adds no positional
+signal on either side (``rope_kind="none"``), as the reference.
 
 The JAX package scans over layers stacked on a leading axis; here the
 layers are an ``nn.ModuleList`` walked by a Python loop.  The decode
@@ -42,12 +51,16 @@ layer: (k, v) of (B, S, Hkv, dh) under GQA; under MLA the compressed
 ``rec`` ``{"conv": (G, 2, B, K−1, W), "h": (G, 2, B, W)}`` float32 for
 the G groups' rec layers, ``attn`` (k, v) each (G, B, w, Hkv, dh) for
 their attention layers (w = the window, or fewer positions), ``tail`` a
-``{"conv", "h"}`` per tail layer.  Encoder-decoder and embedding-input
-models are not ported yet.  Where the reference's optimizer and
+``{"conv", "h"}`` per tail layer.  Whisper's is ((k, v), (cross_k,
+cross_v)): the self-attention's (L, B, S, H, dh) and the cross
+attention's (L, B, encoder_seq, H, dh), made by the prefill once (or
+zero by :func:`init_cache`) and only read by the decode.  Where the
+reference's optimizer and
 checkpoints need its stacked leaves (a norm scale stacked over the layers
 is one (L, D) leaf; Griffin's ``rec_stack`` leaves lead with (G, 2),
-``attn_stack``'s with (G,), ``rec_tail``'s with (tail,)),
-:func:`reference_leaves` names them.
+``attn_stack``'s with (G,), ``rec_tail``'s with (tail,), whisper's
+``enc_stack``'s with (encoder_layers,)), :func:`reference_leaves` names
+them.
 """
 
 from __future__ import annotations
@@ -65,8 +78,8 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import (decode_attention, flash_attention, mla_decode_scores,
                         mla_expand)
-from .common import (activation_fn, apply_norm, apply_rope, dtype_of,
-                     rms_norm, soft_cap)
+from .common import (activation_fn, apply_mrope, apply_norm, apply_rope,
+                     dtype_of, rms_norm, soft_cap)
 from .moe import moe_ffn
 
 __all__ = ["Model", "padded_vocab", "init_params", "prefill", "decode_step",
@@ -81,25 +94,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     """Vocab rows padded to a multiple of 128 (Megatron-style); pad logits
     are masked to -1e30."""
     return -(-cfg.vocab_size // 128) * 128
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """The SSM (Mamba-2), dense, MoE (GQA or MLA) and Griffin (RG-LRU)
-    families run; the encoder-decoder and embedding-input families, and
-    M-RoPE, raise, with why."""
-    if cfg.ssm is not None:
-        return
-    missing = [what for what, on in (
-        ("encoder-decoder", bool(cfg.encoder_layers)),
-        ("embedding input (frontend stubs)", cfg.embeds_input)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} is not ported yet; the port "
-            "runs the SSM (Mamba-2), dense, MoE and Griffin decoder "
-            "families")
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE waits for the qwen2-vl slice")
 
 
 def _pattern(cfg: ModelConfig) -> int:
@@ -138,13 +132,14 @@ def _stack_index(cfg: ModelConfig, i: int) -> Tuple[str, Tuple[int, ...]]:
 
 def _stack_leads(cfg: ModelConfig, n: int) -> Dict[str, Tuple[int, ...]]:
     """The leading (layer) shape of each stack of a model of ``n`` stacked
-    layers."""
+    layers (whisper's ``enc_stack`` too)."""
     if cfg.rglru is not None:
         n_groups, tail = _griffin_layout(cfg)
         return {"rec_stack": (n_groups, 2), "attn_stack": (n_groups,),
                 "rec_tail": (tail,)}
     pat = _pattern(cfg)
-    return {"stack": (n // pat, pat) if pat > 1 else (n,)}
+    return {"stack": (n // pat, pat) if pat > 1 else (n,),
+            "enc_stack": (cfg.encoder_layers,)}
 
 
 def _windows(cfg: ModelConfig):
@@ -262,9 +257,13 @@ class MambaLayer(nn.Module):
 class DecoderLayer(nn.Module):
     """norm → attention (GQA, or MLA with ``cfg.mla``) → residual, norm →
     MLP, or with ``moe`` the MoE FFN → residual; with ``post_norms``
-    (gemma2) each sub-block's output is normed too."""
+    (gemma2) each sub-block's output is normed too.  With ``cross``
+    (whisper's decoder layer) a cross attention (``cross``, its norm
+    ``ln_cross``) follows the self-attention.  Whisper's encoder layer is
+    this layer's plain form, run non-causally."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False):
+    def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg, dtype, device)
         self.ln2 = Norm(cfg, dtype, device)
@@ -276,6 +275,8 @@ class DecoderLayer(nn.Module):
         self.mlp = None if moe else MLP(cfg, dtype, device)
         self.moe = (moe_mod.MoE(cfg.d_model, cfg.moe, dtype, device) if moe
                     else None)
+        self.cross = Attention(cfg, dtype, device) if cross else None
+        self.ln_cross = Norm(cfg, dtype, device) if cross else None
 
 
 class Model(nn.Module):
@@ -285,13 +286,14 @@ class Model(nn.Module):
     model's ``prefix.<j>`` = the reference's ``prefix[j]``, and its
     ``layers`` are the MoE layers after them; Griffin's ``layers`` are its
     rec and attention layers in order, each at :func:`_stack_index` of
-    the reference's stacks).  Uninitialised:
+    the reference's stacks; whisper's ``enc_stack.<i>`` = its
+    ``enc_stack`` leaves' row ``i``, and ``enc_final_norm``).
+    Uninitialised:
     :func:`init_params` draws them, or
     :func:`repro_torch.convert.model_params_from_reference` copies them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _check_family(cfg)
         dtype = dtype_of(cfg.dtype)
         pv = padded_vocab(cfg)
         self.cfg = cfg
@@ -312,8 +314,13 @@ class Model(nn.Module):
                 for i in range(cfg.num_layers))
         else:
             self.layers = nn.ModuleList(
-                DecoderLayer(cfg, dtype, device, moe=cfg.moe is not None)
+                DecoderLayer(cfg, dtype, device, moe=cfg.moe is not None,
+                             cross=bool(cfg.encoder_layers))
                 for _ in range(cfg.num_layers - nd))
+        self.enc_stack = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+                                       for _ in range(cfg.encoder_layers))
+        self.enc_final_norm = (Norm(cfg, dtype, device) if cfg.encoder_layers
+                               else None)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
@@ -348,10 +355,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
 
     with torch.no_grad():
         normal(model.embed, 0.02)
-        norm(model.final_norm)
+        for n in (model.final_norm, model.enc_final_norm):
+            if n is not None:
+                norm(n)
         if model.head is not None:
             normal(model.head, 0.02)
-        for layer in [*model.prefix, *model.layers]:
+        for layer in [*model.prefix, *model.layers, *model.enc_stack]:
             for child in layer.children():
                 if isinstance(child, Norm):
                     norm(child)
@@ -362,6 +371,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
                 ssm_mod._init_rglru_(layer.rec, gen)
             else:
                 dense(layer.attn)
+            if getattr(layer, "cross", None) is not None:
+                dense(layer.cross)
             if layer.moe is not None:  # the experts have their own draws
                 moe_mod._init_moe_(layer.moe, gen)
             else:
@@ -387,17 +398,19 @@ def reference_leaves(params: Model
                      ) -> List[Tuple[str, List[str], Tuple[int, ...]]]:
     """The reference's parameter leaves: each leaf's path
     (``stack/attn/wq``, ``prefix/0/ln1/scale``, ``rec_stack/rec/lambda``,
-    ``embed``), the names of the port parameters it holds (one per layer,
-    in layer order, for a stacked leaf; one else) and its leading layer
-    shape (``(L,)``, ``(L // pat, pat)`` under a local/global pattern,
-    Griffin's ``(G, 2)``, ``(G,)`` and ``(tail,)``, ``()`` unstacked)."""
+    ``enc_stack/attn/wq``, ``embed``), the names of the port parameters it
+    holds (one per layer, in layer order, for a stacked leaf; one else)
+    and its leading layer shape (``(L,)``, ``(L // pat, pat)`` under a
+    local/global pattern, Griffin's ``(G, 2)``, ``(G,)`` and ``(tail,)``,
+    whisper's encoder ``(E,)``, ``()`` unstacked)."""
     cfg = params.cfg
     leads = _stack_leads(cfg, len(params.layers))
     leaves: Dict[str, Tuple[List[str], Tuple[int, ...]]] = {}
     for name, _ in params.named_parameters():
         head, *rest = name.split(".")
-        if head == "layers":
-            stack, _ = _stack_index(cfg, int(rest[0]))
+        if head in ("layers", "enc_stack"):
+            stack = (_stack_index(cfg, int(rest[0]))[0] if head == "layers"
+                     else head)
             path = "/".join([stack, *rest[1:]])
             leaves.setdefault(path, ([], leads[stack]))[0].append(name)
         else:
@@ -434,11 +447,27 @@ def _norm(cfg: ModelConfig, n: Norm, x):
     return apply_norm(x, n.scale, cfg.norm, cfg.norm_eps, bias=n.bias)
 
 
-def _embed(params: Model, tokens, cfg: ModelConfig):
-    h = params.embed[tokens.long()]
+def _embed(params: Model, tokens, cfg: ModelConfig, embeds=None):
+    """The input stream: ``embeds`` cast to the model's dtype (a frontend
+    stub's input, when the config takes embeddings and they are given),
+    else the token embeddings."""
+    if cfg.embeds_input and embeds is not None:
+        h = embeds.to(dtype_of(cfg.dtype))
+    else:
+        h = params.embed[tokens.long()]
     if cfg.scale_embeddings:
         h = h * math.sqrt(cfg.d_model)
     return h
+
+
+def _batch_input(params: Model, batch, cfg: ModelConfig):
+    """A prefill or train batch's input stream (B, S, D) and positions:
+    the batch's (3, B, S) ``positions`` under M-RoPE, else 0..S−1."""
+    h = _embed(params, batch.get("tokens"), cfg, batch.get("embeds"))
+    b, s, _ = h.shape
+    if cfg.rope_kind == "mrope":
+        return h, batch["positions"]
+    return h, torch.arange(s, device=h.device).expand(b, s)
 
 
 def _head_matrix(params: Model, cfg: ModelConfig):
@@ -460,8 +489,10 @@ def _masked_logits(h_last, params: Model, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _qkv(p: Attention, h, cfg: ModelConfig, positions):
-    """Projections (+ bias), heads split, RoPE.  h: (B, S, D)."""
+def _qkv(p: Attention, h, cfg: ModelConfig, positions, rope: bool = True):
+    """Projections (+ bias), heads split, RoPE (M-RoPE with positions (3,
+    B, S); none with ``rope=False`` or ``rope_kind="none"``).  h: (B, S,
+    D)."""
     b, s, _ = h.shape
     q, k, v = h @ p.wq, h @ p.wk, h @ p.wv
     if cfg.qkv_bias:
@@ -469,21 +500,50 @@ def _qkv(p: Attention, h, cfg: ModelConfig, positions):
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.rope_kind == "rope":
+    if rope and cfg.rope_kind == "mrope":
+        q, k = apply_mrope(q, k, positions, cfg.mrope_sections,
+                           theta=cfg.rope_theta)
+    elif rope and cfg.rope_kind == "rope":
         q, k = apply_rope(q, k, positions, theta=cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(p: Attention, h, cfg: ModelConfig, *, positions, window):
+def _attn_block(p: Attention, h, cfg: ModelConfig, *, positions, window,
+                causal: bool = True, rope: bool = True):
     """Full-sequence attention sub-block.  Returns (out, (k_rot, v)); the
     cache keeps the unrepeated kv heads."""
     b, s, _ = h.shape
-    q, k, v = _qkv(p, h, cfg, positions)
-    out = flash_attention(q, k, v, window=window,
+    q, k, v = _qkv(p, h, cfg, positions, rope)
+    out = flash_attention(q, k, v, causal=causal, window=window,
                           softcap=cfg.attn_softcap, scale=cfg.query_scale,
                           block_k=BLOCK_K)
     out = out.reshape(b, s, -1) @ p.wo
     return out.to(h.dtype), (k, v)
+
+
+def _cross_kv(p: Attention, enc_h, cfg: ModelConfig):
+    """Whisper's cross-attention keys and values from the encoder's output,
+    each (B, encoder_seq, H, dh)."""
+    b, se, _ = enc_h.shape
+    k, v = enc_h @ p.wk, enc_h @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return (k.reshape(b, se, cfg.num_heads, cfg.head_dim),
+            v.reshape(b, se, cfg.num_heads, cfg.head_dim))
+
+
+def _cross_attn_block(p: Attention, h, enc_kv, cfg: ModelConfig):
+    """Decoder → encoder cross attention: every query sees every encoder
+    position (non-causal, KV blocks of min(512, encoder_seq))."""
+    b, s, _ = h.shape
+    q = h @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k, v = enc_kv
+    out = flash_attention(q, k, v, causal=False,
+                          block_k=min(512, k.shape[1]))
+    return (out.reshape(b, s, -1) @ p.wo).to(h.dtype)
 
 
 def _mlp_block(p: MLP, h, cfg: ModelConfig):
@@ -523,10 +583,21 @@ def _residual(cfg: ModelConfig, layer: DecoderLayer, name: str, h, out):
     return h + out
 
 
-def _attn_half(layer: DecoderLayer, h, cfg: ModelConfig, positions, window):
-    """norm → attention (MLA or GQA) → residual.  Returns (h, the layer's
-    cache entries)."""
+def _attn_half(layer: DecoderLayer, h, cfg: ModelConfig, positions, window,
+               enc_h=None):
+    """norm → attention (MLA or GQA) → residual; whisper's decoder layer:
+    norm → causal self-attention → residual, norm → cross attention to
+    ``enc_h`` → residual, no positional signal.  Returns (h, the layer's
+    cache entries: whisper's ((k, v), (cross_k, cross_v)))."""
     hin = _norm(cfg, layer.ln1, h)
+    if layer.cross is not None:
+        out, kv = _attn_block(layer.attn, hin, cfg, positions=positions,
+                              window=None, rope=False)
+        h = h + out
+        ckv = _cross_kv(layer.cross, enc_h, cfg)
+        h = h + _cross_attn_block(layer.cross,
+                                  _norm(cfg, layer.ln_cross, h), ckv, cfg)
+        return h, (kv, ckv)
     if cfg.mla is not None:
         out, kv = _mla_block(layer.attn, hin, cfg, positions=positions)
     else:
@@ -561,7 +632,12 @@ def _cache_view(cache_t, i: int, pat: int):
 
 def _layer_entries(cfg: ModelConfig, cache: Dict):
     """Each attention layer's two cache tensors (views), prefix first, in
-    the order of ``[*params.prefix, *params.layers]``."""
+    the order of ``[*params.prefix, *params.layers]``; whisper's layer
+    ``i``: ((k, v), (cross_k, cross_v)) at row ``i``."""
+    if cfg.encoder_layers:
+        (k, v), (ck, cv) = cache["layers"]
+        return [((k[i], v[i]), (ck[i], cv[i]))
+                for i in range(cfg.num_layers)]
     pat = _pattern(cfg)
     first, second = cache["layers"]
     return list(cache.get("prefix", [])) + [
@@ -576,30 +652,64 @@ def _layer_windows(cfg: ModelConfig):
         windows[i % pat] for i in range(cfg.num_layers - _num_prefix(cfg))]
 
 
+def _fill(dst, src) -> None:
+    """Copy a layer's cache entries (tensors, or tuples of them) into the
+    cache's views."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for d, x in zip(dst, src, strict=True):
+        _fill(d, x)
+
+
+def _enc_layer(layer: DecoderLayer, h, *, cfg: ModelConfig):
+    """One whisper encoder layer: norm → non-causal self-attention →
+    residual, norm → MLP → residual; no positional signal."""
+    out, _ = _attn_block(layer.attn, _norm(cfg, layer.ln1, h), cfg,
+                         positions=None, window=None, causal=False,
+                         rope=False)
+    h = h + out
+    return h + _mlp_block(layer.mlp, _norm(cfg, layer.ln2, h), cfg)
+
+
+def _encode(params: Model, enc_embeds, cfg: ModelConfig):
+    """Whisper's encoder over the stubbed frontend's frame embeddings (B,
+    encoder_seq, D): each layer checkpointed under autograd when
+    ``cfg.remat`` is set (the reference checkpoints its scan body), then
+    ``enc_final_norm``."""
+    h = enc_embeds.to(dtype_of(cfg.dtype))
+    for layer in params.enc_stack:
+        h = (_remat(_enc_layer, layer, h, cfg=cfg) if cfg.remat
+             else _enc_layer(layer, h, cfg=cfg))
+    return _norm(cfg, params.enc_final_norm, h)
+
+
 @torch.no_grad()
 def prefill(params: Model, batch, cfg: ModelConfig):
     """Full-sequence pass building the decode cache.
 
-    batch: ``{"tokens": (B, S) int}``.
+    batch: ``{"tokens": (B, S) int}``; with ``cfg.embeds_input``
+    ``{"embeds": (B, S, D)}`` instead, and under M-RoPE ``"positions"``
+    (3, B, S) int; whisper also ``{"enc_embeds": (B, encoder_seq, D)}``.
     Returns (cache dict, last-token logits (B, PV) f32); an attention
-    model's cache is sized to the prompt, with ``pos = S - 1``; Griffin's
-    attention cache holds the last min(S, window) positions.
+    model's cache is sized to the prompt, with ``pos = S - 1`` (whisper's
+    cross part to the encoder's ``encoder_seq``); Griffin's attention
+    cache holds the last min(S, window) positions.
     """
-    _check_family(cfg)
-    h = _embed(params, batch["tokens"], cfg)
+    h, positions = _batch_input(params, batch, cfg)
     if cfg.ssm is not None:
         return _mamba_prefill(params, h, cfg)
-    b, s, _ = h.shape
-    positions = torch.arange(s, device=h.device).expand(b, s)
     if cfg.rglru is not None:
         return _griffin_prefill(params, h, cfg, positions)
+    enc_h = (_encode(params, batch["enc_embeds"], cfg)
+             if cfg.encoder_layers else None)
+    b, s, _ = h.shape
     cache = _new_cache(cfg, b, s, h.dtype, h.device, torch.empty)
     for layer, entry, window in zip([*params.prefix, *params.layers],
                                     _layer_entries(cfg, cache),
                                     _layer_windows(cfg)):
-        h, kv = _attn_half(layer, h, cfg, positions, window)
-        for dst, src in zip(entry, kv):
-            dst.copy_(src)
+        h, kv = _attn_half(layer, h, cfg, positions, window, enc_h)
+        _fill(entry, kv)
         h = _ffn_half(layer, h, cfg)[0]
     h = _norm(cfg, params.final_norm, h)
     cache["pos"] = s - 1
@@ -673,7 +783,13 @@ def _seq_axis(cfg: ModelConfig) -> int:
 def _new_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device,
                alloc):
     """An attention model's cache, its tensors made by ``alloc``
-    (``torch.zeros`` or ``torch.empty``)."""
+    (``torch.zeros`` or ``torch.empty``); whisper's cross part once, at
+    ``encoder_seq`` positions."""
+    if cfg.encoder_layers:
+        L, h, dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
+        return {"pos": 0, "layers": tuple(
+            tuple(alloc((L, batch, n, h, dh), dtype=dtype, device=device)
+                  for _ in range(2)) for n in (max_seq, cfg.encoder_seq))}
     if cfg.mla is not None:
         shapes = ((batch, max_seq, cfg.mla.kv_lora_rank),
                   (batch, max_seq, cfg.mla.qk_rope_dim))
@@ -694,8 +810,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict:
     """Zero decode cache (the SSM family's state is O(1): ``max_seq`` is
     unused there; Griffin's attention keeps a ring of min(``max_seq``,
-    ``local_window``) slots)."""
-    _check_family(cfg)
+    ``local_window``) slots; whisper's cross part holds ``encoder_seq``
+    positions, whatever ``max_seq``)."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     if cfg.rglru is not None:
@@ -738,22 +854,38 @@ def grow_cache(cfg: ModelConfig, cache: Dict, max_seq: int) -> Dict:
     """An attention cache (a prefill's, sized to its prompt) placed at the
     head of a zero cache of ``max_seq`` positions, so that decoding can go
     on past the prompt.  The position axis is the layout's
-    (:func:`_seq_axis`): an MLA tensor has one axis fewer than a GQA one."""
+    (:func:`_seq_axis`): an MLA tensor has one axis fewer than a GQA one.
+    Whisper's cross part has no decode positions: its tensors are kept."""
     axis = _seq_axis(cfg)
-    first = cache["layers"][0]
-    big = init_cache(cfg, first.shape[axis - 1], max_seq,
-                     device=first.device)
-    n = first.shape[axis]
-    for src, dst in zip(cache["layers"] + sum(cache.get("prefix", []), ()),
-                        big["layers"] + sum(big.get("prefix", []), ())):
-        dst.narrow(axis, 0, n).copy_(src)
-    big["pos"] = cache["pos"]
-    return big
+
+    def grow(kv):
+        out = []
+        for x in kv:
+            shape = list(x.shape)
+            shape[axis] = max_seq
+            big = x.new_zeros(shape)
+            big.narrow(axis, 0, x.shape[axis]).copy_(x)
+            out.append(big)
+        return tuple(out)
+
+    if cfg.encoder_layers:
+        self_kv, cross_kv = cache["layers"]
+        layers = (grow(self_kv), cross_kv)
+    else:
+        layers = grow(cache["layers"])
+    out = {"pos": cache["pos"], "layers": layers}
+    if "prefix" in cache:
+        out["prefix"] = [grow(kv) for kv in cache["prefix"]]
+    return out
 
 
 @torch.no_grad()
-def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
-    """One decode step.  tokens: (B, 1) int.
+def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig,
+                embeds=None):
+    """One decode step.  tokens: (B, 1) int, or, for a config that takes
+    embeddings, ``embeds`` (B, 1, D) (the token table when it is None).
+    Under M-RoPE the token's position is ``pos`` on all three streams, as
+    in the JAX package.
 
     Returns (logits (B, PV) f32, new cache).  The SSM family's is
     functional, as in the JAX package: the cache passed in is left as it
@@ -763,9 +895,8 @@ def decode_step(params: Model, cache: Dict, tokens, cfg: ModelConfig):
     functional cache: a copy would move the whole cache every step.
     Griffin's too, its rec states included.
     """
-    _check_family(cfg)
     pos = cache["pos"] + 1
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, embeds)
     if cfg.ssm is not None:
         h, layers = _mamba_decode_stack(params, h, cache["layers"], cfg)
         new = {"pos": pos, "layers": layers}
@@ -798,6 +929,14 @@ def _attn_decode_stack(params: Model, h, cache: Dict, cfg: ModelConfig,
                                     _layer_entries(cfg, cache),
                                     _layer_windows(cfg)):
         hin = _norm(cfg, layer.ln1, h)
+        if layer.cross is not None:  # whisper: self, then cross attention
+            self_kv, cross_kv = entry
+            h = h + _attn_decode_full(layer.attn, hin, self_kv, pos, cfg,
+                                      window=None)
+            out = _cross_decode(layer.cross, _norm(cfg, layer.ln_cross, h),
+                                cross_kv, cfg)
+            h = _ffn_half(layer, h + out, cfg)[0]
+            continue
         if cfg.mla is not None:
             out = _mla_decode(layer.attn, hin, entry, pos, cfg)
         else:
@@ -843,6 +982,18 @@ def _attn_decode_ring(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig):
     return (out.reshape(b, 1, -1) @ p.wo).to(h.dtype)
 
 
+def _cross_decode(p: Attention, h, cross_kv, cfg: ModelConfig):
+    """One token's cross attention against the cached encoder keys and
+    values: every encoder position valid (``cur_pos = encoder_seq − 1``)."""
+    b = h.shape[0]
+    q = (h @ p.wq).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    if cfg.qkv_bias:
+        q = q + p.bq.reshape(1, 1, cfg.num_heads, cfg.head_dim)
+    ck, cv = cross_kv
+    out = decode_attention(q, ck, cv, cur_pos=ck.shape[1] - 1)
+    return (out.reshape(b, 1, -1) @ p.wo).to(h.dtype)
+
+
 def _cache_slot(pos: int, size: int) -> int:
     """The slot a decode at ``pos`` writes: ``pos`` clamped into the
     cache, as the JAX package's ``lax.dynamic_update_slice`` clamps its
@@ -884,10 +1035,12 @@ def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
     ``pos >= S`` overwrites slot ``S - 1``, while the mask, at
     ``cur_pos = pos``, takes every slot as valid.  The port keeps that
     quirk of the reference (its serving runs into it: one cache of
-    ``max_seq`` 128 for every slot of a replica).
+    ``max_seq`` 128 for every slot of a replica).  Under M-RoPE the token
+    takes ``pos`` on all three position streams, as the reference.
     """
     b = h.shape[0]
-    posv = torch.full((b, 1), pos, device=h.device)
+    posv = torch.full((3, b, 1) if cfg.rope_kind == "mrope" else (b, 1),
+                      pos, device=h.device)
     q, k, v = _qkv(p, h, cfg, posv)
     kc, vc = kv_cache
     slot = _cache_slot(pos, kc.shape[1])
@@ -905,9 +1058,8 @@ def _attn_decode_full(p: Attention, h, kv_cache, pos: int, cfg: ModelConfig,
 
 
 def _check_train(cfg: ModelConfig) -> None:
-    """The dense, MoE and Griffin families train; the SSM family raises,
-    with why."""
-    _check_family(cfg)
+    """The dense, MoE, Griffin and frontend-stub families train; the SSM
+    family raises, with why."""
     if cfg.ssm is not None:
         raise NotImplementedError(
             f"{cfg.name}: SSM training is not ported: its layers run the SSD "
@@ -926,10 +1078,11 @@ def _remat(fn, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
-def _train_layer(layer: DecoderLayer, h, positions, hot_row, *,
+def _train_layer(layer: DecoderLayer, h, positions, hot_row, enc_h=None, *,
                  cfg: ModelConfig, window):
-    """One decoder layer: (h, new hotness row, aux loss)."""
-    h, _ = _attn_half(layer, h, cfg, positions, window)
+    """One decoder layer (whisper's with its cross attention to
+    ``enc_h``): (h, new hotness row, aux loss)."""
+    h, _ = _attn_half(layer, h, cfg, positions, window, enc_h)
     return _ffn_half(layer, h, cfg, hot_row)
 
 
@@ -960,13 +1113,14 @@ def _griffin_train_stack(params: Model, h, cfg: ModelConfig, positions):
     return _train_group(layers[3 * n_groups:], h, positions, cfg=cfg)
 
 
-def _train_stack(params: Model, h, cfg: ModelConfig, positions, hotness):
+def _train_stack(params: Model, h, cfg: ModelConfig, positions, hotness,
+                 enc_h=None):
     """The prefix layers, then the stack, each checkpointed when
     ``cfg.remat`` is set (the reference checkpoints each scan step: a layer,
     or a pattern group; Griffin's: :func:`_griffin_train_stack`).  MoE
     layer ``i`` takes hotness row ``i``; the aux losses are summed in layer
-    order.  Returns (h, the new hotness (L − nd, E) or ``None`` without
-    hotness, aux)."""
+    order; whisper's layers read the encoder's output ``enc_h``.  Returns
+    (h, the new hotness (L − nd, E) or ``None`` without hotness, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.rglru is not None:
         return _griffin_train_stack(params, h, cfg, positions), None, aux
@@ -977,10 +1131,10 @@ def _train_stack(params: Model, h, cfg: ModelConfig, positions, hotness):
     for layer, window, hot in zip(layers, _layer_windows(cfg), hot_rows):
         if cfg.remat:
             h, new_hot, a = _remat(_train_layer, layer, h, positions, hot,
-                                   cfg=cfg, window=window)
+                                   enc_h, cfg=cfg, window=window)
         else:
-            h, new_hot, a = _train_layer(layer, h, positions, hot, cfg=cfg,
-                                         window=window)
+            h, new_hot, a = _train_layer(layer, h, positions, hot, enc_h,
+                                         cfg=cfg, window=window)
         if a is not None:
             aux = aux + a
         if hot is not None:
@@ -1023,7 +1177,9 @@ def _lm_loss(params: Model, h, labels, cfg: ModelConfig, *,
 
 def forward_train(params: Model, batch, cfg: ModelConfig, hotness=None):
     """The training loss: ``batch`` holds ``tokens`` and ``labels``, (B, S)
-    int (labels < 0 are ignored); ``hotness`` is the MoE layers' carried
+    int (labels < 0 are ignored), and the frontend stubs' inputs as
+    :func:`prefill` takes them (``embeds`` in place of ``tokens``,
+    ``positions``, ``enc_embeds``); ``hotness`` is the MoE layers' carried
     FISH hotness, (L − nd, E) float32, or ``None`` (MoE layers then route
     from zero hotness and no new hotness is returned).
 
@@ -1032,11 +1188,10 @@ def forward_train(params: Model, batch, cfg: ModelConfig, hotness=None):
     requires one (``params.requires_grad_(True)``); the hotness carries
     none.  An SSM config raises ``NotImplementedError``."""
     _check_train(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    h = _embed(params, tokens, cfg)
-    h, new_hot, aux = _train_stack(params, h, cfg, positions, hotness)
+    h, positions = _batch_input(params, batch, cfg)
+    enc_h = (_encode(params, batch["enc_embeds"], cfg)
+             if cfg.encoder_layers else None)
+    h, new_hot, aux = _train_stack(params, h, cfg, positions, hotness, enc_h)
     h = _norm(cfg, params.final_norm, h)
     loss = _lm_loss(params, h, batch["labels"], cfg)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux,

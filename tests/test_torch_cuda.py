@@ -1119,3 +1119,84 @@ def test_cuda_griffin_model_matches_host():
     for (name, _), a, b in zip(host.named_parameters(), grads, w_grads):
         assert float((a - b).abs().max()) <= 1e-4 * max(
             float(b.abs().max()), 1e-30), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,sections", [("whisper-large-v3", None),
+                                           ("qwen2-vl-2b", None),
+                                           ("qwen2-vl-2b", (4, 6, 6))])
+def test_cuda_frontends_match_host(arch, sections):
+    """The frontend stubs have no kernel of their own: whisper (encoder,
+    cross attention) and qwen2-vl (embedding input, M-RoPE; with sections
+    (4, 6, 6) all three streams act at the reduced head_dim 32) as plain
+    tensor ops on the card against the host, one set of float32 weights
+    (reduced config).  A prefill of 2 x 16, 8 decode steps (qwen2-vl by
+    embedding and by token in turn), logits within 1e-4 and the caches
+    within 1e-5; one ``forward_train``, the loss within 1e-5 and every
+    gradient within 1e-4 of its parameter's largest gradient — a whisper
+    key bias's, zero in exact arithmetic (the softmax takes a constant
+    out), within 1e-4 of its query bias's (``tests/
+    test_torch_frontends.py``'s bounds)."""
+    dev = _card()
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    if sections is not None:
+        cfg = dataclasses.replace(cfg, mrope_sections=sections)
+    host = PT.init_params(cfg, seed=0, device="cpu")
+    with torch.no_grad():  # biases and norm weights off their init
+        g = torch.Generator().manual_seed(1)
+        for p in host.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    rng = np.random.default_rng(1)
+    s, steps, d = 16, 8, cfg.d_model
+    batch = {"labels": T(rng.integers(0, cfg.vocab_size, (2, s)).astype(
+        np.int32))}
+    if cfg.embeds_input:
+        batch["embeds"] = T(rng.standard_normal((2, s, d)).astype(np.float32))
+        batch["positions"] = T(torch_helpers.mrope_positions([3, 5], 2, 3,
+                                                             s))
+    else:
+        batch["tokens"] = T(rng.integers(0, cfg.vocab_size, (2, s)).astype(
+            np.int32))
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = T(rng.standard_normal(
+            (2, cfg.encoder_seq, d)).astype(np.float32))
+    toks = T(rng.integers(0, cfg.vocab_size, (2, steps)).astype(np.int32))
+    embs = T(rng.standard_normal((2, steps, d)).astype(np.float32))
+    runs = []
+    for where, params in ((dev, copy.deepcopy(host).to(dev)), ("cpu", host)):
+        b = {k: x.to(where) for k, x in batch.items()}
+        cache, lg = PT.prefill(params, b, cfg)
+        cache = PT.grow_cache(cfg, cache, s + steps)
+        out = [lg]
+        for i in range(steps):
+            emb = (embs[:, i:i + 1].to(where)
+                   if cfg.embeds_input and i % 2 == 0 else None)
+            lg, cache = PT.decode_step(params, cache,
+                                       toks[:, i:i + 1].to(where), cfg,
+                                       embeds=emb)
+            out.append(lg)
+        leaves = [x for kv in cache["layers"] for x in (
+            kv if isinstance(kv, tuple) else (kv,))]
+        params.requires_grad_(True)
+        loss, _ = PT.forward_train(params, b, cfg)
+        grads = torch.autograd.grad(loss, list(params.parameters()),
+                                    materialize_grads=True)
+        params.requires_grad_(False)
+        runs.append(([x[:, :cfg.vocab_size].cpu() for x in out],
+                     [x.cpu() for x in leaves], float(loss.detach()),
+                     {n: gr.cpu() for (n, _), gr in
+                      zip(params.named_parameters(), grads)}))
+    (logits, leaves, loss, grads), (w_logits, w_leaves, w_loss, w_grads) = \
+        runs
+    for a, b in zip(logits, w_logits, strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(leaves, w_leaves, strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert abs(loss - w_loss) <= 1e-5 * abs(w_loss)
+    for name, b in w_grads.items():
+        zero = cfg.rope_kind == "none" and name.endswith(".bk")
+        scale = w_grads[name[:-1] + "q"] if zero else b
+        bound = 1e-4 * max(float(scale.abs().max()), 1e-30)
+        assert float((grads[name] - b).abs().max()) <= bound, name

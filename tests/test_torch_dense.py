@@ -26,6 +26,7 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced_config as ref_reduced
+from repro.launch import serve as ref_serve
 from repro.models import attention as RA
 from repro.models import transformer as RT
 from repro_torch import convert
@@ -262,16 +263,21 @@ def test_serve_runs_the_reduced_dense_model_on_the_cpu():
         assert all(torch.isfinite(t).all() for t in r.cache["layers"])
 
 
-def test_unported_families_raise_with_the_reason():
-    for arch, why in (("whisper-large-v3", "encoder-decoder"),
-                      ("qwen2-vl-2b", "embedding input")):
-        cfg = ref_reduced(ref_get_config(arch))
-        with pytest.raises(NotImplementedError, match=why):
-            PT.Model(cfg, device="meta")
-    mrope = dataclasses.replace(reduced_config(get_config("qwen1.5-0.5b")),
-                                rope_kind="mrope")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        PT.init_cache(mrope, 1, 4, device="cpu")
+def test_unported_families_raise_with_the_reason(monkeypatch):
+    """The frontend-stub archs run in the model (``tests/
+    test_torch_frontends.py``), but the serving driver refuses them, at
+    the reduced and the published widths, as the reference's ``main``
+    does, with its words: it drives token-input decoders only."""
+    for arch in ("whisper-large-v3", "qwen2-vl-2b"):
+        monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
+        with pytest.raises(SystemExit) as ref:
+            ref_serve.main()
+        assert str(ref.value).startswith(f"{arch}: serving driver supports "
+                                         "token-input decoders")
+        for full in ([], ["--full"]):
+            with pytest.raises(SystemExit) as port:
+                pserve.main(["--arch", arch, "--device", "cpu", *full])
+            assert str(port.value) == str(ref.value)
 
 
 TRAINING_MODULES = (
@@ -280,18 +286,21 @@ TRAINING_MODULES = (
     "repro_torch.launch.steps", "repro_torch.launch.train",
     "repro_torch.convert", "repro_torch.runtime.stragglers",
     "repro_torch.runtime.elastic", "repro_torch.runtime.fault")
+FRONTEND_MODULES = ("repro_torch.configs.whisper_large_v3",
+                    "repro_torch.configs.qwen2_vl_2b")
 
 
 def test_the_port_imports_neither_jax_nor_the_reference():
-    """Every module of ``repro_torch``, the training path's among them,
-    imported in a fresh interpreter."""
+    """Every module of ``repro_torch``, the training path's and the
+    frontend-stub configs among them, imported in a fresh interpreter."""
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.') if not m.name.endswith('__main__')]\n"
         # named too: the training path, and the runtime modules (no
         # __init__.py there, so the walk does not list them)
-        f"for m in mods + list({TRAINING_MODULES!r}):\n"
+        f"assert set({FRONTEND_MODULES!r}) <= set(mods), mods\n"
+        f"for m in mods + list({TRAINING_MODULES + FRONTEND_MODULES!r}):\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

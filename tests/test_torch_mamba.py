@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
+from repro.configs import list_archs as ref_list_archs
 from repro.configs import reduced_config as ref_reduced
 from repro.models import transformer as RT
 from repro.serving.engine import Request as RefRequest
@@ -102,11 +103,14 @@ def test_prefill_then_decode_continues_the_prefill():
     np.testing.assert_allclose(step[0, :cfg.vocab_size].float().numpy(),
                                full[0, :cfg.vocab_size].float().numpy(),
                                rtol=0.08, atol=0.35)
+    # every arch of the JAX package's registry, in its order
     assert list_archs() == ["mamba2-780m", "qwen1.5-0.5b", "starcoder2-3b",
-                            "olmo-1b", "gemma2-2b", "kimi-k2-1t-a32b",
-                            "deepseek-v2-lite-16b", "recurrentgemma-9b"]
+                            "olmo-1b", "gemma2-2b", "recurrentgemma-9b",
+                            "kimi-k2-1t-a32b", "deepseek-v2-lite-16b",
+                            "qwen2-vl-2b", "whisper-large-v3"]
+    assert list_archs() == ref_list_archs()
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("whisper-large-v3")
+        get_config("no-such-arch")
 
 
 def _requests(mk, n=48, seed=3):

@@ -102,3 +102,23 @@ def overfull_pane(case, where):
         ones = torch.ones(cap // 2 + 1, dtype=torch.int32, device=d)
         keys_t, vc = ff.pane_from_entries(pairs, ones, ones, cap)
     ff.pane_canonical(keys_t, vc)
+
+
+def mrope_positions(text0, grid_h, grid_w, s):
+    """Qwen2-VL's (3, B, S) position ids (arXiv:2409.12191 §2.1), one row
+    per entry of ``text0``: a text prefix of ``text0[r]`` tokens on equal
+    streams, one image of grid_h x grid_w merged patches at one temporal
+    index (height and width offsets from the prefix), then text from the
+    largest position + 1 up to S."""
+    rows = []
+    for t0 in text0:
+        hh, ww = np.meshgrid(np.arange(grid_h), np.arange(grid_w),
+                             indexing="ij")
+        img = np.stack([np.zeros(grid_h * grid_w, np.int64), hh.ravel(),
+                        ww.ravel()]) + t0
+        n1 = s - t0 - grid_h * grid_w
+        rows.append(np.concatenate([
+            np.broadcast_to(np.arange(t0), (3, t0)), img,
+            np.broadcast_to(int(img.max()) + 1 + np.arange(n1), (3, n1))],
+            axis=1))
+    return np.stack(rows, axis=1).astype(np.int32)
