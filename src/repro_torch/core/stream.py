@@ -63,6 +63,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..obs.trace import NULL_TRACER
 from .baselines import Grouper
 
 __all__ = [
@@ -632,10 +633,13 @@ def _edge_fused(grouper, keys_arr, times, capacities, arrival_rate,
     capacity-sample points are *not* cuts (the sample snapshots are taken
     from the host-authoritative capacities after the covering segment,
     preserving the batched engine's exact rng draw sequence), so a
-    steady-state feed with aligned panes is a single dispatch."""
+    steady-state feed with aligned panes is a single dispatch.  The whole
+    call is the span ``edge.fused``."""
     from ..kernels.feed_fused import FusedEdgeRunner
 
     n = keys_arr.shape[0]
+    tracer = telemetry.tracer if telemetry is not None else NULL_TRACER
+    edge_span = tracer.span("edge.fused", cat="edge", n=n)
     mem_ev, cap_ev = _split_events(events, n)
     if state is None:
         state = _setup(grouper, capacities, arrival_rate, mem_ev, cap_ev,
@@ -725,6 +729,7 @@ def _edge_fused(grouper, keys_arr, times, capacities, arrival_rate,
     if compute_metrics:
         runner.host_sync(grouper)
         metrics = edge_metrics(grouper, state.busy_until, latencies, n)
+    edge_span.done()
     return EdgeResult(metrics, finishes, latencies, state,
                       dispatches=runner.dispatches)
 

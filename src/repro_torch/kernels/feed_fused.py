@@ -1212,6 +1212,7 @@ class FusedEdgeRunner:
         self._repl_dirty = True
 
         # small per-worker vectors ride back after the segment
+        self._wait("fused.segment.wait")
         with tracer.span("fused.segment.readback", cat="fused"):
             state.busy_until[:] = self._base + busy_d.cpu().numpy()[:w1 - 1]
             grouper.assigned_counts[:] = counts_base + counts_d.cpu().numpy(
@@ -1299,6 +1300,17 @@ class FusedEdgeRunner:
             crossed=int(self._fish_epochs_crossed), hot_set=len(hot))
 
     # -- host sync points ---------------------------------------------------
+    def _wait(self, name: str) -> None:
+        """Traced runs only: the span ``name`` around a synchronize of the
+        current stream, so the copies after it time the copies alone and
+        the host's wait for the card is its own span.  Untraced, nothing:
+        the copies wait as they always did."""
+        tracer = self.tel.tracer
+        if tracer.enabled:
+            with tracer.span(name, cat="fused"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+
     def flush_pane(self, sink) -> None:
         """Sync the open device pane into the host KeyedStateManager and
         mark it empty (``merge_entries`` accumulates, so the pane can keep
@@ -1314,6 +1326,7 @@ class FusedEdgeRunner:
         # ascending; only the entries cross to the host (padding lanes
         # never enter the table)
         pairs_d, vc_d = pane_canonical(self.pane_keys, self.pane_vc)
+        self._wait("fused.pane_flush.wait")
         pairs = pairs_d.cpu().numpy()
         vc = vc_d.cpu().numpy().astype(np.int64)
         last = self.pane_last.cpu().numpy()

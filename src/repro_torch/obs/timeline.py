@@ -3,8 +3,12 @@
 A timeline *point* is ``(wall_time, engine_clock, feed_idx, epoch_idx,
 value)``:
 
-* ``wall_time`` — monotonic seconds since trace start (host reality:
-  what Perfetto plots on its x axis);
+* ``wall_time`` — seconds since trace start (host reality: what
+  Perfetto plots on its x axis).  In a :class:`~.telemetry.Telemetry`
+  bundle the timeline reads the tracer's clock (monotonic, on the
+  profiler's Unix-epoch axis) and the bundle sets its ``t0`` to the
+  tracer's, so points and spans share one axis; a standalone timeline
+  counts from the ``clock()`` reading it takes when built;
 * ``engine_clock`` — the engine's own notion of time: *seconds* on the
   DSPE simulator, *scheduler ticks* on the serving engine (DESIGN.md §14
   clock domains).  The two are deliberately not interconvertible;

@@ -1,15 +1,18 @@
 """Span tracer: wall-clock intervals + instant events, Perfetto-shaped.
 
-Spans are recorded against a monotonic clock (``time.perf_counter`` by
-default) anchored to one wall-clock instant at tracer construction, so
-span timestamps are drift-free within a run and still carry an absolute
-start.  Both clocks are injected (:data:`MONOTONIC_CLOCK`,
-:data:`WALL_CLOCK`): this module and :mod:`.timeline` are the only places
-that stamp wall time, and a test can pass a fake clock to make traces
-reproducible.  The disabled path is a pair of
-shared singletons (:data:`NULL_TRACER` handing out :data:`NULL_SPAN`):
-no allocation, no clock read, no list append — the overhead contract in
-DESIGN.md §14.
+Spans are stamped in seconds on the Unix-epoch axis, the axis on which
+``torch.profiler`` (kineto) stamps its host ranges and device events, so
+the port's spans can be laid over a profiler trace of the same run and a
+device idle gap put down to the span open at the time.  The default
+clock (:func:`epoch_clock`) stays monotonic and drift-free within a run:
+``time.perf_counter`` plus one offset to ``time.time``, read once when
+each :class:`Tracer` is built.  Both clocks are injected (the interval
+clock and :data:`WALL_CLOCK` for the trace's absolute start): this
+module and :mod:`.timeline` are the only places that stamp wall time,
+and a test can pass a fake clock to make traces reproducible.  The
+disabled path is a pair of shared singletons (:data:`NULL_TRACER`
+handing out :data:`NULL_SPAN`): no allocation, no clock read, no list
+append — the overhead contract in DESIGN.md §14.
 """
 
 from __future__ import annotations
@@ -18,12 +21,23 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER", "NULL_SPAN",
-           "MONOTONIC_CLOCK", "WALL_CLOCK"]
+           "MONOTONIC_CLOCK", "WALL_CLOCK", "epoch_clock"]
 
 #: The stamp sources: monotonic seconds for intervals, epoch seconds for
 #: the trace's absolute start.
 MONOTONIC_CLOCK = time.perf_counter
 WALL_CLOCK = time.time
+
+
+def epoch_clock():
+    """A monotonic clock in Unix-epoch seconds: ``perf_counter()`` plus
+    the offset ``time() - perf_counter()`` read once, here.  Instants
+    land within a millisecond of the profiler's epoch stamps.  A float64
+    near 1.8e9 s resolves about 0.24 us, so a stamp (and a span's
+    length) is rounded to that, coarser than ``perf_counter`` alone."""
+    mono = MONOTONIC_CLOCK
+    offset = WALL_CLOCK() - mono()
+    return lambda: mono() + offset
 
 
 class Span:
@@ -62,9 +76,12 @@ class Span:
 
 
 class Tracer:
-    """Collects :class:`Span`s and instant events in memory."""
+    """Collects :class:`Span`s and instant events in memory.  ``clock``
+    defaults to a fresh :func:`epoch_clock`."""
 
-    def __init__(self, clock=MONOTONIC_CLOCK, wall_clock=WALL_CLOCK) -> None:
+    def __init__(self, clock=None, wall_clock=WALL_CLOCK) -> None:
+        if clock is None:
+            clock = epoch_clock()
         self.clock = clock
         self.t0 = clock()
         self.wall0 = wall_clock()
@@ -82,7 +99,7 @@ class Tracer:
         self.instants.append((self.clock(), name, cat, args or None))
 
     def rel_us(self, t: float) -> float:
-        """Monotonic instant → microseconds since trace start."""
+        """Clock instant → microseconds since trace start."""
         return (t - self.t0) * 1e6
 
 

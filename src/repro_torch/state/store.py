@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..obs.trace import NULL_TRACER
 
 __all__ = [
     "ENTRY_BYTES",
@@ -396,7 +397,7 @@ class DeviceStateStore:
         return torch.from_numpy(arr.astype(np.int32)).to(self.device)
 
     @staticmethod
-    def merge_many(stores, chunks) -> None:
+    def merge_many(stores, chunks, tracer=NULL_TRACER) -> None:
         """Fold one reduced chunk into each of ``stores`` — a whole pane
         sync — with one packed upload and one probe launch.
 
@@ -409,8 +410,12 @@ class DeviceStateStore:
         columns, the chunks' keys, values and counts, and the kernel's pair
         description to the device, and one ``store_probe_grouped`` launch
         adds both columns of every merge into the young generation.  The
-        new tables and young columns are views into that one allocation."""
+        new tables and young columns are views into that one allocation.
+        ``tracer`` times the call (span ``state.merge_many``) and the
+        packed upload (``state.merge_many.upload``)."""
         from ..kernels.store_probe import grouped_meta, store_probe_grouped
+
+        span = tracer.span("state.merge_many", cat="state", stores=len(stores))
 
         lim = 2 ** 31 - 1
         work = []  # (store, keys, values, counts, new table or None)
@@ -446,6 +451,7 @@ class DeviceStateStore:
                 union = np.sort(np.concatenate([hk, uniq[~present]]))
             work.append((st, uniq, vsum, csum, union))
         if not work:
+            span.done()
             return
         device = work[0][0].device
         if any(w[0].device != device for w in work):
@@ -495,7 +501,9 @@ class DeviceStateStore:
         cout = [w[0]._c for w in work]
         host[at_meta:] = grouped_meta(tables, offsets, vout,
                                       cout).view(np.int32)
-        buf.copy_(torch.from_numpy(host))
+        with tracer.span("state.merge_many.upload", cat="state",
+                         bytes=host.nbytes):
+            buf.copy_(torch.from_numpy(host))
         # a warm store that met unseen keys carries its young columns over
         for tab, nv, nc, old_tab, old_v, old_c in rebuilt:
             idx = torch.searchsorted(tab, old_tab)
@@ -503,6 +511,7 @@ class DeviceStateStore:
             nc[idx] = old_c
         store_probe_grouped(tables, keys_d, vals_d, cnts_d, offsets, vout,
                             cout, meta=buf[at_meta:].view(torch.int64))
+        span.done()
 
     def _young(self):
         """The young generation read back as host int64 columns."""

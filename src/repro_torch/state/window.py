@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs.trace import NULL_TRACER
 from .migration import MigrationStats, apply_membership_change
 from .store import ENTRY_BYTES, STORE_BACKENDS, DeviceStateStore, make_store
 
@@ -201,11 +202,16 @@ class KeyedStateManager:
     at pane ``p`` has flushed, no later window needs ``p`` and the pane is
     dropped — so a pane is retained for exactly ``size`` tuples, the same
     horizon the per-window layout had.
+
+    ``tracer`` (the session's, else the null tracer) times the fused
+    engine's entry: spans ``state.feed_aggregated``,
+    ``state.flush_windows`` and ``state.merge_many``.
     """
 
-    def __init__(self, op: WindowOp, device=None):
+    def __init__(self, op: WindowOp, device=None, tracer=NULL_TRACER):
         self.op = op
         self.device = device  # where "device"-backend stores live
+        self.tracer = tracer
         self.idx = 0  # next input tuple index
         self.partials: List[WindowPartial] = []
         self.migration = MigrationStats()
@@ -270,9 +276,10 @@ class KeyedStateManager:
     def _flush_ready(self) -> None:
         """Flush every window whose end has passed (in start order)."""
         if self._next_window + self.op.size <= self.idx:
-            self._note_bytes()
-            while self._next_window + self.op.size <= self.idx:
-                self._flush_window(self._next_window)
+            with self.tracer.span("state.flush_windows", cat="state"):
+                self._note_bytes()
+                while self._next_window + self.op.size <= self.idx:
+                    self._flush_window(self._next_window)
 
     # -- stream input -------------------------------------------------------------
     def feed(self, keys, workers, values=None) -> None:
@@ -322,7 +329,8 @@ class KeyedStateManager:
                 if last > pane.last_idx.get(w, -1):
                     pane.last_idx[w] = last
             if device_stores:
-                DeviceStateStore.merge_many(device_stores, device_chunks)
+                DeviceStateStore.merge_many(device_stores, device_chunks,
+                                            tracer=self.tracer)
             self.idx += take
             pos += take
 
@@ -343,6 +351,8 @@ class KeyedStateManager:
             raise RuntimeError("KeyedStateManager already finalized")
         if n_tuples == 0:
             return
+        span = self.tracer.span("state.feed_aggregated", cat="state",
+                                n=n_tuples, entries=len(entries))
         self._flush_ready()
         stride = self.op.stride
         block = (self.idx // stride) * stride
@@ -374,8 +384,10 @@ class KeyedStateManager:
             if last > pane.last_idx.get(w, -1):
                 pane.last_idx[w] = int(last)
         if device_stores:
-            DeviceStateStore.merge_many(device_stores, device_chunks)
+            DeviceStateStore.merge_many(device_stores, device_chunks,
+                                        tracer=self.tracer)
         self.idx += n_tuples
+        span.done()
 
     def _seen_count(self) -> int:
         """Distinct state keys seen.  Bulk (fused) inputs defer the set

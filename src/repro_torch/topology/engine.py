@@ -41,6 +41,7 @@ import numpy as np
 from ..core.stream import (CapacityEvent, MembershipEvent, edge_metrics,
                            simulate_edge)
 from ..obs.telemetry import get_telemetry
+from ..obs.trace import NULL_TRACER
 from ..state.migration import MigrationBiller
 from ..state.window import KeyedStateManager, StateReport
 from .configs import build_grouper
@@ -275,6 +276,16 @@ def _run_via_session(engine, topology: Topology, source: Source,
     return session.close()
 
 
+def _open_session(cls, engine, topology: Topology, telemetry, **kw):
+    """A new ``cls`` session inside the span ``session.open``, on the
+    telemetry bundle the session will use."""
+    tel = (telemetry if telemetry is not None
+           else get_telemetry().for_session())
+    with tel.tracer.span("session.open", cat="session",
+                         topology=topology.name):
+        return cls(engine, topology, telemetry=tel, **kw)
+
+
 class _BaseSession:
     """Shared session mechanics — event registration, feed validation and
     close-time report assembly; everything engine-specific (how a feed
@@ -356,7 +367,9 @@ class _BaseSession:
         self._close_pump(state)
         reports = [self._edge_report(e) for e in self._edges]
         lats = np.concatenate(self._e2e) if self._e2e else np.empty(0)
-        avg, p50, p95, p99 = _percentiles(lats)
+        with self.telemetry.tracer.span("session.percentiles",
+                                        cat="session", n=lats.shape[0]):
+            avg, p50, p95, p99 = _percentiles(lats)
         self._report = TopologyReport(
             engine=self.engine.name, topology=self.topology.name,
             n_source_tuples=self._n_source, total_time=self._total_time,
@@ -377,6 +390,15 @@ class _BaseSession:
         return self._report
 
     # -- shared internals ------------------------------------------------------
+    def _close_state(self, st) -> None:
+        """Stream end of an operator stage: flush its open windows and
+        build its state report (``merge_partials`` included)."""
+        tracer = self.telemetry.tracer
+        with tracer.span("state.finalize", cat="state"):
+            st.mgr.finalize()
+        with tracer.span("state.report", cat="state"):
+            st.srep = st.mgr.report(st.stage.name)
+
     def _check_open(self) -> None:
         if self._report is not None:
             raise RuntimeError("session is closed")
@@ -573,9 +595,9 @@ def _fish_epoch_observer(telemetry, grouper):
     return on_epoch
 
 
-def _stage_manager(stage: Stage,
-                   device=None) -> Optional[KeyedStateManager]:
-    return (KeyedStateManager(stage.operator, device=device)
+def _stage_manager(stage: Stage, device=None,
+                   tracer=NULL_TRACER) -> Optional[KeyedStateManager]:
+    return (KeyedStateManager(stage.operator, device=device, tracer=tracer)
             if stage.operator is not None else None)
 
 
@@ -672,8 +694,8 @@ class SimulatorEngine:
         ``telemetry`` is an explicit :class:`repro_torch.obs.Telemetry` bundle
         (default: the process one — a no-op unless ``repro_torch.obs.enable()``
         was called)."""
-        return SimulatorSession(self, topology, arrival_rate=arrival_rate,
-                                telemetry=telemetry)
+        return _open_session(SimulatorSession, self, topology, telemetry,
+                             arrival_rate=arrival_rate)
 
     def run(self, topology: Topology, source: Source,
             events: Sequence[ScopedEvent] = ()) -> TopologyReport:
@@ -806,8 +828,7 @@ class SimulatorSession(_BaseSession):
                     # (possibly partial) window reaches the manager before
                     # finalize() flushes it
                     dev.flush_pane(st.mgr)
-                st.mgr.finalize()
-                st.srep = st.mgr.report(st.stage.name)
+                self._close_state(st)
                 state[st.stage.name] = st.srep.summary()
                 if st.stage.name not in self._sinks:
                     rest = st.mgr.partials[st.emitted:]
@@ -835,7 +856,8 @@ class SimulatorSession(_BaseSession):
             # the grouper gets no oracle capacities: capacity-aware schemes
             # must *discover* the true P_w through the periodic (noisy)
             # sampling hook, exactly like the legacy single-hop engine
-            mgr0 = _stage_manager(stage, eng.device)
+            mgr0 = _stage_manager(stage, eng.device,
+                                  self.telemetry.tracer)
             biller = None
             if mgr0 is not None and (eng.migration_cost_per_byte
                                      or eng.migration_cost_per_replay):
@@ -934,7 +956,10 @@ class SimulatorSession(_BaseSession):
             # memory_overhead needs them on the host grouper
             dev.host_sync(st.grouper)
         lats = np.concatenate(st.lats) if st.lats else np.empty(0)
-        metrics = edge_metrics(st.grouper, st.state.busy_until, lats, st.n)
+        with self.telemetry.tracer.span("session.edge_metrics",
+                                        cat="session", edge=edge.name):
+            metrics = edge_metrics(st.grouper, st.state.busy_until, lats,
+                                   st.n)
         return EdgeReport(edge=edge.name, src=edge.src, dst=edge.dst,
                           scheme=edge.grouping.scheme,
                           workers=stage.parallelism, n_tuples=st.n,
@@ -1021,7 +1046,7 @@ class ServingTopologyEngine:
         """Open an incremental streaming session on the serving engine
         (``arrival_rate`` is accepted for protocol symmetry; serving time
         is scheduler ticks, paced by the topology bottleneck)."""
-        return ServingSession(self, topology, telemetry=telemetry)
+        return _open_session(ServingSession, self, topology, telemetry)
 
     def run(self, topology: Topology, source: Source,
             events: Sequence[ScopedEvent] = ()) -> TopologyReport:
@@ -1215,8 +1240,7 @@ class ServingSession(_BaseSession):
                 continue
             st = self._st.get(edge.name)
             if st is not None and st.mgr is not None:
-                st.mgr.finalize()
-                st.srep = st.mgr.report(st.stage.name)
+                self._close_state(st)
                 state[st.stage.name] = st.srep.summary()
                 if st.stage.name not in self._sinks:
                     rest = st.mgr.partials[st.emitted:]
@@ -1239,7 +1263,7 @@ class ServingSession(_BaseSession):
         if st is None:
             caps = stage.worker_capacities(1.0)  # relative speeds only
             speeds = (1.0 / caps) / (1.0 / caps).mean()
-            mgr0 = _stage_manager(stage)
+            mgr0 = _stage_manager(stage, tracer=self.telemetry.tracer)
             biller = None
             if mgr0 is not None and (cfg.migration_ticks_per_byte
                                      or cfg.migration_ticks_per_replay):

@@ -1,0 +1,123 @@
+"""The port's spans on the CPU: their clock against ``torch.profiler``'s,
+the spans of a fused session (its open, the edge driver, runner waits,
+the state layer's flush, the close), and the disabled path.
+
+The fused runner runs on ``device="cpu"`` (the kernels' plain versions).
+"""
+
+import collections
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.topology as PT
+from repro_torch.kernels import feed_fused as ff
+from repro_torch.obs import NULL_TRACER, Telemetry, Tracer
+
+from torch_helpers import CPU, one_stage, zf_stream
+
+RATE = 2e4
+FEED = 1_000
+
+
+@pytest.fixture(scope="module")
+def stream():
+    return zf_stream(3_000, num_keys=400)
+
+
+def _session(stream, scheme, tel):
+    keys, values = stream
+    op = PT.WindowOp(agg="sum", value="payload", size=700, backend="device")
+    sess = PT.SimulatorEngine(mode="fused", device=CPU).open(
+        one_stage(PT, scheme, op), arrival_rate=RATE, telemetry=tel)
+    ts = np.arange(keys.shape[0]) / RATE
+    for lo in range(0, keys.shape[0], FEED):
+        sess.feed(PT.RecordBatch(keys[lo:lo + FEED], ts[lo:lo + FEED],
+                                 values[lo:lo + FEED]))
+    return sess.close().to_dict()
+
+
+def test_port_spans_enclose_profiler_ranges():
+    """A span of the port's tracer around a ``record_function`` range
+    holds the range's kineto start and end, within 1 ms each side: both
+    stamp the Unix-epoch axis."""
+    tr = Tracer()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(8):
+            with tr.span("outer"):
+                with torch.profiler.record_function("inner"):
+                    torch.ones(256).cumsum(0)
+    ranges = sorted((ev.start_ns() * 1e-9,
+                     (ev.start_ns() + ev.duration_ns()) * 1e-9)
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name() == "inner")
+    assert len(ranges) == len(tr.spans) == 8
+    for (r0, r1), sp in zip(ranges, tr.spans):
+        assert sp.t0 - 1e-3 <= r0 <= r1 <= sp.t1 + 1e-3
+        assert r0 - sp.t0 < 0.05  # the same instant, not merely ordered
+
+
+@pytest.mark.parametrize("scheme", ["fish", "fg"])
+def test_fused_session_emits_the_new_spans(stream, scheme):
+    tel = Telemetry(enabled=True)
+    _session(stream, scheme, tel)
+    spans = tel.tracer.spans
+    n = collections.Counter(s.name for s in spans)
+    assert n["session.feed"] == 3 and n["edge.fused"] == 3
+    assert n["fused.segment"] >= 3
+    assert n["fused.segment.wait"] == n["fused.segment"]
+    assert n["fused.pane_flush"] >= 3
+    assert n["state.feed_aggregated"] == n["fused.pane_flush"]
+    assert n["fused.pane_flush.wait"] == n["fused.pane_flush"]
+    assert n["state.merge_many"] == n["state.merge_many.upload"] >= 1
+    assert n["state.flush_windows"] >= 1
+    for name in ("session.open", "session.close", "state.finalize",
+                 "state.report", "session.edge_metrics",
+                 "session.percentiles"):
+        assert n[name] == 1, name
+    opened = next(s for s in spans if s.name == "session.open")
+    assert opened.t1 <= min(s.t0 for s in spans if s.name != "session.open")
+
+    def inside(child, parent):
+        outer = [s for s in spans if s.name == parent]
+        for c in (s for s in spans if s.name == child):
+            assert any(p.t0 <= c.t0 <= c.t1 <= p.t1 for p in outer), child
+
+    inside("edge.fused", "session.feed")
+    inside("fused.segment.wait", "fused.segment")
+    inside("fused.pane_flush.wait", "fused.pane_flush")
+    inside("state.merge_many.upload", "state.merge_many")
+    for child in ("state.finalize", "state.report", "session.edge_metrics",
+                  "session.percentiles"):
+        inside(child, "session.close")
+
+
+def test_disabled_session_emits_nothing_and_reports_the_same(stream):
+    on = Telemetry(enabled=True)
+    off = Telemetry(enabled=False)
+    rep_on = _session(stream, "fish", on)
+    rep_off = _session(stream, "fish", off)
+    rep_default = _session(stream, "fish", None)
+    assert off.tracer is NULL_TRACER and NULL_TRACER.spans == []
+    assert rep_on.pop("timeline") is not None
+    assert rep_off == rep_on == rep_default
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_device_wait_synchronizes_only_when_traced(monkeypatch, enabled):
+    """The runner's wait spans: a synchronize of the current stream under
+    an enabled tracer, and neither span nor synchronize without one."""
+    syncs = []
+    fake_stream = types.SimpleNamespace(
+        synchronize=lambda: syncs.append(1))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: fake_stream)
+    tel = Telemetry(enabled=enabled)
+    runner = types.SimpleNamespace(tel=tel, device=torch.device("cuda"))
+    ff.FusedEdgeRunner._wait(runner, "fused.segment.wait")
+    assert len(syncs) == int(enabled)
+    assert [s.name for s in tel.tracer.spans] == \
+        ["fused.segment.wait"] * int(enabled)
