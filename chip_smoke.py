@@ -196,10 +196,10 @@ BF16_OPS = 989e12    # H100 SXM dense bf16 on the tensor cores
 TF32_OPS = 495e12    # H100 SXM dense TF32 on the tensor cores
 SSD_OPS = TF32_OPS / 3   # the SSD kernels: 3 TF32 products (3xTF32) each
 # dependency-chain bounds, in SM cycles per dependent step on one warp, as
-# tools/chain_probe.py measures them on the H100: a shared-memory
-# read-compare-write (two loads, a select, a store: route_scan's least
-# step) 43.9; an f64 max + add (fifo_workers' step) 33.2
-SMEM_STEP_CYCLES = 44
+# tools/chain_probe.py measures them on the H100: route_scan's register
+# chain (two dependent redux.sync minima and the owner's select) 112.8; an
+# f64 max + add (fifo_workers' step) 33.2
+REG_STEP_CYCLES = 113
 F64_STEP_CYCLES = 33
 FISH_WORKERS = 128   # classify_hot_keys
 FISH_TOP = 20        # hot-set size held against the sequential tracker
@@ -304,9 +304,11 @@ class Capture:
             key = (name, self.scheme)
             if (self.scheme is not None and key not in self.calls
                     and want(args, kwargs)):
+                # the runner's registry counters stay with the runner
                 self.calls[key] = (tuple(self._clone(a) for a in args),
                                    {k: self._clone(v)
-                                    for k, v in kwargs.items()})
+                                    for k, v in kwargs.items()
+                                    if k != "chains"})
             return fn(*args, **kwargs)
         return call
 
@@ -750,14 +752,14 @@ def kernel_checks(cap, torch, np, launches):
         kw["m_k"], kw["d_min"])
     d_sum = int(np.minimum(d, width).sum())
     wide = int((np.minimum(d, width) > 2).sum())
-    chain = m * SMEM_STEP_CYCLES / (clock * 1e3)
+    chain = m * REG_STEP_CYCLES / (clock * 1e3)
     row("route_scan", src_ff, "src/repro/kernels/feed_fused.py:237,276,307",
         err_r, route_ms["fish"], pms, 4 * d_sum + 20 * m + 4 * 8 * w1,
         3 * d_sum + 2 * m, chain_bound_ms=chain, device=dev_rs)
     log(f"route_scan    fish: device {dev_rs[0]:.4f} ms; {wide} of {m} "
         f"tuples take the wide argmin, "
         f"Σ min(d, width) = {d_sum}; chain bound {chain:.4f} ms ({m} x "
-        f"{SMEM_STEP_CYCLES} cycles at {clock:.0f} MHz); plain {pms:.1f} ms "
+        f"{REG_STEP_CYCLES} cycles at {clock:.0f} MHz); plain {pms:.1f} ms "
         f"(host loop)")
     # fifo_workers' row: FG's segment, whose hottest worker holds the
     # longest per-worker run of the six schemes

@@ -14,7 +14,9 @@
 //                                total and max, the dense tracker decayed
 //                                and updated in place
 //   route_scan      (one block)  PKG/DC/WC/FISH: the sequential routing
-//                                chain (SG/FG routes are fixed: no launch)
+//                                chain, each worker's state in one warp's
+//                                registers (SG/FG routes are fixed: no
+//                                launch)
 //   fifo_workers    (a warp per  the per-worker FIFO; SG/FG gather their
 //                    worker)     fixed routes here
 //   pane_update     (parallel)   pane (value, count) sums into a compact
@@ -28,13 +30,23 @@
 //
 // What bounds it on the card: routing is a dependency chain — tuple i's
 // choice reads the counts (or FISH's estimator) that tuple i-1 wrote — so
-// route_scan runs it on one warp: ~m dependent steps of a shared-memory
-// read-compare-write, plus a warp argmin (two redux.sync) for the wide
-// tuples.  Device memory stays off the chain: the block's other warps
-// stage the next tile of (d, candidate rows) into shared memory by
-// cp.async while warp 0 walks the current one, and FISH's per-worker wait
-// (bl + asn) * ec is kept in shared memory and refreshed only for the
-// worker that was picked.  The FIFO reads nothing that routing writes
+// route_scan runs it on one warp, m dependent steps.  Tuple i+1 depends on
+// tuple i only through the state of the one worker tuple i picked, so on
+// every edge of up to 256 workers each worker's argmin key lives in the
+// chain warp's registers, a lane owning workers l + 32k: a step is two
+// redux.sync minima and the owner's select of its next fold — no shuffle,
+// no shared-memory round trip and no __syncwarp on the chain.  The lanes'
+// folds of their (key, candidate position) pairs for the next tuple, with
+// and without their own pick, and FISH's next wait for a lane's candidate
+// (asn + 1, then (bl + asn) * ec, its estimator read from shared memory)
+// run while the minima reduce.  A single warp is then bound by its integer
+// pipe more than by the chain's latency (tools/chain_probe.py).  What
+// depends on the tuple alone is prepared off the chain: the block's other
+// warps turn the next tile's candidate rows into per-tuple position words
+// packed by lane while warp 0 walks the current one.  Wider edges keep a
+// shared-memory walk: per step a read-compare-write of the candidates'
+// waits in shared memory, a warp argmin and a __syncwarp.  The FIFO reads
+// nothing that routing writes
 // except the route, and each worker's recurrence is independent of every
 // other's, so fifo_workers runs one warp per worker: bound by its longest
 // per-worker run of dependent f64 max + add.  The parallel kernels move a
@@ -94,6 +106,10 @@ struct RouteArgs {
   float elapsed;
   int* dbuf;            // (n_pad,) scratch: per-tuple candidate count d
   int* mbuf;            // (n_pad,) scratch: FISH m_k update value
+  int kreg;             // worker slots a chain lane keeps in registers (4
+                        // or 8); 0: the shared-memory walk
+  int tile;             // kreg > 0: tuples per staged tile (the wrapper's
+                        // plan, sized to the block's shared memory)
 };
 
 namespace {
@@ -104,6 +120,10 @@ constexpr int kTileMax = 1024;       // route_scan: tuples per staged tile
 constexpr int kLaneCands = 4;        // route_scan: candidates a lane keeps
                                      // in registers (128 per warp); the
                                      // select tree below is written for 4
+constexpr int kRegGroup = 4;         // route_scan, register chain: tuples
+                                     // a staging warp loads at once
+constexpr int kRegChunk = 4;         // and 32-candidate chunks of each
+constexpr unsigned kRegNone = 0xffffff00u;  // route_scan: not a candidate
 constexpr int kFifoWarps = 4;        // fifo_workers: workers per block
 constexpr int kFifoUnroll = 4;       // fifo_workers: 32-tuple strides per load
 constexpr int kBigI32 = 1 << 30;     // masked candidate wait (int schemes)
@@ -1007,7 +1027,25 @@ cudaError_t trk_config(bool global, int log2c, int log2k, int log2p,
 
 // ---------------------------------------------------------------------------
 // route_scan: one block; a parallel prologue, then the routing chain on
-// warp 0 while the other warps stage the next tile of candidates
+// warp 0 while the other warps stage the next tile of candidates.  Two
+// chains, chosen by the wrapper from the edge's worker count alone:
+//
+//   * the register chain (K > 0: w1 - 1 <= 256 workers, every cluster of
+//     the paper).  Lane l of warp 0 owns workers l + 32k, k < K, and keeps
+//     each one's argmin key in registers: a count's, which is its record
+//     too, or FISH's wait's (FISH's estimator and counts stay in shared
+//     memory: the counts are summed from the routes at the end).  The
+//     staging warps turn each tuple's candidate row into position words
+//     packed by lane: word k of lane l holds worker l + 32k's position in
+//     the row, or none.  A step is two redux.sync minima (the key, then
+//     the position among the lanes that hold it) and the owner's select;
+//     the next tuple's lane-local folds run while they reduce (RegChain);
+//   * the shared-memory walk (K = 0, wider edges): a lane keeps candidates
+//     by position, and every operand of a step is read from shared memory.
+//
+// Every tie goes to the lower candidate position, which is each scheme's
+// rule: PKG's <=, the light path's "c0 unless c1 is strictly less", DC's
+// and FISH's argmin; a WC hot key's position is the worker's id.
 // ---------------------------------------------------------------------------
 
 // (key, index, candidate) argmin with ties to the lower index, like
@@ -1028,9 +1066,10 @@ __device__ __forceinline__ unsigned int_key(int v) {
 }
 
 __device__ __forceinline__ unsigned float_key(float v) {
-  // -0 and +0 compare equal as floats: fold -0 onto +0 first
+  // -0 and +0 compare equal as floats: fold -0 onto +0 first; then a
+  // negative's bits all flip, a positive's sign bit (two integer ops)
   const unsigned b = __float_as_uint(__fadd_rn(v, 0.0f));
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
 }
 
 // the lane-wise (key, index) minima → the warp's index, ties to the lower
@@ -1116,16 +1155,249 @@ __device__ __forceinline__ void stage_tile(const RouteArgs& a, int t, int buf,
   __pipeline_wait_prior(0);
 }
 
-template <int SCH>
-__global__ void __launch_bounds__(kRouteThreads)
+// the register chain's position table: per tuple, lane l's K words, word
+// k = (j << 8) | w for worker w = l + 32k at position j < 2^23 of the
+// tuple's candidate row (the worker rides along, below the position), or
+// kRegNone where the worker is not a candidate: its sign bit set, its
+// worker bits 0, a worker any lane may read
+template <int K>
+struct RegWords {
+  uint4 q[K / 4];
+  __device__ __forceinline__ unsigned at(int k) const {
+    const uint4& v = q[k / 4];
+    const int c = k & 3;
+    return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
+  }
+};
+
+// tile t's position words and d values -> pos and s_d (one buffer), by
+// staging warp sw of nsw.  A warp takes kRegGroup tuples at a time: their
+// d, then their first 32 kRegChunk candidates, all loads in flight
+// together; it marks every slot of those tuples "not a candidate", then
+// writes each candidate's word, j < min(d, width), into its worker's
+// slot.  A tuple is one warp's, its marks ordered before its positions by
+// __syncwarp, so the staging warps need no barrier among themselves.  A
+// row holds distinct workers below w1 - 1 (ring_rows: the first distinct
+// owners on the ring); a WC hot key (d < 0) reads no row
+template <int K>
+__device__ __forceinline__ void stage_positions(const RouteArgs& a, int t,
+                                                RegWords<K>* pos, int* s_d,
+                                                int sw, int nsw, int lane) {
+  const int i0 = t * a.tile;
+  const int tn = min(a.tile, a.m - i0);
+  for (int g = sw * kRegGroup; g < tn; g += nsw * kRegGroup) {
+    int d[kRegGroup], dd[kRegGroup];
+    int x[kRegGroup][kRegChunk];
+#pragma unroll
+    for (int u = 0; u < kRegGroup; ++u) {
+      d[u] = g + u < tn ? a.dbuf[i0 + g + u] : 0;
+      dd[u] = d[u] > 0 ? min(d[u], a.width) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRegGroup; ++u) {
+      const int* r = a.rows + (long long)(i0 + g + u) * a.width;
+#pragma unroll
+      for (int q = 0; q < kRegChunk; ++q) {
+        const int j = lane + 32 * q;
+        x[u][q] = j < dd[u] ? r[j] : -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRegGroup; ++u) {
+      if (g + u < tn) {
+#pragma unroll
+        for (int h = 0; h < K / 4; ++h) {
+          pos[(g + u) * 32 + lane].q[h] =
+              make_uint4(kRegNone, kRegNone, kRegNone, kRegNone);
+        }
+        if (lane == 0) s_d[g + u] = d[u];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kRegGroup; ++u) {
+      unsigned* p = reinterpret_cast<unsigned*>(pos + (g + u) * 32);
+      auto put = [&](int w, int j) {
+        if (w >= 0 && w < 32 * K) {
+          p[(w & 31) * K + (w >> 5)] = ((unsigned)j << 8) | (unsigned)w;
+        }
+      };
+#pragma unroll
+      for (int q = 0; q < kRegChunk; ++q) put(x[u][q], lane + 32 * q);
+      const int* r = a.rows + (long long)(i0 + g + u) * a.width;
+      for (int j = lane + 32 * kRegChunk; j < dd[u]; j += 32) put(r[j], j);
+    }
+  }
+}
+
+// the register chain's state on lane l of warp 0: slot k < K holds worker
+// l + 32k (nw workers; a slot past them never takes part).  One warp is
+// bound by its integer pipe (half a warp instruction a cycle), so a step
+// keeps that pipe's work small: position words as the staging warps wrote
+// them, the worker riding in their low bits (the second minimum names the
+// pick to every lane, and a fold is a plain 64-bit min); FISH's estimator
+// and each worker's next key in shared memory, read for the one slot that
+// may be picked while the minima reduce
+template <int SCH, int K>
+struct RegChain {
+  unsigned key[K];   // the argmin key: FISH's float_key(wait), else
+                     // int_key(count), which is the count's record too
+  bool live[K];      // WC: the worker is live
+  int lane, nw;
+  // per slot of the next tuple: the pair's high word (key & keep) | over,
+  // its low word lo; a slot whose worker is not a candidate reads all ones
+  // high, and never wins
+  unsigned keep[K], over[K], lo[K];
+  unsigned long long best;  // this lane's least pair of the tuple at hand
+
+  // s_nkey: FISH, per worker the key its next pick gives (each lane
+  // writes and reads its own workers' alone)
+  __device__ __forceinline__ void load(const int* s_counts, const int* s_act,
+                                       const float* s_bl, const float* s_asn,
+                                       const float* s_ec, unsigned* s_nkey,
+                                       int ln, int n) {
+    lane = ln;
+    nw = n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k < nw ? lane + 32 * k : 0;
+      live[k] = s_act[w] != 0;
+      if (SCH == FISH) {
+        key[k] = float_key((s_bl[w] + s_asn[w]) * s_ec[w]);
+        if (lane + 32 * k < nw) {
+          s_nkey[w] = float_key((s_bl[w] + (s_asn[w] + 1.0f)) * s_ec[w]);
+        }
+      } else {
+        key[k] = int_key(s_counts[w]);
+      }
+    }
+  }
+
+  // the int schemes' counts from their keys; FISH's come from the routes
+  // afterwards (route_scan_kernel), its assigned are in shared memory
+  __device__ __forceinline__ void store(int* s_counts) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = lane + 32 * k;
+      if (SCH != FISH && w < nw) s_counts[w] = (int)(key[k] ^ 0x80000000u);
+    }
+  }
+
+  // the next tuple's masks, from its d and its position words
+  __device__ __forceinline__ void tuple(const RegWords<K>& pv, int d) {
+    if (SCH == WC && d < 0) {
+      // WC hot key: every worker at its id, a dead one at kBigI32's key
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int w = lane + 32 * k;
+        const bool in = w < nw;
+        keep[k] = in && live[k] ? ~0u : 0u;
+        over[k] = !in ? ~0u : (live[k] ? 0u : int_key(kBigI32));
+        lo[k] = in ? ((unsigned)w << 8) | (unsigned)w : kRegNone;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lo[k] = pv.at(k);
+      keep[k] = ~0u;
+      over[k] = (unsigned)((int)lo[k] >> 31);  // all ones: not a candidate
+    }
+  }
+
+  // the lane's least (high, low) pair over keys ky (a row's positions
+  // differ: no two tie)
+  __device__ __forceinline__ unsigned long long fold(
+      const unsigned (&ky)[K]) const {
+    unsigned long long v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = ((unsigned long long)((ky[k] & keep[k]) | over[k]) << 32) | lo[k];
+    }
+#pragma unroll
+    for (int s = 1; s < K; s <<= 1) {
+#pragma unroll
+      for (int k = 0; k + s < K; k += 2 * s) {
+        v[k] = v[k + s] < v[k] ? v[k + s] : v[k];
+      }
+    }
+    return v[0];
+  }
+
+  __device__ __forceinline__ void first(const RegWords<K>& pv, int d) {
+    tuple(pv, d);
+    best = fold(key);
+  }
+
+  // one step of the chain: the warp's argmin of the tuple at hand — the
+  // least key, then the least position among the lanes that hold it (two
+  // redux.sync; the worker rides below the position) — then the owner's
+  // update, a few selects.  Everything else
+  // is off the chain, done while the minima reduce: the next tuple (npv,
+  // nd) folded as things stand, then as they stand if this lane's best
+  // slot is picked; for FISH that slot's estimator and next key read and
+  // the key its pick after this one would give.  Every tuple has a
+  // candidate (d >= 1, a row's first entry a worker).  Returns the worker
+  // picked, on every lane
+  __device__ __forceinline__ int step(const RegWords<K>& npv, int nd,
+                                      const float* s_bl, float* s_asn,
+                                      const float* s_ec, unsigned* s_nkey) {
+    const unsigned bhi = (unsigned)(best >> 32);
+    const unsigned blo = (unsigned)best;
+    const unsigned klo = __reduce_min_sync(0xffffffffu, bhi);
+    const int wb = (int)(blo & 0xffu);  // the lane's best worker
+    const unsigned bk32 = blo & 0xe0u;  // and its slot, times 32
+    float bl = 0.0f, a1 = 0.0f, ec = 0.0f;
+    unsigned nk = 0u;
+    if (SCH == FISH) {
+      nk = s_nkey[wb];
+      bl = s_bl[wb];
+      a1 = s_asn[wb] + 1.0f;
+      ec = s_ec[wb];
+    }
+    tuple(npv, nd);
+    const unsigned long long f_same = fold(key);
+    const unsigned cand = bhi == klo ? blo : 0xffffffffu;
+    const unsigned jw = __reduce_min_sync(0xffffffffu, cand);
+    unsigned kb[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      kb[k] = bk32 == 32u * k ? (SCH == FISH ? nk : key[k] + 1u) : key[k];
+    }
+    const unsigned long long f_pick = fold(kb);
+    const unsigned nn =
+        SCH == FISH ? float_key((bl + (a1 + 1.0f)) * ec) : 0u;
+    // positions differ, so the lane holding the least one owns the pick
+    const bool own = cand == jw;
+    best = own ? f_pick : f_same;
+#pragma unroll
+    for (int k = 0; k < K; ++k) key[k] = own ? kb[k] : key[k];
+    if (SCH == FISH && own) {
+      s_asn[wb] = a1;
+      s_nkey[wb] = nn;
+    }
+    return (int)(jw & 0xffu);
+  }
+};
+
+// K: the register chain's worker slots a lane keeps (4 or 8); 0: the
+// shared-memory walk.  One block a launch: all of the SM's registers
+template <int SCH, int K>
+__global__ void __launch_bounds__(kRouteThreads, 1)
 route_scan_kernel(RouteArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int w1 = a.w1;
-  const int tile = route_tile(a.width);
-  // the staged tiles first (16-byte aligned for the vector copies)
-  int* s_rows = reinterpret_cast<int*>(smem);    // 2 x tile x width
-  int* s_d = s_rows + 2 * tile * a.width;        // 2 x tile
-  int* s_counts = s_d + 2 * tile;
+  const int tile = K > 0 ? a.tile : route_tile(a.width);
+  // the staged tiles first (16-byte aligned for the vector copies): 2 x
+  // tile x width candidates (the walk), or 2 x tile tuples' position words
+  // and two more, which the chain's read two tuples ahead may reach
+  int* s_rows = reinterpret_cast<int*>(smem);
+  const long long per = K > 0 ? 32 * 4 * K : 4LL * a.width;
+  int* s_d = reinterpret_cast<int*>(smem + (2 * tile + (K > 0 ? 2 : 0)) *
+                                               per);  // 2 x tile
+  // the register chain's routes, 2 x tile (the walk has none)
+  int* s_route = s_d + 2 * tile;
+  int* s_counts = s_route + (K > 0 ? 2 * tile : 0);
   int* s_act = s_counts + w1;                    // WC: live lanes
   float* s_bl = reinterpret_cast<float*>(s_act + w1);
   float* s_asn = s_bl + w1;
@@ -1217,121 +1489,204 @@ route_scan_kernel(RouteArgs a) {
     }
   }
 
-  // the chain: warp 0 walks the tuples with every operand in shared
-  // memory; warps 1.. stage tile t+1 while warp 0 walks tile t
+  // the chain on warp 0; warps 1.. stage tile t+1 while warp 0 walks
+  // tile t
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int ptid = tid - 32;
-  const int nprod = kRouteThreads - 32;
   const int ntiles = (a.m + tile - 1) / tile;
-  if (warp > 0 && ntiles > 0) stage_tile(a, 0, 0, s_rows, s_d, ptid, nprod);
-  __syncthreads();
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
+  if constexpr (K > 0) {
+    RegWords<K>* s_pos = reinterpret_cast<RegWords<K>*>(smem);  // 2 x tile
+                                                                 // x 32 lanes
+    // the staging warps: all but warp 0 and warp 4, which shares warp 0's
+    // scheduler and integer pipe (a warp's scheduler is its id mod 4)
+    constexpr int nsw = kRouteThreads / 32 - 2;
+    const bool stages = warp % 4 != 0;
+    const int sw = warp - 1 - (warp > 4);
+    // worker w1 - 1 pads the lanes: it is on no ring row and never live,
+    // so no tuple picks it and it stays in shared memory, untouched
+    const int nw = w1 - 1;
+    if (stages && ntiles > 0) {
+      stage_positions<K>(a, 0, s_pos, s_d, sw, nsw, lane);
+    }
+    // FISH's next keys in s_wait, which the chain does not read
+    unsigned* s_nkey = reinterpret_cast<unsigned*>(s_wait);
+    RegChain<SCH, K> ch;
     if (warp == 0) {
-      const int i0 = t * tile;
-      const int tn = min(tile, a.m - i0);
-      const int* rb = s_rows + (long long)buf * tile * a.width;
-      const int* db = s_d + buf * tile;
-      // this tuple's d and candidates in registers; the next tuple's are
-      // read while this one walks the chain.  Every lane computes every
-      // pick from broadcast shared loads (no divergence); lane 0 stores
-      // it, and a __syncwarp publishes the stores to the next tuple
-      int d = db[0];
-      int c[kLaneCands];
-      int c1;
-      load_cands(rb, d, a.width, lane, c, c1);
-      for (int ti = 0; ti < tn; ++ti) {
-        const int* r = rb + (long long)ti * a.width;
-        int nd = 0;
-        int nc[kLaneCands] = {};
-        int nc1 = -1;
-        if (ti + 1 < tn) {
-          nd = db[ti + 1];
-          load_cands(r + a.width, nd, a.width, lane, nc, nc1);
-        }
-        const int dd = min(d, a.width);
-        int w;
-        if (sch == PKG) {
-          const int a1 = c1 >= 0 ? c1 : c[0];
-          w = s_counts[c[0]] <= s_counts[a1] ? c[0] : a1;
-        } else if (d >= 0 && dd <= 2) {
-          // light tuple: the two candidates, no shuffles
-          const int x1 = dd == 2 ? c1 : -1;
-          if (sch == FISH) {
-            const float v0 = c[0] >= 0 ? s_wait[c[0]] : INFINITY;
-            const float v1 = x1 >= 0 ? s_wait[x1] : INFINITY;
-            w = (dd == 2 && v1 < v0) ? x1 : c[0];
-          } else {
-            const int v0 = c[0] >= 0 ? s_counts[c[0]] : kBigI32;
-            const int v1 = x1 >= 0 ? s_counts[x1] : kBigI32;
-            w = (dd == 2 && v1 < v0) ? x1 : c[0];
-          }
-        } else if (sch == WC && d < 0) {
-          // WC hot key: least-loaded live worker, ties to id
-          unsigned key[kLaneCands];
-          int ids[kLaneCands];
-#pragma unroll
-          for (int k = 0; k < kLaneCands; ++k) {
-            const int x = lane + 32 * k;
-            const int xi = x < w1 ? x : 0;
-            const unsigned kk = int_key(s_act[xi] ? s_counts[xi] : kBigI32);
-            key[k] = x < w1 ? kk : 0xffffffffu;
-            ids[k] = x;
-          }
-          unsigned best;
-          int bj, bc;
-          fold4(key, ids, lane, best, bj, bc);
-          for (int x = lane + 32 * kLaneCands; x < w1; x += 32) {
-            argmin_merge(best, bj, bc,
-                         int_key(s_act[x] ? s_counts[x] : kBigI32), x, x);
-          }
-          w = warp_argmin(best, bj);
-        } else {
-          // wide argmin, ties to the lower candidate position.  A lane's
-          // four candidates load together (clamped index, no branch), then
-          // fold in a select tree that keeps the lower position on ties
-          unsigned key[kLaneCands];
-#pragma unroll
-          for (int k = 0; k < kLaneCands; ++k) {
-            const unsigned kk = cand_key<sch>(c[k], s_wait, s_counts);
-            key[k] = lane + 32 * k < dd ? kk : 0xffffffffu;
-          }
-          unsigned best;
-          int bj, bc;
-          fold4(key, c, lane, best, bj, bc);
-          for (int j = lane + 32 * kLaneCands; j < dd; j += 32) {
-            const int x = r[j];
-            argmin_merge(best, bj, bc, cand_key<sch>(x, s_wait, s_counts), j,
-                         x);
-          }
-          const int jw = warp_argmin(best, bj);
-          w = __shfl_sync(0xffffffffu, bc, jw & 31);
-        }
-        // commit: every lane reads, lane 0 writes
-        const int cnt = s_counts[w] + 1;
-        if (sch == FISH) {
-          const float asn = s_asn[w] + 1.0f;
-          const float wait = (s_bl[w] + asn) * s_ec[w];
-          if (lane == 0) {
-            s_asn[w] = asn;
-            s_wait[w] = wait;
-          }
-        }
-        if (lane == 0) {
-          s_counts[w] = cnt;
-          a.workers[i0 + ti] = w;
-        }
-        __syncwarp();
-        d = nd;
-#pragma unroll
-        for (int k = 0; k < kLaneCands; ++k) c[k] = nc[k];
-        c1 = nc1;
-      }
-    } else if (t + 1 < ntiles) {
-      stage_tile(a, t + 1, buf ^ 1, s_rows, s_d, ptid, nprod);
+      ch.load(s_counts, s_act, s_bl, s_asn, s_ec, s_nkey, lane, nw);
     }
     __syncthreads();
+    for (int t = 0; t < ntiles; ++t) {
+      const int buf = t & 1;
+      if (warp == 0) {
+        const int i0 = t * tile;
+        const int tn = min(tile, a.m - i0);
+        const RegWords<K>* pb = s_pos + (long long)buf * tile * 32;
+        const int* db = s_d + buf * tile;
+        int* route = s_route + buf * tile;
+        ch.first(pb[lane], db[0]);
+        // a step folds the next tuple: its positions and d were read a
+        // step earlier, off the chain (past the tile's end they are read
+        // from the rest of the block's shared memory, and not used)
+        RegWords<K> pv = pb[32 + lane];
+        int d = db[1];
+        for (int ti = 0; ti < tn; ++ti) {
+          const RegWords<K> npv = pb[(ti + 2) * 32 + lane];
+          const int nd = db[ti + 2];
+          const int w = ch.step(pv, d, s_bl, s_asn, s_ec, s_nkey);
+          if (lane == 0) route[ti] = w;
+          pv = npv;
+          d = nd;
+        }
+      } else if (stages) {
+        // the last tile's routes out, then the next tile in
+        const int* rb = s_route + (buf ^ 1) * tile;
+        for (int i = (t - 1) * tile + sw * 32 + lane; t > 0 && i < t * tile;
+             i += nsw * 32) {
+          a.workers[i] = rb[i - (t - 1) * tile];
+        }
+        if (t + 1 < ntiles) {
+          stage_positions<K>(a, t + 1,
+                             s_pos + (long long)(buf ^ 1) * tile * 32,
+                             s_d + (buf ^ 1) * tile, sw, nsw, lane);
+        }
+      }
+      __syncthreads();
+    }
+    if (warp == 0) ch.store(s_counts);
+    if (ntiles > 0) {
+      const int t = ntiles - 1;
+      const int* rb = s_route + (t & 1) * tile;
+      for (int i = t * tile + tid; i < a.m; i += kRouteThreads) {
+        a.workers[i] = rb[i - t * tile];
+      }
+    }
+    __syncthreads();
+    if (sch == FISH) {
+      // each worker's count raised by its routes, a warp's tuples of one
+      // worker with one atomic (integer sums: any order is exact)
+      for (int i0 = tid - lane; i0 < a.m; i0 += kRouteThreads) {
+        const int i = i0 + lane;
+        const int w = i < a.m ? a.workers[i] : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, w);
+        if (w >= 0 && __ffs((int)peers) - 1 == lane) {
+          atomicAdd(s_counts + w, __popc(peers));
+        }
+      }
+      __syncthreads();
+    }
+  } else {
+    // the shared-memory walk: every operand of a step in shared memory
+    const int ptid = tid - 32;
+    const int nprod = kRouteThreads - 32;
+    if (warp > 0 && ntiles > 0) stage_tile(a, 0, 0, s_rows, s_d, ptid, nprod);
+    __syncthreads();
+    for (int t = 0; t < ntiles; ++t) {
+      const int buf = t & 1;
+      if (warp == 0) {
+        const int i0 = t * tile;
+        const int tn = min(tile, a.m - i0);
+        const int* rb = s_rows + (long long)buf * tile * a.width;
+        const int* db = s_d + buf * tile;
+        // this tuple's d and candidates in registers; the next tuple's are
+        // read while this one walks the chain.  Every lane computes every
+        // pick from broadcast shared loads (no divergence); lane 0 stores
+        // it, and a __syncwarp publishes the stores to the next tuple
+        int d = db[0];
+        int c[kLaneCands];
+        int c1;
+        load_cands(rb, d, a.width, lane, c, c1);
+        for (int ti = 0; ti < tn; ++ti) {
+          const int* r = rb + (long long)ti * a.width;
+          int nd = 0;
+          int nc[kLaneCands] = {};
+          int nc1 = -1;
+          if (ti + 1 < tn) {
+            nd = db[ti + 1];
+            load_cands(r + a.width, nd, a.width, lane, nc, nc1);
+          }
+          const int dd = min(d, a.width);
+          int w;
+          if (sch == PKG) {
+            const int a1 = c1 >= 0 ? c1 : c[0];
+            w = s_counts[c[0]] <= s_counts[a1] ? c[0] : a1;
+          } else if (d >= 0 && dd <= 2) {
+            // light tuple: the two candidates, no shuffles
+            const int x1 = dd == 2 ? c1 : -1;
+            if (sch == FISH) {
+              const float v0 = c[0] >= 0 ? s_wait[c[0]] : INFINITY;
+              const float v1 = x1 >= 0 ? s_wait[x1] : INFINITY;
+              w = (dd == 2 && v1 < v0) ? x1 : c[0];
+            } else {
+              const int v0 = c[0] >= 0 ? s_counts[c[0]] : kBigI32;
+              const int v1 = x1 >= 0 ? s_counts[x1] : kBigI32;
+              w = (dd == 2 && v1 < v0) ? x1 : c[0];
+            }
+          } else if (sch == WC && d < 0) {
+            // WC hot key: least-loaded live worker, ties to id
+            unsigned key[kLaneCands];
+            int ids[kLaneCands];
+  #pragma unroll
+            for (int k = 0; k < kLaneCands; ++k) {
+              const int x = lane + 32 * k;
+              const int xi = x < w1 ? x : 0;
+              const unsigned kk = int_key(s_act[xi] ? s_counts[xi] : kBigI32);
+              key[k] = x < w1 ? kk : 0xffffffffu;
+              ids[k] = x;
+            }
+            unsigned best;
+            int bj, bc;
+            fold4(key, ids, lane, best, bj, bc);
+            for (int x = lane + 32 * kLaneCands; x < w1; x += 32) {
+              argmin_merge(best, bj, bc,
+                           int_key(s_act[x] ? s_counts[x] : kBigI32), x, x);
+            }
+            w = warp_argmin(best, bj);
+          } else {
+            // wide argmin, ties to the lower candidate position.  A lane's
+            // four candidates load together (clamped index, no branch), then
+            // fold in a select tree that keeps the lower position on ties
+            unsigned key[kLaneCands];
+  #pragma unroll
+            for (int k = 0; k < kLaneCands; ++k) {
+              const unsigned kk = cand_key<sch>(c[k], s_wait, s_counts);
+              key[k] = lane + 32 * k < dd ? kk : 0xffffffffu;
+            }
+            unsigned best;
+            int bj, bc;
+            fold4(key, c, lane, best, bj, bc);
+            for (int j = lane + 32 * kLaneCands; j < dd; j += 32) {
+              const int x = r[j];
+              argmin_merge(best, bj, bc, cand_key<sch>(x, s_wait, s_counts), j,
+                           x);
+            }
+            const int jw = warp_argmin(best, bj);
+            w = __shfl_sync(0xffffffffu, bc, jw & 31);
+          }
+          // commit: every lane reads, lane 0 writes
+          const int cnt = s_counts[w] + 1;
+          if (sch == FISH) {
+            const float asn = s_asn[w] + 1.0f;
+            const float wait = (s_bl[w] + asn) * s_ec[w];
+            if (lane == 0) {
+              s_asn[w] = asn;
+              s_wait[w] = wait;
+            }
+          }
+          if (lane == 0) {
+            s_counts[w] = cnt;
+            a.workers[i0 + ti] = w;
+          }
+          __syncwarp();
+          d = nd;
+  #pragma unroll
+          for (int k = 0; k < kLaneCands; ++k) c[k] = nc[k];
+          c1 = nc1;
+        }
+      } else if (t + 1 < ntiles) {
+        stage_tile(a, t + 1, buf ^ 1, s_rows, s_d, ptid, nprod);
+      }
+      __syncthreads();
+    }
   }
 
   for (int w = tid; w < w1; w += kRouteThreads) {
@@ -1548,6 +1903,16 @@ pane_update_kernel(int mode, const int* __restrict__ keys,
   }
 }
 
+using RouteKernel = void (*)(RouteArgs);
+
+template <int K>
+RouteKernel route_kernel(int scheme) {
+  return scheme == PKG  ? route_scan_kernel<PKG, K>
+         : scheme == DC ? route_scan_kernel<DC, K>
+         : scheme == WC ? route_scan_kernel<WC, K>
+                        : route_scan_kernel<FISH, K>;
+}
+
 inline int blocks_for(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
@@ -1665,21 +2030,34 @@ int tracker_segment(const TrackerArgs* args, cudaStream_t stream) {
 
 int route_scan(const RouteArgs* args, cudaStream_t stream) {
   const RouteArgs& a = *args;
-  const int tile = route_tile(a.width);
-  const size_t smem =
-      sizeof(int) * (2 * (size_t)tile * a.width + 2 * (size_t)tile +
-                     2 * (size_t)a.w1) +
-      sizeof(float) * (4 * (size_t)a.w1 + 2 * (size_t)a.ne);
-  // one instantiation per routed scheme: no scheme test on the chain
-  void (*kernel)(RouteArgs) =
-      a.scheme == PKG  ? route_scan_kernel<PKG>
-      : a.scheme == DC ? route_scan_kernel<DC>
-      : a.scheme == WC ? route_scan_kernel<WC>
-                       : route_scan_kernel<FISH>;
   if (a.scheme != PKG && a.scheme != DC && a.scheme != WC &&
       a.scheme != FISH) {
     return (int)cudaErrorInvalidValue;
   }
+  // the register chain: its K slots hold every worker and its positions
+  // fit their type; else the shared-memory walk
+  const int nw = a.w1 - 1;
+  if (a.kreg != 0 &&
+      !(a.tile >= 1 && nw >= 1 &&
+        a.width <= (1 << 23) &&
+        ((a.kreg == 4 && nw <= 128) || (a.kreg == 8 && nw <= 256)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tile = a.kreg ? a.tile : route_tile(a.width);
+  // per staged tuple: its position words (the walk: its candidates); the
+  // register chain keeps two more tuples' words and a route per tuple
+  const size_t per = a.kreg ? 32 * sizeof(unsigned) * (size_t)a.kreg
+                            : sizeof(int) * (size_t)a.width;
+  const size_t smem =
+      (2 * (size_t)tile + (a.kreg ? 2 : 0)) * per +
+      sizeof(int) * (2 * (size_t)tile * (a.kreg ? 2 : 1) +
+                     2 * (size_t)a.w1) +
+      sizeof(float) * (4 * (size_t)a.w1 + 2 * (size_t)a.ne);
+  // one instantiation per routed scheme and chain: no scheme test on the
+  // chain
+  const RouteKernel kernel = a.kreg == 4   ? route_kernel<4>(a.scheme)
+                             : a.kreg == 8 ? route_kernel<8>(a.scheme)
+                                           : route_kernel<0>(a.scheme);
   // above 48 KB a block's dynamic shared memory must be asked for; a
   // refused size surfaces here or as the launch's error
   cudaError_t e = cudaFuncSetAttribute(

@@ -38,7 +38,11 @@ kernel              shape        computes
                                  the segment's (key, epoch) pairs (DC/WC
                                  below 2^24: atomics into the tracker)
 ``route_scan``      one block    PKG/DC/WC/FISH: the sequential routing
-                                 chain
+                                 chain; up to 256 workers each worker's
+                                 argmin key in one warp's registers, a
+                                 step bound by two ``redux.sync`` plus the
+                                 lane-local fold and the owner's update
+                                 (wider edges: a shared-memory walk)
 ``fifo_workers``    warp/worker  the per-worker FIFO (SG/FG gather their
                                  fixed routes here)
 ``pane_update``     tuple        pane (value, count) sums into a compact
@@ -74,7 +78,7 @@ from __future__ import annotations
 
 import ctypes
 from hashlib import sha1 as _sha1
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -115,6 +119,7 @@ _BIG_I32 = 2 ** 30  # masked candidate wait (int schemes)
 _ROUTE_THREADS = 256  # csrc kRouteThreads: route_scan's block
 _TILE_INTS = 8192     # csrc kTileInts: route_scan's staged tile
 _TILE_MAX = 1024      # csrc kTileMax
+_REG_WORKERS = 256    # route_scan's register chain: at most 8 slots a lane
 _SMEM_LIMIT = 232_448  # a Hopper block's dynamic shared memory (227 KB)
 _RING_RUN = 32        # csrc kRun: ring points per staged splitter
 _PANE_SMEM = 48 * 1024  # pane_update's (w1,) block maxima, default limit
@@ -249,7 +254,8 @@ class _RouteArgs(ctypes.Structure):
                 ("g0", _LL), ("epoch", _I), ("theta", _F), ("wnum", _F),
                 ("act_mask", _P), ("m_k", _P), ("d_min", _I), ("ebl", _P),
                 ("eas", _P), ("ecaps", _P), ("do_tick", _I),
-                ("elapsed", _F), ("dbuf", _P), ("mbuf", _P)]
+                ("elapsed", _F), ("dbuf", _P), ("mbuf", _P),
+                ("kreg", _I), ("tile", _I)]
 
 
 class _TrackerArgs(ctypes.Structure):
@@ -608,7 +614,8 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, fv=None,
                tot=None, top=None, g0: int = 0, epoch: int = 0,
                theta: float = 0.0, wnum: float = 0.0, act_mask=None,
                m_k=None, d_min: int = 2, ebl=None, eas=None, ecaps=None,
-               do_tick: int = 0, elapsed: float = 0.0) -> torch.Tensor:
+               do_tick: int = 0, elapsed: float = 0.0,
+               chains=None) -> torch.Tensor:
     """Route tuples [0, m) of a PKG/DC/WC/FISH segment: the sequential
     chain, in one block.
 
@@ -619,7 +626,22 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, fv=None,
     from ``tracker_update`` — each tuple's key's value ``fv`` at the end of
     its epoch (``g0``, ``epoch``) and that epoch's total ``tot`` and max
     ``top``.  SG and FG have fixed routes:
-    :func:`fifo_workers` gathers them."""
+    :func:`fifo_workers` gathers them.
+
+    On the card the chain is one of two (:func:`_route_scan_plan`, by the
+    edge's worker count).  Up to 256 workers, each worker's argmin key (a
+    count, or FISH's wait) lives in the chain warp's registers, a lane
+    owning workers ``l + 32k``.  A step's bound is two ``redux.sync``
+    minima plus the lane-local fold of its workers' (key, candidate
+    position) pairs and the owner's update; the folds and FISH's next wait
+    (its estimator in shared memory) run while the minima reduce, so the
+    chain waits on the minima and the owner's select.  Wider edges walk
+    the candidates' state in shared memory.  Ties go to the lower
+    candidate position throughout (a WC hot key's position is the worker's
+    id): the routes, counts and estimator match :func:`route_scan_plain`
+    bit for bit.  ``chains``: an optional mapping ``{"reg": counter,
+    "smem": counter}`` whose entry for the chain launched is added 1 (the
+    runner's registry counters)."""
     if scheme not in ("pkg", "dc", "wc", "fish"):
         raise ValueError(f"route_scan: {scheme!r} has fixed routes")
     if not _on_card(keys, "route_scan"):
@@ -630,7 +652,8 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, fv=None,
     w1 = counts.shape[0]
     width = rows.shape[1]
     ne = 0 if tot is None else tot.shape[0]
-    if _route_scan_smem(w1, ne, width) > _SMEM_LIMIT:
+    plan = _route_scan_plan(w1, ne, width)
+    if plan.smem > _SMEM_LIMIT:
         raise ValueError(f"route_scan: {w1} worker lanes at width {width} "
                          "exceed the block's shared memory")
     dev = keys.device
@@ -651,17 +674,49 @@ def route_scan(scheme: str, m: int, *, keys, counts, rows, fv=None,
         act_mask=_ptr(act_mask), m_k=_ptr(m_k), d_min=d_min,
         ebl=_ptr(ebl), eas=_ptr(eas), ecaps=_ptr(ecaps), do_tick=do_tick,
         elapsed=float(np.float32(elapsed)), dbuf=_ptr(dbuf),
-        mbuf=_ptr(mbuf))
+        mbuf=_ptr(mbuf), kreg=plan.k, tile=plan.tile)
     err = _lib().route_scan(ctypes.byref(args), _build.stream_ptr(dev))
     _build.check(err, "route_scan")
     LAUNCHES["route_scan"] += 1
+    if chains is not None:
+        chains[plan.path].add(1)
     return workers
 
 
 def _route_scan_smem(w1: int, ne: int, width: int) -> int:
-    """route_scan's dynamic shared memory (csrc ``route_scan``)."""
+    """route_scan's dynamic shared memory for the shared-memory walk
+    (csrc ``route_scan``, ``kreg`` 0)."""
     tile = max(1, min(_TILE_MAX, _TILE_INTS // max(width, 1)))
     return 4 * (2 * tile * width + 2 * tile + 2 * w1) + 4 * (4 * w1 + 2 * ne)
+
+
+class RoutePlan(NamedTuple):
+    path: str   # "reg": the register chain; "smem": the shared-memory walk
+    k: int      # worker slots a chain lane keeps in registers (0: the walk)
+    tile: int   # tuples per staged tile
+    smem: int   # the block's dynamic shared memory, bytes
+
+
+def _route_scan_plan(w1: int, ne: int, width: int) -> RoutePlan:
+    """route_scan's chain for an edge of ``w1 - 1`` workers (lane ``w1 -
+    1`` pads), ``ne`` epochs and candidate rows ``width`` wide.
+
+    The register chain takes every edge of 1 to 256 workers (rows up to
+    2^23 wide: a position word's sign bit stays clear): K = 4 slots a lane
+    up to 128 workers, else K = 8.  Its tiles hold, per tuple, a 32-bit
+    position word per slot of each of the 32 lanes, ``d`` and the route:
+    as many tuples as fit the block beside two tuples' words of slack and
+    the per-worker and per-epoch arrays.  Other edges take the
+    shared-memory walk."""
+    nw = w1 - 1
+    if not (1 <= nw <= _REG_WORKERS and width <= 1 << 23):
+        return RoutePlan("smem", 0, 0, _route_scan_smem(w1, ne, width))
+    k = 4 if nw <= 128 else 8
+    words = 32 * 4 * k
+    per = 2 * (words + 4 + 4)  # two buffers: position words, d, route
+    fixed = 2 * words + 4 * (2 * w1) + 4 * (4 * w1 + 2 * ne)
+    tile = max(1, (_SMEM_LIMIT - fixed) // per)
+    return RoutePlan("reg", k, tile, per * tile + fixed)
 
 
 # -- fifo_workers ---------------------------------------------------------------
@@ -928,6 +983,10 @@ class FusedEdgeRunner:
             "fused.pane_flushes", scheme=self.scheme)
         self._c_host_syncs = self.tel.metrics.counter(
             "fused.host_syncs", scheme=self.scheme)
+        # segments routed on the card by each route_scan chain
+        self._c_chains = {p: self.tel.metrics.counter(
+            f"fused.route_scan.{p}_chain", scheme=self.scheme)
+            for p in ("reg", "smem")}
         self._feed_base_dispatches = 0
         self._prev_hot: set = set()   # fish hot set at the last epoch point
         self._fish_epoch_idx = -1
@@ -1198,7 +1257,7 @@ class FusedEdgeRunner:
                                               **kw)
             else:
                 workers = route_scan(scheme, m, keys=keys, counts=counts_d,
-                                     rows=rows, **kw)
+                                     rows=rows, chains=self._c_chains, **kw)
                 workers, fin_d = fifo_workers(scheme, m, workers=workers,
                                               **fifo)
             pane_update(keys, workers, m, repl=self.repl, vals=vals,

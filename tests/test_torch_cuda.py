@@ -63,11 +63,15 @@ def test_cuda_store_probe_matches_plain(k, n):
 
 
 def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8,
-             z=1.4):
+             z=1.4, on_ring=None, live=None):
+    """One segment's inputs over ``workers`` worker lanes (w1 = workers +
+    1): the ring holds ``on_ring`` (default every worker; fewer leave -1 at
+    the rows' ends), ``live`` are WC's live lanes (default every worker)."""
     rng = np.random.default_rng(seed)
     keys = np.full(n_pad, kcap, np.int32)
     keys[:m] = zipf_time_evolving(m, num_keys=kcap, z=z, seed=seed)
-    ring = ConsistentHashRing(range(workers), virtual_nodes=16)
+    ring = ConsistentHashRing(
+        range(workers) if on_ring is None else on_ring, virtual_nodes=16)
     pts, cands = ff._build_ring_table(ring, max(workers, 2))
     hashes = np.asarray([hash32(int(k)) for k in np.unique(keys[:m])],
                         np.uint32)
@@ -79,7 +83,8 @@ def _segment(seed=10, m=1_500, n_pad=2_048, kcap=1_024, workers=8,
         h=h, counts=rng.integers(0, 5, w1).astype(np.int32),
         t=np.sort(rng.random(n_pad) * 0.1),
         busy=rng.random(w1) * 0.05, caps=rng.uniform(5e-4, 2e-3, w1),
-        act_mask=np.arange(w1) < workers,
+        act_mask=(np.arange(w1) < workers if live is None
+                  else np.isin(np.arange(w1), live)),
         ebl=(rng.random(w1) * 3).astype(np.float32),
         eas=rng.integers(0, 4, w1).astype(np.float32),
         ecaps=rng.uniform(0.5, 1.5, w1).astype(np.float32),
@@ -469,6 +474,100 @@ def test_cuda_route_scan_ties_match_plain(scheme):
     s["eas"][:] = 0.0
     s["ecaps"][:] = 1.0
     _assert_card_equals_plain(scheme, s)
+
+
+def _route_run(scheme, s, where, segments=1, chains=None):
+    """ring_rows, tracker_update and route_scan over ``segments`` segments
+    in a row (segment i's tuples rolled by 97 i), the counts, the tracker,
+    FISH's CHK memory and estimator carried from each to the next: every
+    route, then the state route_scan updates, on the CPU."""
+    m, n_pad, kcap, w1 = s["m"], s["n_pad"], s["kcap"], s["w1"]
+    width = 2 if scheme == "pkg" else s["cands"].shape[1]
+    d = torch.device(where)
+    up = (lambda a: T(np.ascontiguousarray(a)).to(d))
+    pts, cands = up(ff._u32_bits(s["pts"])), up(s["cands"])
+    counts, m_k, ebl, eas = (up(s[k]) for k in ("counts", "m_k", "ebl",
+                                                 "eas"))
+    trk = torch.zeros(kcap + 1, dtype=torch.float32, device=d)
+    carry = torch.zeros(2, dtype=torch.float32, device=d)
+    routes = []
+    for i in range(segments):
+        keys, h = s["keys"].copy(), s["h"].copy()
+        keys[:m], h[:m] = np.roll(keys[:m], 97 * i), np.roll(h[:m], 97 * i)
+        rows = ff.ring_rows(pts, cands, up(ff._u32_bits(h)), None, m, width,
+                            n_pad)
+        kw = {}
+        if scheme in ("dc", "wc", "fish"):
+            g0 = 300 + i * m
+            tk = (dict(g0=g0, epoch=500, pre=int(g0 % 500 == 0),
+                       ne=(g0 + m - 1) // 500 - g0 // 500 + 1, alpha=0.2)
+                  if scheme == "fish" else dict(ne=1))
+            fv, tot, top = ff.tracker_update(trk, carry, up(keys), m, **tk)
+            kw.update(fv=fv, tot=tot, top=top, g0=tk.get("g0", 0),
+                      epoch=tk.get("epoch", 0), theta=0.25 / (w1 - 1),
+                      wnum=float(w1 - 1), act_mask=up(s["act_mask"]))
+        if scheme == "fish":
+            kw.update(m_k=m_k, d_min=2, ebl=ebl, eas=eas,
+                      ecaps=up(s["ecaps"]), do_tick=int(i % 3 == 0),
+                      elapsed=0.3)
+        workers = ff.route_scan(scheme, m, keys=up(keys), counts=counts,
+                                rows=rows, chains=chains, **kw)
+        routes.append(workers[:m])
+    return [x.cpu() for x in (torch.cat(routes), counts, m_k, ebl, eas)]
+
+
+#: route_scan's register chain against the plain version: (segment,
+#: segments in a row, the chain the card takes)
+_CHAIN_CASES = {
+    # the main path's: 128 workers (w1 = 129), width 128
+    "main_path": (dict(seed=12, m=16_384, n_pad=16_384, kcap=100_000,
+                       workers=128, z=1.2), 1, "reg"),
+    "w1_not_32k": (dict(seed=15, m=3_000, n_pad=4_096, workers=45), 1,
+                   "reg"),
+    "one_worker": (dict(seed=16, m=3_000, n_pad=4_096, workers=1), 1, "reg"),
+    # both sides of the 256-worker split
+    "w256": (dict(seed=17, m=4_000, n_pad=4_096, workers=256), 1, "reg"),
+    "w257": (dict(seed=18, m=4_000, n_pad=4_096, workers=257), 1, "smem"),
+    # 96 of 128 workers live and on the ring: every row ends in -1
+    "rows_padded": (dict(seed=19, m=3_000, n_pad=4_096, workers=128,
+                         on_ring=[w for w in range(128) if w % 4 != 1],
+                         live=[w for w in range(128) if w % 4 != 1]), 1,
+                    "reg"),
+    # dead lanes (WC's hot keys skip them) still on the ring
+    "dead_lanes": (dict(seed=20, m=3_000, n_pad=4_096, workers=128,
+                        live=[w for w in range(128) if w % 5]), 1, "reg"),
+    "ties": (dict(seed=14, m=2_000, n_pad=2_048, workers=128), 1, "reg"),
+    "ten_segments": (dict(seed=21, m=2_100, n_pad=4_096, workers=128), 10,
+                     "reg"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["pkg", "dc", "wc", "fish"])
+@pytest.mark.parametrize("case", list(_CHAIN_CASES))
+def test_cuda_route_scan_chains_match_plain(case, scheme):
+    """route_scan's chains bit for bit against the plain version (routes,
+    counts, CHK memory, estimator): the register chain on every edge of 1
+    to 256 workers, the shared-memory walk past them, each counted by its
+    ``chains`` counter once a segment."""
+    _card()
+    from repro_torch.obs.metrics import Counter
+
+    kw, segments, chain = _CHAIN_CASES[case]
+    s = _segment(**kw)
+    if case == "ties":  # every argmin a tie: the lower position wins
+        s["counts"][:] = 0
+        s["ebl"][:] = 0.0
+        s["eas"][:] = 0.0
+        s["ecaps"][:] = 1.0
+    chains = {"reg": Counter("reg"), "smem": Counter("smem")}
+    card = _route_run(scheme, s, "cuda", segments, chains)
+    plain = _route_run(scheme, s, "cpu", segments)
+    for c, p in zip(card, plain):
+        assert torch.equal(c, p), (case, scheme)
+    assert {k: c.value for k, c in chains.items()} == {
+        "reg": segments * (chain == "reg"),
+        "smem": segments * (chain == "smem")}
 
 
 @pytest.mark.cuda

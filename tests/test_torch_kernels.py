@@ -420,6 +420,59 @@ def _route(s, scheme, rows, **kw):
         counts.numpy()
 
 
+@pytest.mark.parametrize("w1,width,path,k", [
+    (1, 2, "smem", 0),      # no worker: nothing to hold
+    (2, 2, "reg", 4),       # one worker
+    (46, 45, "reg", 4),     # a worker count not a multiple of 32
+    (129, 128, "reg", 4),   # the paper's 128 workers
+    (129, 2, "reg", 4),     # PKG's rows
+    (129, 300, "reg", 4),   # rows wider than the workers
+    (130, 129, "reg", 8),
+    (257, 256, "reg", 8),   # 256 workers: the widest register edge
+    (258, 257, "smem", 0),  # 257: the shared-memory walk
+    (258, 2, "smem", 0),
+    (129, 1 << 23, "reg", 4),
+    (129, (1 << 23) + 1, "smem", 0),  # a position word's sign bit
+])
+def test_route_scan_plan_picks_the_chain_by_worker_count(w1, width, path,
+                                                         k):
+    """route_scan's register chain on every edge of 1 to 256 workers (K =
+    4 slots a lane to 128, else 8), the shared-memory walk past them."""
+    plan = ff._route_scan_plan(w1, 17, width)
+    assert (plan.path, plan.k) == (path, k)
+    if path == "smem":
+        assert plan.smem == ff._route_scan_smem(w1, 17, width)
+
+
+@pytest.mark.parametrize("w1,width,k,tile", [(129, 128, 4, 219),
+                                             (257, 256, 8, 108)])
+def test_route_scan_register_plan_fits_the_block(w1, width, k, tile):
+    """The register chain's tiles (32 lanes' K position words, d and the
+    route a tuple, two buffers, two tuples' words of slack) beside the
+    per-worker and per-epoch arrays fit a Hopper block's shared memory."""
+    plan = ff._route_scan_plan(w1, 17, width)
+    assert (plan.path, plan.k, plan.tile) == ("reg", k, tile)
+    assert plan.smem <= ff._SMEM_LIMIT
+    words = 32 * 4 * k
+    assert plan.smem == (2 * tile * (words + 8) + 2 * words + 4 * 2 * w1
+                         + 4 * (4 * w1 + 2 * 17))
+    # many epochs shrink the tile, never past the block
+    many = ff._route_scan_plan(w1, 12_000, width)
+    assert many.tile < tile and many.smem <= ff._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("w1,width", [(1_025, 1_024), (258, 30_000),
+                                      (300, 129)])
+def test_route_scan_shared_walk_refusal_is_unchanged(w1, width):
+    """Past 256 workers the plan is the shared-memory walk's, with its own
+    shared memory: the wrapper refuses an edge whose walk does not fit."""
+    plan = ff._route_scan_plan(w1, 17, width)
+    tile = max(1, min(ff._TILE_MAX, ff._TILE_INTS // width))
+    want = 4 * (2 * tile * width + 2 * tile + 2 * w1) + 4 * (4 * w1 + 34)
+    assert plan == ff.RoutePlan("smem", 0, 0, want)
+    assert (plan.smem > ff._SMEM_LIMIT) == (width >= 30_000)
+
+
 def test_route_pkg_and_fifo_match_reference():
     s = Seg(seed=3)
     rows = s.rows(2)

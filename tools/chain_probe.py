@@ -10,18 +10,26 @@ tuples of a z = 1.2 stream over 100,000 keys, 128 workers, candidate width
 128; the segment of ``tests/test_torch_cuda.py``) and prints:
 
 * cycles per step of dependent chains on one warp: a shared-memory
-  pointer chase, a shared-memory read-compare-write (a PKG step), a
-  ``redux.sync`` minimum, a ``shfl.sync``, a ballot + ffs, and an f64
-  max + add (a FIFO step);
-* per scheme: the prologue's and the chain's cycles, cycles per tuple and
-  the SM clock those imply (cycles over globaltimer nanoseconds).
+  pointer chase, a shared-memory read-compare-write (the shared walk's
+  least step), a ``redux.sync`` minimum, a ``shfl.sync``, a ballot + ffs,
+  an f64 max + add (a FIFO step), the register chain's FISH step as
+  ``route_scan`` runs it (``RegChain::step`` on one tuple over and over,
+  every worker a candidate), and its latency floor: two dependent
+  ``redux.sync`` minima and the owner's select, the register chain's
+  bound;
+* per scheme: the chain ``route_scan`` takes, the prologue's and the
+  chain's cycles, cycles per tuple and the SM clock those imply (cycles
+  over globaltimer nanoseconds).  ``--workers 257`` runs the same on an
+  edge of 257 workers, past the register chain: the shared walk.
 
 Usage, from the root of a checkout on a machine with the card and nvcc:
-``python3 tools/chain_probe.py``.  The build goes to ``build/chain_probe``.
+``python3 tools/chain_probe.py [--workers N]``.  The build goes to
+``build/chain_probe``.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -46,7 +54,7 @@ __global__ void chains_kernel(int steps, int* out) {
   const int lane = threadIdx.x;
   for (int i = lane; i < 1024; i += 32) nxt[i] = (i * 97 + 13) & 1023;
   __syncwarp();
-  long long c[8];
+  long long c[9];
   int p = 0;
   c[0] = clock64();
   if (lane == 0) for (int s = 0; s < steps; ++s) p = nxt[p];
@@ -76,10 +84,47 @@ __global__ void chains_kernel(int steps, int* out) {
   double d = lane;
   for (int s = 0; s < steps; ++s) d = fmax(d, 0.5) + 1.0;
   c[6] = clock64();
-  if (lane == 0) {
-    for (int k = 0; k < 6; ++k) g_probe[8 + k] = c[k + 1] - c[k];
+  // the register chain's FISH step, K = 4, route_scan's own: 128
+  // workers, worker l + 32k at a position no other worker takes (37 is
+  // odd: a permutation of 0..127), every worker a candidate
+  __shared__ int s_cnt[128], s_act[128];
+  __shared__ float s_bl[128], s_asn[128], s_ec[128];
+  __shared__ unsigned s_nkey[128];
+  for (int w = lane; w < 128; w += 32) {
+    s_cnt[w] = 0;
+    s_act[w] = 1;
+    s_bl[w] = 0.5f;
+    s_asn[w] = (float)(w & 3);
+    s_ec[w] = 1.25f;
   }
-  out[lane] = p + q + (int)v + x + (int)bb + (int)d;
+  __syncwarp();
+  RegChain<FISH, 4> ch;
+  ch.load(s_cnt, s_act, s_bl, s_asn, s_ec, s_nkey, lane, 128);
+  RegWords<4> pv;
+  pv.q[0] = make_uint4((((lane + 0u) * 37u) & 127u) << 8 | lane,
+                       (((lane + 32u) * 37u) & 127u) << 8 | (lane + 32u),
+                       (((lane + 64u) * 37u) & 127u) << 8 | (lane + 64u),
+                       (((lane + 96u) * 37u) & 127u) << 8 | (lane + 96u));
+  ch.first(pv, 128);
+  int picks = 0;
+  for (int s = 0; s < steps; ++s) {
+    picks += ch.step(pv, 128, s_bl, s_asn, s_ec, s_nkey);
+  }
+  c[7] = clock64();
+  // the register chain's latency floor: the least key, the least position
+  // among the lanes that hold it, the owner's select, dependent
+  unsigned hk = ((lane * 37u) & 31u) | 0x80000000u, lw = lane << 8;
+  for (int s = 0; s < steps; ++s) {
+    const unsigned klo = __reduce_min_sync(0xffffffffu, hk);
+    const unsigned cand = hk == klo ? lw : 0xffffffffu;
+    const unsigned jw = __reduce_min_sync(0xffffffffu, cand);
+    hk = cand == jw ? hk + 32u : hk;
+  }
+  c[8] = clock64();
+  if (lane == 0) {
+    for (int k = 0; k < 8; ++k) g_probe[8 + k] = c[k + 1] - c[k];
+  }
+  out[lane] = p + q + (int)v + x + (int)bb + (int)d + picks + (int)hk;
 }
 extern "C" int probe_read(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, g_probe, sizeof(long long) * 16);
@@ -92,7 +137,7 @@ extern "C" int probe_chains(int steps, int* out) {
 
 _MARKS = {
     "route_scan_kernel(RouteArgs a) {\n": 0,
-    "  // the chain: warp 0 walks the tuples": 2,
+    "  // the chain on warp 0; warps 1.. stage tile t+1": 2,
     "  for (int w = tid; w < w1; w += kRouteThreads) {\n"
     "    a.counts[w] = s_counts[w];": 4,
 }
@@ -114,6 +159,10 @@ def instrumented_source() -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workers", type=int, default=128,
+                    help="the segment's workers (w1 - 1); default 128")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -149,7 +198,8 @@ def main() -> int:
     lib.probe_chains(STEPS, scratch.data_ptr())
     lib.probe_read(buf)
     names = ("smem_chase", "smem_read_compare_write", "redux_min",
-             "shfl_idx", "ballot_ffs", "f64_max_add")
+             "shfl_idx", "ballot_ffs", "f64_max_add", "reg_chain_step",
+             "reg_chain_floor")
     chains = {n: buf[8 + k] / STEPS for k, n in enumerate(names)}
     print("dependent chains, cycles per step: " + ", ".join(
         f"{n} {v:.1f}" for n, v in chains.items()))
@@ -157,22 +207,28 @@ def main() -> int:
     import test_torch_cuda as TC
 
     s = TC._segment(seed=12, m=16_384, n_pad=16_384, kcap=100_000,
-                    workers=128, z=1.2)
+                    workers=args.workers, z=1.2)
     schemes = {}
     for scheme in ("pkg", "dc", "wc", "fish"):
+        width = 2 if scheme == "pkg" else s["cands"].shape[1]
+        path = ff._route_scan_plan(s["w1"], 1, width).path
         TC._run_segment(scheme, s, "cuda")
         torch.cuda.synchronize()
         lib.probe_read(buf)
         pro, chain = buf[2] - buf[0], buf[4] - buf[2]
         ns = buf[5] - buf[3]
-        schemes[scheme] = {"prologue_cycles": pro, "chain_cycles": chain,
+        schemes[scheme] = {"chain": path, "prologue_cycles": pro,
+                           "chain_cycles": chain,
                            "cycles_per_tuple": chain / s["m"],
+                           "prologue_ms": (buf[3] - buf[1]) / 1e6,
                            "chain_ms": ns / 1e6,
                            "sm_mhz": chain / max(ns, 1) * 1e3}
-        print(f"route_scan {scheme:4s}: prologue {pro} cycles, chain {chain}"
-              f" cycles = {chain / s['m']:.0f} per tuple, {ns / 1e6:.3f} ms"
-              f" at {chain / max(ns, 1) * 1e3:.0f} MHz")
-    print(json.dumps({"chains": chains, "route_scan": schemes}))
+        print(f"route_scan {scheme:4s} ({path} chain, {args.workers} "
+              f"workers): prologue {pro} cycles, chain {chain} cycles = "
+              f"{chain / s['m']:.0f} per tuple, {ns / 1e6:.3f} ms at "
+              f"{chain / max(ns, 1) * 1e3:.0f} MHz")
+    print(json.dumps({"workers": args.workers, "chains": chains,
+                      "route_scan": schemes}))
     return 0
 
 
