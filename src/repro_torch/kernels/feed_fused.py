@@ -987,6 +987,9 @@ class FusedEdgeRunner:
         self._c_chains = {p: self.tel.metrics.counter(
             f"fused.route_scan.{p}_chain", scheme=self.scheme)
             for p in ("reg", "smem")}
+        # candidate-table entries built (rows x dmax, each membership build)
+        self._c_ring_entries = self.tel.metrics.counter(
+            "fused.ring_table.entries", scheme=self.scheme)
         self._feed_base_dispatches = 0
         self._prev_hot: set = set()   # fish hot set at the last epoch point
         self._fish_epoch_idx = -1
@@ -1070,9 +1073,13 @@ class FusedEdgeRunner:
                                          cat="fused")
         if self.scheme in _RING_SCHEMES:
             dmax = self._dmax or max(state.busy_until.shape[0], 2)
-            self._pts, self._cands = _build_ring_table(grouper.ring, dmax)
-            self._pts_dev = self._up(_u32_bits(self._pts))
-            self._cands_dev = self._up(self._cands)
+            with self.tel.tracer.span("fused.ring_table", cat="fused",
+                                      dmax=dmax):
+                self._pts, self._cands = _build_ring_table(grouper.ring,
+                                                           dmax)
+                self._pts_dev = self._up(_u32_bits(self._pts))
+                self._cands_dev = self._up(self._cands)
+            self._c_ring_entries.add(int(self._cands.size))
         act = np.asarray(sorted(state.active), dtype=np.int32)
         self._act = act
         act_pad = np.full(self._w1, self._w1 - 1, np.int32)

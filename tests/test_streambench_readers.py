@@ -110,6 +110,32 @@ def test_new_readers_match_their_benchmark_entries(name):
 
 
 
+def test_ring_table_ms_reads_the_mean_build():
+    """Two builds of the ring's candidate table, 0.2 and 0.4 s, each inside
+    the membership refresh of a session's first feed: 300 ms a build;
+    nothing where the program has no such span."""
+    builds = [("fused.begin_feed", 1.5, 2.0),
+              ("fused.refresh_membership", 1.55, 1.9),
+              ("fused.ring_table", 1.6, 1.8),
+              ("fused.begin_feed", 21.0, 21.6),
+              ("fused.refresh_membership", 21.05, 21.5),
+              ("fused.ring_table", 21.05, 21.45)]
+    assert _read("ring_table_ms", SPANS + builds) == \
+        pytest.approx(300.0, rel=1e-12)
+    assert _read("ring_table_ms", SPANS) is None
+    assert _read("ring_table_ms", []) is None
+
+
+def test_ring_table_ms_matches_its_benchmark_entry():
+    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    entry = {m["name"]: m for m in bench["per_layer"]}["ring_table_ms"]
+    reader = spec.load_reader("ring_table_ms")
+    assert (reader.UNIT, reader.LAYER, reader.MOVES) == \
+        (entry["unit"], entry["layer"], entry["moves"])
+    assert (entry["source"], entry["better"]) == ("program_span", "lower")
+    assert set(entry["workloads"]) == {w["name"] for w in bench["workloads"]}
+
+
 @pytest.mark.parametrize("mode", ["off", "port", "full"])
 def test_tracecost_rehearses_each_mode_on_the_cpu(mode):
     """``tracecost.py`` on a cut stream: every mode correct, with the

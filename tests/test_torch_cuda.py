@@ -16,6 +16,10 @@ in another order than the plain einsums: within 3e-4
 import copy
 import dataclasses
 import functools
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -528,6 +532,10 @@ _CHAIN_CASES = {
     # both sides of the 256-worker split
     "w256": (dict(seed=17, m=4_000, n_pad=4_096, workers=256), 1, "reg"),
     "w257": (dict(seed=18, m=4_000, n_pad=4_096, workers=257), 1, "smem"),
+    # the zf512 cell's edge: 512 workers, 16k segments of the ZF mix, rows
+    # 512 wide (PKG's 2), two segments in a row on the walk
+    "w512": (dict(seed=22, m=16_384, n_pad=16_384, kcap=100_000,
+                  workers=512, z=1.2), 2, "smem"),
     # 96 of 128 workers live and on the ring: every row ends in -1
     "rows_padded": (dict(seed=19, m=3_000, n_pad=4_096, workers=128,
                          on_ring=[w for w in range(128) if w % 4 != 1],
@@ -568,6 +576,25 @@ def test_cuda_route_scan_chains_match_plain(case, scheme):
     assert {k: c.value for k, c in chains.items()} == {
         "reg": segments * (chain == "reg"),
         "smem": segments * (chain == "smem")}
+
+
+@pytest.mark.cuda
+def test_cuda_zf512_cell_is_correct_on_the_card():
+    """A 1-second run of the benchmark's 512-worker cell: one whole cycle
+    of the stream on the walk, its sampled feeds held against the plain
+    reference."""
+    _card()
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "streambench" / "run.py"), "--workload",
+         "zf512.fish.closed", "--seed", str(2 ** 31 + 512), "--seconds",
+         "1", "--trace", "0"], capture_output=True, text=True, timeout=900,
+        cwd=root)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["correct"] is True, line["checks"]
+    assert line["device"]["platform"] == "gpu"
+    assert line["checks"]["route_mismatch"]["value"] == 0
 
 
 @pytest.mark.cuda

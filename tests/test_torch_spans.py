@@ -121,3 +121,86 @@ def test_device_wait_synchronizes_only_when_traced(monkeypatch, enabled):
     assert len(syncs) == int(enabled)
     assert [s.name for s in tel.tracer.spans] == \
         ["fused.segment.wait"] * int(enabled)
+
+
+def _feed_spans(spans):
+    return sorted((s for s in spans if s.name == "session.feed"),
+                  key=lambda s: s.t0)
+
+
+@pytest.mark.parametrize("scheme,dmax", [("fish", 8), ("fg", 1)])
+def test_ring_table_span_and_counter_at_each_first_feed(stream, scheme, dmax,
+                                                        monkeypatch):
+    """Two sessions on one bundle: one ``fused.ring_table`` span each,
+    inside ``fused.refresh_membership`` of the session's first feed, and
+    ``fused.ring_table.entries`` the rows x ``dmax`` of the tables built."""
+    built = []
+    real = ff._build_ring_table
+
+    def spy(ring, d):
+        pts, cands = real(ring, d)
+        built.append((pts.shape[0], d))
+        return pts, cands
+
+    monkeypatch.setattr(ff, "_build_ring_table", spy)
+    tel = Telemetry(enabled=True)
+    for _ in range(2):
+        _session(stream, scheme, tel)
+    spans = tel.tracer.spans
+    tables = [s for s in spans if s.name == "fused.ring_table"]
+    refresh = [s for s in spans if s.name == "fused.refresh_membership"]
+    feeds = _feed_spans(spans)
+    assert len(tables) == len(refresh) == len(built) == 2
+    assert [d for _, d in built] == [dmax, dmax] and built[0][0] > 0
+    for t, first in zip(tables, (feeds[0], feeds[3])):
+        assert first.t0 <= t.t0 <= t.t1 <= first.t1
+        assert any(p.t0 <= t.t0 <= t.t1 <= p.t1 for p in refresh)
+    entries = tel.metrics.snapshot()["fused.ring_table.entries"]["value"]
+    assert entries == sum(r * d for r, d in built)
+
+
+def _bench_reader(name):
+    import sys
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "streambench"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    import spec
+
+    return spec.load_reader(name)
+
+
+#: one feed as the runner spans it: the membership refresh inside the
+#: first ``fused.begin_feed``, a segment with its wait, a pane flush
+_ONE_FEED = [("session.feed", 0.0, 10.0), ("edge.fused", 1.0, 9.0),
+             ("fused.begin_feed", 1.5, 3.5),
+             ("fused.refresh_membership", 1.6, 3.2),
+             ("fused.segment", 4.0, 6.0), ("fused.segment.prep", 4.0, 4.5),
+             ("fused.segment.launch", 4.5, 5.0),
+             ("fused.segment.wait", 5.0, 6.0),
+             ("fused.pane_flush", 7.0, 8.0)]
+
+
+@pytest.mark.parametrize("name", ["session_self_ms_per_feed",
+                                  "runner_host_ms_per_feed",
+                                  "edge_self_ms_per_feed"])
+def test_readers_of_fused_children_ignore_the_ring_table_span(stream, name):
+    """The new span nests inside ``fused.refresh_membership``: readers that
+    sum ``fused.begin_feed`` or subtract ``fused.*`` children read the
+    same with and without it, on hand-built spans and a session's."""
+    reader = _bench_reader(name)
+
+    def read(spans):
+        return reader.read(dict(trace=dict(spans=spans), rec={}))
+
+    child = ("fused.ring_table", 1.7, 3.0)
+    assert read(_ONE_FEED) == read(_ONE_FEED + [child])
+    tel = Telemetry(enabled=True)
+    _session(stream, "fish", tel)
+    spans = [(s.name, s.t0, s.t1) for s in tel.tracer.spans]
+    assert any(s[0] == "fused.ring_table" for s in spans)
+    # a stamp shared by two span starts may reorder the sum's terms
+    assert read(spans) == pytest.approx(
+        read([s for s in spans if s[0] != "fused.ring_table"]),
+        rel=1e-12, abs=1e-12)
