@@ -85,6 +85,7 @@ import torch
 
 from .._device import resolve_device
 from ..obs.telemetry import Telemetry
+from ..state.window import PaneEntries
 from . import _build
 
 __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
@@ -93,7 +94,8 @@ __all__ = ["FusedEdgeRunner", "fused_reject_reason", "LAUNCHES",
            "tracker_update", "tracker_update_plain", "route_scan",
            "route_scan_plain", "fifo_workers", "fifo_workers_plain",
            "route_prologue", "pane_update", "pane_update_plain",
-           "pane_from_entries", "pane_grow", "pane_canonical",
+           "pane_from_entries", "pane_grow", "pane_canonical", "pane_block",
+           "pane_unblock",
            "pane_capacity", "pane_pairs", "PANE_EMPTY", "SCHEME_IDS"]
 
 #: kernel launches on CUDA tensors, counted where each wrapper launches
@@ -815,10 +817,37 @@ def pane_canonical(pane_keys: torch.Tensor, pane_vc: torch.Tensor):
     in, so every reader of a pane table reads this form.  A table past half
     load is refused (``ValueError``): its caller broke the size contract,
     and on the card a pair that found every slot taken was dropped."""
+    block, n = pane_block(pane_keys, pane_vc,
+                          pane_keys.new_empty(0, dtype=torch.int32))
+    return block[:n], block[n:2 * n].view(torch.int32).view(2, n)
+
+
+def pane_block(pane_keys: torch.Tensor, pane_vc: torch.Tensor,
+               pane_last: torch.Tensor):
+    """:func:`pane_canonical` and ``pane_last`` (int32) in one int64 block
+    on the table's device, for one copy to the host: the sort and the
+    gather write into it in place, so it costs the two results' bytes and
+    ``pane_last``'s.  Returns (block, n): the pairs are ``[0, n)``, the
+    sums (2, n) int32 ``[n, 2n)``; :func:`pane_unblock` splits the host
+    copy."""
     occ = torch.nonzero(pane_keys != PANE_EMPTY).squeeze(1)
-    _pane_load_check(occ.shape[0], pane_keys.shape[0], "pane_canonical")
-    pairs, order = torch.sort(pane_keys[occ])
-    return pairs, pane_vc[:, occ[order]]
+    n = occ.shape[0]
+    _pane_load_check(n, pane_keys.shape[0], "pane_canonical")
+    block = torch.empty(2 * n + (pane_last.shape[0] + 1) // 2,
+                        dtype=torch.int64, device=pane_keys.device)
+    order = torch.empty(n, dtype=torch.int64, device=pane_keys.device)
+    torch.sort(pane_keys[occ], out=(block[:n], order))
+    torch.index_select(pane_vc, 1, occ[order],
+                       out=block[n:2 * n].view(torch.int32).view(2, n))
+    block[2 * n:].view(torch.int32)[:pane_last.shape[0]].copy_(pane_last)
+    return block, n
+
+
+def pane_unblock(host: np.ndarray, n: int, w1: int):
+    """The host copy of a :func:`pane_block`: (pairs (n,) int64, sums (2,
+    n) int32, ``pane_last`` (w1,) int32), views of it."""
+    return (host[:n], host[n:2 * n].view(np.int32).reshape(2, n),
+            host[2 * n:].view(np.int32)[:w1])
 
 
 def _pane_merge_plain(pane_keys, pane_vc, pairs, vals, cnts) -> None:
@@ -1390,22 +1419,19 @@ class FusedEdgeRunner:
         # the occupied slots (each with a count > 0), compacted and sorted
         # by pair key on the device: grouped per worker with keys
         # ascending; only the entries cross to the host (padding lanes
-        # never enter the table)
-        pairs_d, vc_d = pane_canonical(self.pane_keys, self.pane_vc)
+        # never enter the table), with pane_last, in one copy
+        block, n = pane_block(self.pane_keys, self.pane_vc, self.pane_last)
         self._wait("fused.pane_flush.wait")
-        pairs = pairs_d.cpu().numpy()
-        vc = vc_d.cpu().numpy().astype(np.int64)
-        last = self.pane_last.cpu().numpy()
-        entries = []
-        if pairs.shape[0]:
-            ws = pairs >> 32
-            ks = pairs & 0xFFFFFFFF
-            vs, cs = vc
-            starts = np.concatenate(
-                [[0], np.flatnonzero(ws[1:] != ws[:-1]) + 1, [ws.shape[0]]])
-            for s, e in zip(starts[:-1].tolist(), starts[1:].tolist()):
-                w = int(ws[s])
-                entries.append((w, ks[s:e], vs[s:e], cs[s:e], int(last[w])))
+        pairs, vc, last = pane_unblock(block.cpu().numpy(), n,
+                                       self.pane_last.shape[0])
+        ws = pairs >> 32
+        vs, cs = vc.astype(np.int64)
+        cut = np.flatnonzero(ws[1:] != ws[:-1]) + 1
+        starts = (np.concatenate(([0], cut, [n])) if n
+                  else np.zeros(1, dtype=np.int64))
+        workers = ws[starts[:-1]]
+        entries = PaneEntries(workers, starts, pairs & 0xFFFFFFFF, vs, cs,
+                              last[workers].astype(np.int64))
         sink.feed_aggregated(self.pane_fed, entries)
         self.pane_fed = 0
         flush_span.done()

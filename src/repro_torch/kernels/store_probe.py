@@ -36,7 +36,8 @@ import torch
 from . import _build
 
 __all__ = ["store_probe", "store_probe_plain", "store_probe_grouped",
-           "store_probe_grouped_plain", "grouped_meta", "LAUNCHES"]
+           "store_probe_grouped_plain", "grouped_meta", "meta_from_pointers",
+           "LAUNCHES"]
 
 #: kernel launches, counted where the wrapper launches
 LAUNCHES = {"store_probe": 0}
@@ -128,13 +129,24 @@ def grouped_meta(tables: Sequence[torch.Tensor], offsets: Sequence[int],
     pointers, table lengths, the G+1 token offsets, value-out and count-out
     pointers.  A caller that packs its data into one upload writes this
     beside it and passes the device copy as ``meta``."""
-    g = len(tables)
+    return meta_from_pointers([t.data_ptr() for t in tables],
+                              [t.shape[0] for t in tables], offsets,
+                              [t.data_ptr() for t in vout],
+                              [t.data_ptr() for t in cout])
+
+
+def meta_from_pointers(table_ptrs, table_lens, offsets, vout_ptrs,
+                       cout_ptrs) -> np.ndarray:
+    """:func:`grouped_meta` from the pairs' addresses and lengths, G each
+    (G+1 offsets): for a caller that knows where its columns lie in one
+    allocation and so reads no tensor's ``data_ptr``."""
+    g = len(table_lens)
     meta = np.empty(5 * g + 1, dtype=np.int64)
-    meta[:g] = [t.data_ptr() for t in tables]
-    meta[g:2 * g] = [t.shape[0] for t in tables]
+    meta[:g] = table_ptrs
+    meta[g:2 * g] = table_lens
     meta[2 * g:3 * g + 1] = offsets
-    meta[3 * g + 1:4 * g + 1] = [t.data_ptr() for t in vout]
-    meta[4 * g + 1:] = [t.data_ptr() for t in cout]
+    meta[3 * g + 1:4 * g + 1] = vout_ptrs
+    meta[4 * g + 1:] = cout_ptrs
     return meta
 
 
@@ -155,7 +167,8 @@ def store_probe_grouped(tables: Sequence[torch.Tensor], keys: torch.Tensor,
                         vals: torch.Tensor, cnts: Optional[torch.Tensor],
                         offsets: Sequence[int], vout: Sequence[torch.Tensor],
                         cout: Sequence[torch.Tensor], *,
-                        meta: Optional[torch.Tensor] = None) -> None:
+                        meta: Optional[torch.Tensor] = None,
+                        slab: Optional[torch.Tensor] = None) -> None:
     """Fold G (slot table, chunk) pairs in one launch, adding in place:
     ``vout[g] += Σ value`` and ``cout[g] += Σ count`` per slot of
     ``tables[g]`` over the tokens ``[offsets[g], offsets[g+1])`` of the
@@ -167,6 +180,13 @@ def store_probe_grouped(tables: Sequence[torch.Tensor], keys: torch.Tensor,
     meta:       the device copy of :func:`grouped_meta` for exactly these
                 tensors, when the caller uploaded it with its data; else it
                 is built and uploaded here (one more copy).
+    slab:       the one 1-D int32 buffer that ``keys``, ``vals``, ``cnts``
+                and ``meta`` are views of, from a caller that built every
+                table and output column itself (``DeviceStateStore.
+                merge_many``): the buffer is checked once in place of each
+                view, and the columns are taken as they are, as ``meta``'s
+                pointers always are.  Only the plain version reads
+                ``tables``, ``vout`` and ``cout`` then (any sequences of G).
     """
     g = len(tables)
     if not (len(vout) == len(cout) == g and len(offsets) == g + 1):
@@ -174,21 +194,10 @@ def store_probe_grouped(tables: Sequence[torch.Tensor], keys: torch.Tensor,
                          "G+1 offsets")
     if int(offsets[0]) != 0 or int(offsets[-1]) != keys.shape[0]:
         raise ValueError("store_probe_grouped: offsets must span the chunk")
-    for name, t in [("keys", keys), ("vals", vals), ("cnts", cnts)] + [
-            ("table", t) for t in tables] + [("vout", t) for t in vout] + [
-            ("cout", t) for t in cout]:
-        if t is None:
-            continue
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"store_probe_grouped: {name} must be 1-D int32,"
-                            f" got {t.dtype} {tuple(t.shape)}")
-        if t.device != keys.device or not t.is_contiguous():
-            raise ValueError("store_probe_grouped: contiguous tensors on one "
-                             "device")
-    for t, v, c in zip(tables, vout, cout):
-        if v.shape != t.shape or c.shape != t.shape:
-            raise ValueError("store_probe_grouped: an output column does not "
-                             "match its table")
+    if slab is None:
+        _check_pairs(tables, keys, vals, cnts, vout, cout)
+    else:
+        _check_slab(slab, keys, vals, cnts, meta)
     if keys.device.type == "cpu":
         vsums, csums = store_probe_grouped_plain(tables, keys, vals, cnts,
                                                  offsets)
@@ -212,3 +221,34 @@ def store_probe_grouped(tables: Sequence[torch.Tensor], keys: torch.Tensor,
     _build.check(err, "store_probe_grouped")
     LAUNCHES["store_probe"] += 1
     return None
+
+
+def _check_pairs(tables, keys, vals, cnts, vout, cout) -> None:
+    for name, t in [("keys", keys), ("vals", vals), ("cnts", cnts)] + [
+            ("table", t) for t in tables] + [("vout", t) for t in vout] + [
+            ("cout", t) for t in cout]:
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"store_probe_grouped: {name} must be 1-D int32,"
+                            f" got {t.dtype} {tuple(t.shape)}")
+        if t.device != keys.device or not t.is_contiguous():
+            raise ValueError("store_probe_grouped: contiguous tensors on one "
+                             "device")
+    for t, v, c in zip(tables, vout, cout):
+        if v.shape != t.shape or c.shape != t.shape:
+            raise ValueError("store_probe_grouped: an output column does not "
+                             "match its table")
+
+
+def _check_slab(slab, keys, vals, cnts, meta) -> None:
+    if slab.dtype != torch.int32 or slab.dim() != 1 or \
+            not slab.is_contiguous():
+        raise TypeError("store_probe_grouped: slab must be a contiguous 1-D "
+                        f"int32 buffer, got {slab.dtype} {tuple(slab.shape)}")
+    base = slab.untyped_storage().data_ptr()
+    for t in (keys, vals, cnts, meta):
+        if t is not None and (t.untyped_storage().data_ptr() != base
+                              or not t.is_contiguous()):
+            raise ValueError("store_probe_grouped: keys, vals, cnts and meta "
+                             "must be contiguous views of the slab")

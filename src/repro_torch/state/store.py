@@ -30,7 +30,8 @@ are backend-independent and comparable across schemes.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from collections.abc import Sequence
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,9 @@ __all__ = [
     "DictStateStore",
     "ArrayStateStore",
     "DeviceStateStore",
+    "ChunkColumns",
+    "READBACKS",
+    "read_stores",
     "STORE_BACKENDS",
     "make_store",
 ]
@@ -327,6 +331,76 @@ class ArrayStateStore:
         return ks[order], self._v[live].copy(), self._c[live].copy()
 
 
+#: device-to-host copies of young columns (a store's two, a slab's one),
+#: counted where they are made
+READBACKS = {"store": 0}
+
+_COLUMNS = ("_host_keys", "_keys", "_v", "_c", "_base_v", "_base_c")
+_LIM = 2 ** 31 - 1
+
+
+class ChunkColumns(NamedTuple):
+    """G reduced chunks back to back — :meth:`DeviceStateStore.merge_many`'s
+    input: chunk g is rows ``[starts[g], starts[g+1])`` of the int64
+    ``keys`` (sorted unique within a chunk), ``values`` and ``counts``."""
+
+    keys: np.ndarray
+    values: np.ndarray
+    counts: np.ndarray
+    starts: np.ndarray
+
+    @classmethod
+    def of(cls, chunks) -> "ChunkColumns":
+        """From a sequence of ``(keys, values, counts)``: one concatenation
+        a column."""
+        cols = [[np.asarray(c[j], dtype=np.int64) for c in chunks]
+                for j in range(3)]
+        starts = np.zeros(len(chunks) + 1, dtype=np.int64)
+        np.cumsum([k.shape[0] for k in cols[0]], out=starts[1:])
+        return cls(*(np.concatenate(c) if c else np.empty(0, np.int64)
+                     for c in cols), starts)
+
+
+class _Slab:
+    """The fresh stores of one pane sync, side by side in the sync's upload
+    ``buf`` (:meth:`DeviceStateStore.merge_many`): their tables at ``[0,
+    n)``, young values at ``[width, width + n)`` and young counts at ``[2
+    width, 2 width + n)`` — ``width`` counts every new table of the sync,
+    the fresh stores' first — and their sorted host key mirrors back to
+    back in ``keys`` (n,).  A store on the slab owns rows ``[lo, hi)`` of
+    each and has a zero base: whatever would give it a base or a new table
+    takes it off first (:meth:`DeviceStateStore._own_columns`)."""
+
+    __slots__ = ("buf", "width", "keys")
+
+    def __init__(self, buf: torch.Tensor, width: int, keys: np.ndarray):
+        self.buf, self.width, self.keys = buf, width, keys
+
+    def read(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every slab row's young (values, counts) as host int64: one copy
+        of the contiguous ``[width, 2 width + n)``."""
+        n, w = self.keys.shape[0], self.width
+        young = self.buf[w:2 * w + n].cpu().numpy().astype(np.int64)
+        READBACKS["store"] += 1
+        return young[:n], young[w:w + n]
+
+
+class _StoreColumns(Sequence):
+    """One device column (``"_keys"``, ``"_v"`` or ``"_c"``) of each of
+    ``stores``, fetched when indexed: only the plain probe reads them."""
+
+    __slots__ = ("stores", "name")
+
+    def __init__(self, stores, name: str):
+        self.stores, self.name = stores, name
+
+    def __len__(self) -> int:
+        return len(self.stores)
+
+    def __getitem__(self, i):
+        return getattr(self.stores[i], self.name)
+
+
 class DeviceStateStore:
     """Device-resident backend: the sorted slot table and int32
     (value, count) accumulators live as torch tensors on ``device``, and
@@ -351,6 +425,12 @@ class DeviceStateStore:
     reach 2³¹−1, so lifetime aggregates stay exact at 10⁸-tuple scale.
     ``items``/``take`` return base + young.
 
+    The stores a sync meets empty go on one slab (:class:`_Slab`): their
+    columns are rows of the sync's upload and of one host key array, made
+    into the attributes ``_host_keys``, ``_keys``, ``_v``, ``_c``,
+    ``_base_v``, ``_base_c`` only when first read (:meth:`__getattr__`),
+    and :func:`read_stores` reads a slab's young columns back in one copy.
+
     ``device``: ``None`` means ``"cuda"`` (raises without a card); pass
     ``"cpu"`` to run the plain versions."""
 
@@ -358,21 +438,58 @@ class DeviceStateStore:
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
-        self._host_keys = np.empty(0, dtype=np.int64)  # sorted mirror
-        self._keys = None  # device int32, strictly ascending (lazy)
-        self._v = None     # device int32 young-gen value accumulators
-        self._c = None     # device int32 young-gen count accumulators
-        self._base_v = np.empty(0, dtype=np.int64)  # host lifetime base
-        self._base_c = np.empty(0, dtype=np.int64)
+        self._slab = None  # the _Slab this store's columns are rows of
+        self._lo = self._hi = 0  # those rows
         self._young_bound = 0  # ≥ max |young element|, per-merge accumulated
+
+    @classmethod
+    def many(cls, n: int, device=None) -> List["DeviceStateStore"]:
+        """``n`` fresh stores on one device, resolved once."""
+        dev = resolve_device(device)
+        stores = [cls.__new__(cls) for _ in range(n)]
+        for st in stores:
+            st.device, st._slab, st._lo, st._hi = dev, None, 0, 0
+            st._young_bound = 0
+        return stores
+
+    def __getattr__(self, name: str):
+        # a column not made yet: empty for a store that holds nothing, else
+        # views of its slab rows (and a zero base)
+        if name not in _COLUMNS:
+            raise AttributeError(name)
+        d = self.__dict__
+        slab = d.get("_slab")
+        if slab is None:
+            d.update(_host_keys=np.empty(0, dtype=np.int64), _keys=None,
+                     _v=None, _c=None, _base_v=np.empty(0, dtype=np.int64),
+                     _base_c=np.empty(0, dtype=np.int64))
+        else:
+            lo, hi, w, buf = d["_lo"], d["_hi"], slab.width, slab.buf
+            d.update(_host_keys=slab.keys[lo:hi], _keys=buf[lo:hi],
+                     _v=buf[w + lo:w + hi], _c=buf[2 * w + lo:2 * w + hi],
+                     _base_v=np.zeros(hi - lo, dtype=np.int64),
+                     _base_c=np.zeros(hi - lo, dtype=np.int64))
+        return d[name]
+
+    def _own_columns(self) -> None:
+        """Take the store off its slab before its columns change (a spill,
+        a rebuild, ``take``): its attributes stay views of the slab rows
+        until replaced, and the slab's readback no longer serves it."""
+        if self._slab is not None:
+            if "_keys" not in self.__dict__:
+                self.__getattr__("_keys")
+            self._slab = None
 
     # -- interface ------------------------------------------------------------
     @property
     def num_entries(self) -> int:
-        return int(self._host_keys.shape[0])
+        if self._slab is not None:
+            return self._hi - self._lo
+        hk = self.__dict__.get("_host_keys")
+        return 0 if hk is None else int(hk.shape[0])
 
     def size_bytes(self) -> int:
-        return int(self._host_keys.shape[0]) * ENTRY_BYTES
+        return self.num_entries * ENTRY_BYTES
 
     @staticmethod
     def reduce_chunk(keys: np.ndarray, values: np.ndarray):
@@ -386,11 +503,11 @@ class DeviceStateStore:
         return uniq, vsum, csum
 
     def update_batch(self, keys: np.ndarray, values: np.ndarray) -> None:
-        self.merge_many([self], [self.reduce_chunk(keys, values)])
+        DeviceStateStore.merge_many([self], [self.reduce_chunk(keys, values)])
 
     def merge_entries(self, keys: np.ndarray, values: np.ndarray,
                       counts: np.ndarray, own: bool = False) -> None:
-        self.merge_many([self], [(keys, values, counts)])
+        DeviceStateStore.merge_many([self], [(keys, values, counts)])
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host int column → device int32 (the caller range-checked it)."""
@@ -401,120 +518,151 @@ class DeviceStateStore:
         """Fold one reduced chunk into each of ``stores`` — a whole pane
         sync — with one packed upload and one probe launch.
 
-        ``chunks[g]`` is ``(keys, values, counts)`` for ``stores[g]``: int
-        columns, keys sorted unique (every caller guarantees it); each
-        store appears at most once.  Each store's host bookkeeping runs
-        first: range checks, the young generation's spill guard, the sorted
-        mirror and the rebuild around unseen keys.  Then one copy moves
-        every new table (fresh and rebuilt stores) with its zeroed young
-        columns, the chunks' keys, values and counts, and the kernel's pair
+        ``chunks`` is a :class:`ChunkColumns`, or a sequence whose ``g``-th
+        item is ``(keys, values, counts)`` for ``stores[g]``: int columns,
+        keys sorted unique (every caller guarantees it); each store appears
+        at most once.  The range checks and chunk bounds run on the whole
+        columns.  A store that holds keys already (warm) then runs its own
+        bookkeeping: the young generation's spill guard, the sorted mirror
+        and the rebuild around unseen keys.  The stores that hold none
+        (fresh) take no call each: their tables are their chunks' keys,
+        already sorted, and they go on one :class:`_Slab`.  One copy moves
+        every new table with its zeroed young columns — ``[fresh tables |
+        rebuilt tables | their young values | their young counts]`` — then
+        the chunks' keys, values and counts, and the kernel's pair
         description to the device, and one ``store_probe_grouped`` launch
-        adds both columns of every merge into the young generation.  The
-        new tables and young columns are views into that one allocation.
-        ``tracer`` times the call (span ``state.merge_many``) and the
+        adds both columns of every merge into the young generation.
+        ``tracer`` times the call (span ``state.merge_many``, args
+        ``stores`` and ``slab``: the stores placed on the slab) and the
         packed upload (``state.merge_many.upload``)."""
-        from ..kernels.store_probe import grouped_meta, store_probe_grouped
+        from ..kernels.store_probe import (meta_from_pointers,
+                                           store_probe_grouped)
 
         span = tracer.span("state.merge_many", cat="state", stores=len(stores))
-
-        lim = 2 ** 31 - 1
-        work = []  # (store, keys, values, counts, new table or None)
-        for st, (keys, values, counts) in zip(stores, chunks):
-            uniq = np.asarray(keys, dtype=np.int64)
-            n = uniq.shape[0]
-            if n == 0:
-                continue
-            vsum = np.asarray(values, dtype=np.int64)
-            csum = np.asarray(counts, dtype=np.int64)
-            if uniq[0] < 0 or uniq[-1] > lim:
-                raise ValueError(
-                    "DeviceStateStore keys must fit int32 (got range "
-                    f"[{uniq[0]}, {uniq[-1]}])")
-            chunk_bound = int(max(np.abs(vsum).max(initial=0),
-                                  np.abs(csum).max(initial=0)))
-            if chunk_bound > lim:
-                raise ValueError(
-                    "DeviceStateStore accumulates in int32; chunk "
-                    "aggregates exceed its range")
-            # spill young → base before this chunk could push any young
-            # element past int32 (each merge adds ≤ chunk_bound per element)
-            if st._young_bound + chunk_bound > lim:
-                st._spill()
-            st._young_bound += chunk_bound
-            hk = st._host_keys
-            k = hk.shape[0]
-            pos = np.searchsorted(hk, uniq)
-            present = ((pos < k) & (hk[np.clip(pos, 0, max(k - 1, 0))]
-                                    == uniq)) if k else np.zeros(n, bool)
-            union = None
-            if not present.all():
-                union = np.sort(np.concatenate([hk, uniq[~present]]))
-            work.append((st, uniq, vsum, csum, union))
-        if not work:
-            span.done()
+        if not isinstance(chunks, ChunkColumns):
+            chunks = ChunkColumns.of(chunks)
+        keys, vals, cnts, starts = chunks
+        lens = np.diff(starts)
+        if not lens.all():  # an empty chunk folds nothing
+            live = lens > 0
+            stores = [st for st, on in zip(stores, live.tolist()) if on]
+            lens = lens[live]
+            starts = np.concatenate(([0], np.cumsum(lens)))
+        g = len(stores)
+        if g == 0:
+            span.set(slab=0).done()
             return
-        device = work[0][0].device
-        if any(w[0].device != device for w in work):
+        if keys.min() < 0 or keys.max() > _LIM:
+            raise ValueError(
+                "DeviceStateStore keys must fit int32 (got range "
+                f"[{keys.min()}, {keys.max()}])")
+        bounds = np.maximum.reduceat(np.maximum(np.abs(vals), np.abs(cnts)),
+                                     starts[:-1])
+        if bounds.max() > _LIM:
+            raise ValueError("DeviceStateStore accumulates in int32; chunk "
+                             "aggregates exceed its range")
+        device = stores[0].device
+        if any(st.device is not device and st.device != device
+               for st in stores):
             raise ValueError("merge_many: stores on more than one device")
+        fresh = np.array([not st.num_entries for st in stores], dtype=bool)
 
-        # one int32 buffer: [table | young v | young c] per new table, then
-        # the chunks' keys | values | counts, then the int64 pair meta
-        g = len(work)
-        n_new = sum(3 * w[4].shape[0] for w in work if w[4] is not None)
-        n_tok = sum(w[1].shape[0] for w in work)
-        at_meta = n_new + 3 * n_tok
+        sl, bl = starts.tolist(), bounds.tolist()
+        rebuilt = []  # (index, union): warm stores meeting unseen keys
+        for i in np.flatnonzero(~fresh).tolist():
+            st, uniq = stores[i], keys[sl[i]:sl[i + 1]]
+            # spill young → base before this chunk could push any young
+            # element past int32 (each merge adds ≤ its bound per element)
+            if st._young_bound + bl[i] > _LIM:
+                st._spill()
+            st._young_bound += bl[i]
+            hk = st._host_keys
+            pos = np.searchsorted(hk, uniq)
+            present = (pos < hk.shape[0]) & (
+                hk[np.minimum(pos, hk.shape[0] - 1)] == uniq)
+            if not present.all():
+                rebuilt.append(
+                    (i, np.sort(np.concatenate([hk, uniq[~present]]))))
+
+        f_idx = np.flatnonzero(fresh)
+        f_len = lens[f_idx]
+        f_lo = np.cumsum(f_len) - f_len
+        n_f, n_tok = int(f_len.sum()), keys.shape[0]
+        f_keys = keys if n_f == n_tok else keys[np.repeat(fresh, lens)]
+        width = n_f + sum(u.shape[0] for _, u in rebuilt)
+        at_keys = 3 * width
+        at_meta = at_keys + 3 * n_tok
         at_meta += at_meta % 2  # 8-byte aligned
         buf = torch.empty(at_meta + 2 * (5 * g + 1), dtype=torch.int32,
                           device=device)
-        host = np.zeros(buf.shape[0], dtype=np.int32)
-        at = 0
-        rebuilt = []  # (new table, new v, new c, old table, old v, old c)
-        for st, _, _, _, union in work:
-            if union is None:
-                continue
-            kn = union.shape[0]
+        host = np.empty(buf.shape[0], dtype=np.int32)
+        host[:n_f] = f_keys
+        host[width:at_keys] = 0
+        for j, col in enumerate((keys, vals, cnts)):
+            host[at_keys + j * n_tok:at_keys + (j + 1) * n_tok] = col
+        host[at_keys + 3 * n_tok:at_meta] = 0
+        ptr = buf.data_ptr()
+        tptr, vptr, cptr = (np.empty(g, dtype=np.int64) for _ in range(3))
+        tlen = np.empty(g, dtype=np.int64)
+        tptr[f_idx] = ptr + 4 * f_lo
+        vptr[f_idx] = ptr + 4 * (width + f_lo)
+        cptr[f_idx] = ptr + 4 * (2 * width + f_lo)
+        tlen[f_idx] = f_len
+        carry = []  # (new table, new v, new c, old table, old v, old c)
+        at = n_f
+        for i, union in rebuilt:
+            st, kn = stores[i], union.shape[0]
+            st._own_columns()
             host[at:at + kn] = union
-            tab, nv, nc = (buf[at + j * kn:at + (j + 1) * kn]
+            tab, nv, nc = (buf[j * width + at:j * width + at + kn]
                            for j in range(3))
-            at += 3 * kn
+            old_pos = np.searchsorted(union, st._host_keys)
             nbv = np.zeros(kn, dtype=np.int64)
             nbc = np.zeros(kn, dtype=np.int64)
-            if st._host_keys.shape[0]:
-                old_pos = np.searchsorted(union, st._host_keys)
-                nbv[old_pos] = st._base_v
-                nbc[old_pos] = st._base_c
-                rebuilt.append((tab, nv, nc, st._keys, st._v, st._c))
+            nbv[old_pos] = st._base_v
+            nbc[old_pos] = st._base_c
+            carry.append((tab, nv, nc, st._keys, st._v, st._c))
             st._host_keys = union
             st._keys, st._v, st._c = tab, nv, nc
             st._base_v, st._base_c = nbv, nbc
-        offsets = [0]
-        for _, uniq, vsum, csum, _ in work:
-            lo, n = offsets[-1], uniq.shape[0]
-            host[at + lo:at + lo + n] = uniq
-            host[at + n_tok + lo:at + n_tok + lo + n] = vsum
-            host[at + 2 * n_tok + lo:at + 2 * n_tok + lo + n] = csum
-            offsets.append(lo + n)
-        keys_d, vals_d, cnts_d = (buf[at + j * n_tok:at + (j + 1) * n_tok]
-                                  for j in range(3))
-        tables = [w[0]._keys for w in work]
-        vout = [w[0]._v for w in work]
-        cout = [w[0]._c for w in work]
-        host[at_meta:] = grouped_meta(tables, offsets, vout,
-                                      cout).view(np.int32)
+            at += kn
+        for i in np.flatnonzero(~fresh).tolist():
+            st = stores[i]
+            tptr[i], vptr[i], cptr[i] = (st._keys.data_ptr(),
+                                         st._v.data_ptr(), st._c.data_ptr())
+            tlen[i] = st._host_keys.shape[0]
+        host[at_meta:] = meta_from_pointers(tptr, tlen, starts, vptr,
+                                            cptr).view(np.int32)
         with tracer.span("state.merge_many.upload", cat="state",
                          bytes=host.nbytes):
             buf.copy_(torch.from_numpy(host))
         # a warm store that met unseen keys carries its young columns over
-        for tab, nv, nc, old_tab, old_v, old_c in rebuilt:
+        for tab, nv, nc, old_tab, old_v, old_c in carry:
             idx = torch.searchsorted(tab, old_tab)
             nv[idx] = old_v
             nc[idx] = old_c
-        store_probe_grouped(tables, keys_d, vals_d, cnts_d, offsets, vout,
-                            cout, meta=buf[at_meta:].view(torch.int64))
-        span.done()
+        if n_f:
+            slab = _Slab(buf, width, f_keys)
+            for st, lo, hi, b in zip(
+                    (stores[i] for i in f_idx.tolist()), f_lo.tolist(),
+                    (f_lo + f_len).tolist(), bounds[f_idx].tolist()):
+                d = st.__dict__
+                if "_keys" in d:  # columns it was given while empty
+                    for name in _COLUMNS:
+                        del d[name]
+                d["_slab"], d["_lo"], d["_hi"] = slab, lo, hi
+                d["_young_bound"] = b
+        store_probe_grouped(
+            _StoreColumns(stores, "_keys"), buf[at_keys:at_keys + n_tok],
+            buf[at_keys + n_tok:at_keys + 2 * n_tok],
+            buf[at_keys + 2 * n_tok:at_keys + 3 * n_tok], starts,
+            _StoreColumns(stores, "_v"), _StoreColumns(stores, "_c"),
+            meta=buf[at_meta:].view(torch.int64), slab=buf)
+        span.set(slab=int(f_idx.shape[0])).done()
 
     def _young(self):
         """The young generation read back as host int64 columns."""
+        READBACKS["store"] += 2
         return (self._v.cpu().numpy().astype(np.int64),
                 self._c.cpu().numpy().astype(np.int64))
 
@@ -522,6 +670,7 @@ class DeviceStateStore:
         """Fold the int32 young generation into the int64 lifetime base
         and zero the device accumulators (one readback; amortized over
         ~2³¹/chunk_bound merges)."""
+        self._own_columns()
         if self._v is not None and self._host_keys.shape[0]:
             v, c = self._young()
             self._base_v = self._base_v + v
@@ -534,6 +683,7 @@ class DeviceStateStore:
         keys = np.asarray(keys, dtype=np.int64)
         if keys.shape[0] == 0:
             return (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
+        self._own_columns()
         k = self._host_keys.shape[0]
         pos = np.searchsorted(self._host_keys, keys)
         posc = np.clip(pos, 0, max(k - 1, 0))
@@ -556,11 +706,30 @@ class DeviceStateStore:
         return vals, cnts
 
     def items(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        if self._host_keys.shape[0] == 0:
+        if self.num_entries == 0:
             return (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64),
                     np.empty(0, dtype=np.int64))
         v, c = self._young()
         return (self._host_keys.copy(), self._base_v + v, self._base_c + c)
+
+
+def read_stores(stores) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Each store's ``items()``, any backend: the device stores still on a
+    slab from one copy of that slab's young columns (their bases are zero),
+    every other store by its own ``items()``."""
+    reads = {}
+    out = []
+    for st in stores:
+        slab = getattr(st, "_slab", None)
+        if slab is None:
+            out.append(st.items())
+            continue
+        cols = reads.get(slab)
+        if cols is None:
+            cols = reads[slab] = (slab.keys,) + slab.read()
+        lo, hi = st._lo, st._hi
+        out.append((cols[0][lo:hi], cols[1][lo:hi], cols[2][lo:hi]))
+    return out
 
 
 STORE_BACKENDS = {"dict": DictStateStore, "array": ArrayStateStore,

@@ -30,17 +30,20 @@ enforces against the :func:`repro_torch.state.merge.direct_aggregate` oracle.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Sequence
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..obs.trace import NULL_TRACER
 from .migration import MigrationStats, apply_membership_change
-from .store import ENTRY_BYTES, STORE_BACKENDS, DeviceStateStore, make_store
+from .store import (ENTRY_BYTES, READBACKS, STORE_BACKENDS, ChunkColumns,
+                    DeviceStateStore, make_store, read_stores)
 
 __all__ = [
     "WindowOp",
     "WindowPartial",
+    "PaneEntries",
     "StateReport",
     "KeyedStateManager",
     "tuple_values",
@@ -144,6 +147,43 @@ class WindowPartial:
     last_index: int      # input index of the worker's last tuple in window
 
 
+class PaneEntries(Sequence):
+    """One pane sync's entries as columns — the fused runner's hand-off to
+    :meth:`KeyedStateManager.feed_aggregated`: worker ``workers[g]``'s
+    entries are rows ``[starts[g], starts[g+1])`` (never empty) of ``keys``
+    (ascending), ``values`` and ``counts`` (int64), its last stream index
+    ``last[g]``.  It reads as the sequence of ``(worker, keys, values,
+    counts, last_index)`` that ``feed_aggregated`` takes."""
+
+    __slots__ = ("workers", "starts", "keys", "values", "counts", "last")
+
+    def __init__(self, workers, starts, keys, values, counts, last):
+        self.workers, self.starts, self.last = workers, starts, last
+        self.keys, self.values, self.counts = keys, values, counts
+
+    @classmethod
+    def of(cls, entries) -> "PaneEntries":
+        """From a sequence of entries, the empty ones left out."""
+        entries = [e for e in entries if e[1].shape[0]]
+        ch = ChunkColumns.of([e[1:4] for e in entries])
+        return cls(np.array([int(e[0]) for e in entries], dtype=np.int64),
+                   ch.starts, ch.keys, ch.values, ch.counts,
+                   np.array([int(e[4]) for e in entries], dtype=np.int64))
+
+    def chunks(self) -> ChunkColumns:
+        return ChunkColumns(self.keys, self.values, self.counts, self.starts)
+
+    def __len__(self) -> int:
+        return self.workers.shape[0]
+
+    def __getitem__(self, g: int):
+        if not 0 <= g < len(self):
+            raise IndexError(g)
+        lo, hi = int(self.starts[g]), int(self.starts[g + 1])
+        return (int(self.workers[g]), self.keys[lo:hi], self.values[lo:hi],
+                self.counts[lo:hi], int(self.last[g]))
+
+
 @dataclasses.dataclass
 class StateReport:
     """Per-operator-stage state outcome (JSON-able via :meth:`summary`)."""
@@ -241,20 +281,22 @@ class KeyedStateManager:
             self.state_bytes_peak = total
         return total
 
-    def _flush_window(self, start: int) -> None:
+    def _flush_window(self, start: int) -> int:
         """Compose the window starting at ``start`` from its panes (one
         per-worker partial, keys sorted) and drop the panes no later
-        window needs."""
+        window needs.  The stores are read through :func:`read_stores`
+        (one copy a slab); returns how many."""
         size, stride = self.op.size, self.op.stride
         panes = [self._panes[p] for p in range(start, start + size, stride)
                  if p in self._panes]
-        workers = sorted({w for pane in panes for w in pane.stores})
-        for w in workers:
-            parts = [(pane.stores[w].items(), pane.last_idx.get(w, start))
-                     for pane in panes
-                     if w in pane.stores and pane.stores[w].num_entries]
-            if not parts:
-                continue
+        held = [(w, pane.last_idx.get(w, start), st) for pane in panes
+                for w, st in pane.stores.items() if st.num_entries]
+        by_worker: Dict[int, list] = {}
+        for (w, last, _), cols in zip(held,
+                                      read_stores([h[2] for h in held])):
+            by_worker.setdefault(w, []).append((cols, last))
+        for w in sorted(by_worker):
+            parts = by_worker[w]
             if len(parts) == 1:
                 (ks, vs, cs), last = parts[0]
             else:
@@ -272,14 +314,19 @@ class KeyedStateManager:
         self._next_window = start + stride
         for p in [p for p in self._panes if p < self._next_window]:
             del self._panes[p]
+        return len(held)
 
     def _flush_ready(self) -> None:
-        """Flush every window whose end has passed (in start order)."""
+        """Flush every window whose end has passed (in start order).  Span
+        ``state.flush_windows``, args ``stores`` (read) and ``readbacks``
+        (the device copies that made)."""
         if self._next_window + self.op.size <= self.idx:
-            with self.tracer.span("state.flush_windows", cat="state"):
+            with self.tracer.span("state.flush_windows", cat="state") as sp:
                 self._note_bytes()
+                copies, stores = READBACKS["store"], 0
                 while self._next_window + self.op.size <= self.idx:
-                    self._flush_window(self._next_window)
+                    stores += self._flush_window(self._next_window)
+                sp.set(stores=stores, readbacks=READBACKS["store"] - copies)
 
     # -- stream input -------------------------------------------------------------
     def feed(self, keys, workers, values=None) -> None:
@@ -341,12 +388,15 @@ class KeyedStateManager:
         :meth:`feed`.
 
         ``n_tuples`` is how many input tuples the sync covers (advances
-        ``self.idx``); ``entries`` is a list of ``(worker, keys int64,
+        ``self.idx``); ``entries`` is a sequence of ``(worker, keys int64,
         values int64, counts int64, last_index)`` — values already folded
-        through :func:`tuple_values` by the caller.  The covered span must
+        through :func:`tuple_values` by the caller — or the same as the
+        columns of a :class:`PaneEntries`.  The covered span must
         lie within a single pane (the fused engine cuts segments at pane
         boundaries); store merging accumulates, so one pane may be synced
-        in several calls (e.g. around membership events)."""
+        in several calls (e.g. around membership events).  The device
+        backend folds the whole sync in one
+        :meth:`DeviceStateStore.merge_many` over the columns."""
         if self._finalized:
             raise RuntimeError("KeyedStateManager already finalized")
         if n_tuples == 0:
@@ -364,30 +414,46 @@ class KeyedStateManager:
         pane = self._panes.get(block)
         if pane is None:
             pane = self._panes[block] = _Pane(block, block + stride)
-        backend = self.op.backend
-        device_stores, device_chunks = [], []
-        for w, ks, vs, cs, last in entries:
-            if ks.shape[0] == 0:
-                continue
-            w = int(w)
-            self._seen_pending.append(ks)
-            st = pane.stores.get(w)
-            if st is None:
-                st = pane.stores[w] = make_store(backend, self.device)
-            if backend == "device":  # the whole sync in one launch
-                device_stores.append(st)
-                device_chunks.append((ks, vs, cs))
-            else:
+        if self.op.backend == "device":
+            cols = (entries if isinstance(entries, PaneEntries)
+                    else PaneEntries.of(entries))
+            if len(cols):
+                self._seen_pending.append(cols.keys)
+                DeviceStateStore.merge_many(self._pane_stores(pane, cols),
+                                            cols.chunks(), tracer=self.tracer)
+        else:
+            for w, ks, vs, cs, last in entries:
+                if ks.shape[0] == 0:
+                    continue
+                w = int(w)
+                self._seen_pending.append(ks)
+                st = pane.stores.get(w)
+                if st is None:
+                    st = pane.stores[w] = make_store(self.op.backend,
+                                                     self.device)
                 # the fused flush builds these columns fresh per sync — the
                 # store may keep them without a defensive copy
                 st.merge_entries(ks, vs, cs, own=True)
-            if last > pane.last_idx.get(w, -1):
-                pane.last_idx[w] = int(last)
-        if device_stores:
-            DeviceStateStore.merge_many(device_stores, device_chunks,
-                                        tracer=self.tracer)
+                if last > pane.last_idx.get(w, -1):
+                    pane.last_idx[w] = int(last)
         self.idx += n_tuples
         span.done()
+
+    def _pane_stores(self, pane: _Pane, cols: PaneEntries) -> list:
+        """The pane's device store of each worker of ``cols`` (those it
+        meets first made in one go), with ``last_idx`` brought up."""
+        ws = cols.workers.tolist()
+        stores = [pane.stores.get(w) for w in ws]
+        missing = [j for j, st in enumerate(stores) if st is None]
+        if missing:
+            for j, st in zip(missing, DeviceStateStore.many(len(missing),
+                                                            self.device)):
+                stores[j] = pane.stores[ws[j]] = st
+        last_idx = pane.last_idx
+        for w, last in zip(ws, cols.last.tolist()):
+            if last > last_idx.get(w, -1):
+                last_idx[w] = last
+        return stores
 
     def _seen_count(self) -> int:
         """Distinct state keys seen.  Bulk (fused) inputs defer the set

@@ -632,6 +632,58 @@ def test_cuda_store_probe_grouped_matches_plain(g):
 
 
 @pytest.mark.cuda
+def test_cuda_slab_pane_syncs_match_the_cpu():
+    """A 128-worker fused FISH edge into a device window store, on the
+    card and on the CPU's plain versions: the same partials, partial for
+    partial.  On the card each pane sync puts every store on one slab
+    and launches ``store_probe`` once, and each window flush reads its
+    pane back in one copy."""
+    from repro_torch.core.stream import simulate_edge
+    from repro_torch.obs import Tracer
+    from repro_torch.state import KeyedStateManager, WindowOp
+    from repro_torch.topology.configs import config_for
+
+    _card()
+    n, feed, window = 32_768, 4_096, 8_192
+    keys = zipf_time_evolving(n, num_keys=20_000, z=1.2, seed=33)
+    values = np.random.default_rng(34).integers(1, 10, n).astype(float)
+    ts = np.arange(n, dtype=np.float64) / 2e4
+    out = {}
+    for device in ("cuda", "cpu"):
+        tracer = Tracer()
+        mgr = KeyedStateManager(WindowOp(agg="sum", value="payload",
+                                         size=window, backend="device"),
+                                device=device, tracer=tracer)
+        g, st = config_for("fish").build(128), None
+        launches = sp.LAUNCHES["store_probe"]
+        for lo in range(0, n, feed):
+            st = simulate_edge(g, keys[lo:lo + feed],
+                               times=ts[lo:lo + feed], mode="fused",
+                               state=st, arrival_rate=2e4, state_sink=mgr,
+                               values=values[lo:lo + feed],
+                               device=device).state
+        st.device.flush_pane(mgr)
+        mgr.finalize()
+        out[device] = (mgr.partials, sp.LAUNCHES["store_probe"] - launches,
+                       tracer.spans)
+    (card, launched, spans), (host, host_launched, _) = (out["cuda"],
+                                                        out["cpu"])
+    assert len(card) == len(host) > 4 * 128 // 2
+    for a, b in zip(card, host):
+        assert (a.window, a.worker, a.last_index) == \
+            (b.window, b.worker, b.last_index)
+        for x, y in ((a.keys, b.keys), (a.values, b.values),
+                     (a.counts, b.counts)):
+            np.testing.assert_array_equal(x, y)
+    merges = [s.args for s in spans if s.name == "state.merge_many"]
+    assert launched == len(merges) == n // window and host_launched == 0
+    assert all(m["slab"] == m["stores"] > 0 for m in merges)
+    flushes = [s.args for s in spans if s.name == "state.flush_windows"]
+    assert len(flushes) == n // window - 1
+    assert all(f["readbacks"] == 1 for f in flushes)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["sg", "fg", "pkg", "dc", "wc", "fish"])
 def test_cuda_fused_engine_matches_plain_engine(scheme):
     """Whole sessions — several feeds, a scale-out, a straggler and a

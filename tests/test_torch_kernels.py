@@ -606,6 +606,11 @@ def test_pane_update_plain_matches_numpy(case):
         np.maximum.at(want_last, w, 500 + j * s.m + np.arange(s.m))
     assert grew == (2 if case == "growth" else 0)
     pairs, vc = ff.pane_canonical(pane_keys, pane_vc)
+    # the flush's one-copy form: the same pairs and sums, and pane_last
+    block, n = ff.pane_block(pane_keys, pane_vc, last)
+    got = ff.pane_unblock(block.numpy(), n, s.w1)
+    for a, b in zip(got, (pairs.numpy(), vc.numpy(), last.numpy())):
+        np.testing.assert_array_equal(a, b)
     ws, ks = np.nonzero(want_c)  # row-major: sorted by (worker, key)
     np.testing.assert_array_equal(pairs.numpy(), (ws << 32) | ks)
     np.testing.assert_array_equal(vc[0].numpy(), want_v[ws, ks])
@@ -659,3 +664,31 @@ def test_store_probe_grouped_matches_pallas(sizes):
                                       jnp.asarray(cnts[g]), interpret=True)
         np.testing.assert_array_equal(vout[g].numpy(), 5 + np.asarray(vr))
         np.testing.assert_array_equal(cout[g].numpy(), 7 + np.asarray(cr))
+
+
+@pytest.mark.parametrize("fault", ["none", "dtype", "foreign_view"])
+def test_store_probe_grouped_checks_the_slab_once(fault):
+    """The packed call (``slab=``): chunks and meta as views of one int32
+    buffer; the buffer is checked, not each column — a buffer of another
+    dtype or a chunk from outside it is refused, and a sound one adds as
+    the per-pair call does."""
+    from repro_torch.kernels import store_probe as sp
+
+    table = torch.tensor([2, 5, 9], dtype=torch.int32)
+    buf = torch.tensor([5, 9, 5, 1, 2, 3, 1, 1, 1], dtype=torch.int32)
+    keys, vals, cnts = buf[:3], buf[3:6], buf[6:9]
+    slab = buf
+    if fault == "dtype":
+        slab = buf.to(torch.int64)
+    elif fault == "foreign_view":
+        keys = keys.clone()
+    vout, cout = [torch.zeros(3, dtype=torch.int32) for _ in range(2)]
+    call = (lambda: sp.store_probe_grouped([table], keys, vals, cnts, [0, 3],
+                                           [vout], [cout], slab=slab))
+    if fault == "none":
+        call()
+        assert vout.tolist() == [0, 1 + 3, 2] and cout.tolist() == [0, 2, 1]
+    else:
+        with pytest.raises(TypeError if fault == "dtype" else ValueError,
+                           match="slab"):
+            call()

@@ -93,6 +93,13 @@ def test_fused_session_emits_the_new_spans(stream, scheme):
     for child in ("state.finalize", "state.report", "session.edge_metrics",
                   "session.percentiles"):
         inside(child, "session.close")
+    # each pane is synced once, into stores that are all fresh: every sync
+    # puts all its stores on one slab, and every window flush reads its
+    # one pane's slab back in one copy
+    merges = [s.args for s in spans if s.name == "state.merge_many"]
+    assert all(m["slab"] == m["stores"] > 0 for m in merges)
+    flushes = [s.args for s in spans if s.name == "state.flush_windows"]
+    assert all(f["readbacks"] == 1 and f["stores"] > 0 for f in flushes)
 
 
 def test_disabled_session_emits_nothing_and_reports_the_same(stream):

@@ -140,3 +140,106 @@ def test_merge_many_matches_per_store_merges():
     assert ours[4].items()[1].tolist() == [5 * big // 2]
     assert ours[4]._base_v.max() > INT32_MAX // 2
     assert ours[3].num_entries == 0
+
+
+#: the slab path's cases: workers, window slide (None: tumbling), and what
+#: else happens — an empty chunk, a membership event between two syncs of
+#: one pane, a young generation past 2^31 on a slab store
+SLAB_CASES = {
+    "tumbling_1": dict(workers=1),
+    "tumbling_128": dict(workers=128),
+    "tumbling_512": dict(workers=512),
+    "sliding_128": dict(workers=128, slide=250),
+    "empty_chunk": dict(workers=16, empty=3),
+    "membership": dict(workers=16, event=True),
+    "spill": dict(workers=16, spill=True),
+}
+
+
+def _sync_entries(rng, grouper, workers, start, span, empty=None, big=None):
+    """One pane sync as the fused runner hands it over: per worker its
+    sorted unique keys (routed by ``grouper``, else drawn for each worker),
+    value and count sums, and its last stream index."""
+    entries = []
+    if grouper is not None:
+        keys = np.unique(rng.integers(0, 5_000, 4 * len(workers)))
+        owner = np.array([grouper.probe_route(int(k)) for k in keys])
+        chosen = {w: keys[owner == w] for w in workers}
+    for w in workers:
+        if grouper is not None:
+            ks = chosen[w]
+        else:
+            n = 0 if w == empty else int(rng.integers(1, 5))
+            ks = np.sort(rng.choice(5_000, n, replace=False))
+        cs = rng.integers(1, 9, ks.shape[0])
+        vs = cs * rng.integers(1, 98, ks.shape[0])
+        if big is not None and w == 0:
+            ks, vs, cs = np.array([7]), np.array([big]), np.array([big])
+        entries.append((w, ks.astype(np.int64), vs.astype(np.int64),
+                        cs.astype(np.int64),
+                        int(start + rng.integers(0, span))))
+    return entries
+
+
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_slab_pane_syncs_match_per_store_merges(case):
+    """A manager fed whole pane syncs — every store fresh, so on one slab,
+    and each window read back one copy a slab — flushes the same partials
+    as the reference package's device store fed one merge_entries a store:
+    keys, values, counts and last index, partial for partial.  The event
+    case takes keys off slab stores (``take``) and syncs the pane again
+    around it; the spill case gives a slab store a young generation past
+    2^31 in a pane's second sync."""
+    from repro.topology.configs import config_for as ref_config
+    from repro_torch.obs import Tracer
+    from repro_torch.topology.configs import config_for
+
+    cfg = SLAB_CASES[case]
+    W, slide = cfg["workers"], cfg.get("slide")
+    stride = slide or 1_000
+    op = dict(agg="sum", size=1_000, slide=slide, backend="device")
+    tracer = Tracer()
+    ours = PS.KeyedStateManager(PS.WindowOp(**op), device=CPU, tracer=tracer)
+    ref = RS.KeyedStateManager(RS.WindowOp(**op))
+    groupers = ((config_for("fg").build(W), ref_config("fg").build(W))
+                if cfg.get("event") else (None, None))
+    rng = np.random.default_rng(W + stride)
+    second = cfg.get("event") or cfg.get("spill")
+    for pane in range(4):
+        start = pane * stride
+        cuts = [0, 400, stride] if pane == 1 and second else [0, stride]
+        for j, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            if j and cfg.get("event"):
+                for mgr, g in zip((ours, ref), groupers):
+                    mgr.on_event("pre_membership", g)
+                    g.on_membership_change(list(range(1, W + 2)))
+                    mgr.on_event("post_membership", g)
+            live = (sorted(groupers[0].active_workers)
+                    if cfg.get("event") else range(W))
+            big = (2 ** 30 + j * 2 ** 29 if cfg.get("spill") and pane == 1
+                   else None)
+            entries = _sync_entries(rng, groupers[0], live, start + lo,
+                                    hi - lo, cfg.get("empty"), big)
+            handed = (entries if cfg.get("empty") is not None
+                      else PS.window.PaneEntries.of(entries))
+            ours.feed_aggregated(hi - lo, handed)
+            ref.feed_aggregated(hi - lo, entries)
+    ours.finalize()
+    ref.finalize()
+    assert len(ours.partials) == len(ref.partials) > 0
+    for a, b in zip(ours.partials, ref.partials):
+        assert (a.window, a.worker, a.last_index) == \
+            (b.window, b.worker, b.last_index)
+        for x, y in ((a.keys, b.keys), (a.values, b.values),
+                     (a.counts, b.counts)):
+            np.testing.assert_array_equal(x, y)
+    assert ours.migration.bytes_moved == ref.migration.bytes_moved
+    merges = [s.args for s in tracer.spans if s.name == "state.merge_many"]
+    fresh_syncs = merges if not second else merges[:2] + merges[3:]
+    assert all(m["slab"] == m["stores"] > 0 for m in fresh_syncs)
+    if second:  # the pane's second sync meets the first's stores warm
+        assert merges[2]["slab"] < merges[2]["stores"]
+    if cfg.get("event"):
+        assert ours.migration.bytes_moved > 0
+    if cfg.get("spill"):
+        assert max(int(p.values.max()) for p in ours.partials) > INT32_MAX
