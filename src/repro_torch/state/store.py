@@ -251,11 +251,7 @@ class ArrayStateStore:
 
     def update_batch(self, keys: np.ndarray, values: np.ndarray) -> None:
         self._materialize()
-        uniq, inv = np.unique(np.asarray(keys, dtype=np.int64),
-                              return_inverse=True)
-        vsum = np.zeros(uniq.shape[0], dtype=np.int64)
-        np.add.at(vsum, inv, np.asarray(values, dtype=np.int64))
-        csum = np.bincount(inv, minlength=uniq.shape[0]).astype(np.int64)
+        uniq, vsum, csum = _reduce(keys, values)
         self._maybe_grow(uniq.shape[0])
         slots = self._slots_for(uniq, insert=True)
         self._v[slots] += vsum
@@ -335,8 +331,18 @@ class ArrayStateStore:
 #: counted where they are made
 READBACKS = {"store": 0}
 
-_COLUMNS = ("_host_keys", "_keys", "_v", "_c", "_base_v", "_base_c")
 _LIM = 2 ** 31 - 1
+
+
+def _reduce(keys: np.ndarray, values: np.ndarray):
+    """Per-key (sorted unique keys, Σ value, tuple count) of a raw chunk,
+    int64."""
+    uniq, inv = np.unique(np.asarray(keys, dtype=np.int64),
+                          return_inverse=True)
+    vsum = np.zeros(uniq.shape[0], dtype=np.int64)
+    np.add.at(vsum, inv, np.asarray(values, dtype=np.int64))
+    csum = np.bincount(inv, minlength=uniq.shape[0]).astype(np.int64)
+    return uniq, vsum, csum
 
 
 class ChunkColumns(NamedTuple):
@@ -349,198 +355,152 @@ class ChunkColumns(NamedTuple):
     counts: np.ndarray
     starts: np.ndarray
 
-    @classmethod
-    def of(cls, chunks) -> "ChunkColumns":
-        """From a sequence of ``(keys, values, counts)``: one concatenation
-        a column."""
-        cols = [[np.asarray(c[j], dtype=np.int64) for c in chunks]
-                for j in range(3)]
-        starts = np.zeros(len(chunks) + 1, dtype=np.int64)
-        np.cumsum([k.shape[0] for k in cols[0]], out=starts[1:])
-        return cls(*(np.concatenate(c) if c else np.empty(0, np.int64)
-                     for c in cols), starts)
-
 
 class _Slab:
-    """The fresh stores of one pane sync, side by side in the sync's upload
-    ``buf`` (:meth:`DeviceStateStore.merge_many`): their tables at ``[0,
-    n)``, young values at ``[width, width + n)`` and young counts at ``[2
-    width, 2 width + n)`` — ``width`` counts every new table of the sync,
-    the fresh stores' first — and their sorted host key mirrors back to
-    back in ``keys`` (n,).  A store on the slab owns rows ``[lo, hi)`` of
-    each and has a zero base: whatever would give it a base or a new table
-    takes it off first (:meth:`DeviceStateStore._own_columns`)."""
+    """Device stores side by side in one int32 buffer ``buf``: their
+    sorted tables at ``[0, n)``, young values at ``[n, 2n)`` and young
+    counts at ``[2n, 3n)``, with the tables' host int64 mirror ``keys``
+    (n,).  A store is rows ``[lo, hi)`` of each.  The slab of a sync
+    (:meth:`DeviceStateStore.merge_many`) is that sync's upload: its
+    chunks and the probe's pair description follow row ``3n``."""
 
-    __slots__ = ("buf", "width", "keys")
+    __slots__ = ("buf", "keys")
 
-    def __init__(self, buf: torch.Tensor, width: int, keys: np.ndarray):
-        self.buf, self.width, self.keys = buf, width, keys
+    def __init__(self, buf: torch.Tensor, keys: np.ndarray):
+        self.buf, self.keys = buf, keys
 
     def read(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Every slab row's young (values, counts) as host int64: one copy
-        of the contiguous ``[width, 2 width + n)``."""
-        n, w = self.keys.shape[0], self.width
-        young = self.buf[w:2 * w + n].cpu().numpy().astype(np.int64)
+        """Every row's young (values, counts) as host int64: one copy of
+        the contiguous ``[n, 3n)``."""
+        n = self.keys.shape[0]
+        young = self.buf[n:3 * n].cpu().numpy().astype(np.int64)
         READBACKS["store"] += 1
-        return young[:n], young[w:w + n]
+        return young[:n], young[n:]
 
 
 class _StoreColumns(Sequence):
-    """One device column (``"_keys"``, ``"_v"`` or ``"_c"``) of each of
-    ``stores``, fetched when indexed: only the plain probe reads them."""
+    """Column ``j`` of :meth:`DeviceStateStore._rows` (1 the table, 2 the
+    young values, 3 the young counts) of each of ``stores``, made when
+    indexed: only the plain probe reads them, so a sync on the card makes
+    no view a store."""
 
-    __slots__ = ("stores", "name")
+    __slots__ = ("stores", "j")
 
-    def __init__(self, stores, name: str):
-        self.stores, self.name = stores, name
+    def __init__(self, stores, j: int):
+        self.stores, self.j = stores, j
 
     def __len__(self) -> int:
         return len(self.stores)
 
     def __getitem__(self, i):
-        return getattr(self.stores[i], self.name)
+        return self.stores[i]._rows()[self.j]
 
 
 class DeviceStateStore:
-    """Device-resident backend: the sorted slot table and int32
-    (value, count) accumulators live as torch tensors on ``device``, and
-    folding reduced chunks is one probe/accumulate launch for any number
+    """Device-resident backend: a store is rows ``[lo, hi)`` of a
+    :class:`_Slab` — its sorted slot table and int32 (value, count)
+    accumulators on ``device``, and the table's sorted host int64 key
+    mirror, which keeps membership checks, sizing and ``items`` ordering
+    off-device — plus a host int64 lifetime base (``None``: zero).  One
+    accessor, :meth:`_rows`, derives the columns from ``(slab, lo, hi)``;
+    a store that has held nothing yet has no slab.  The table is strictly
+    ascending by construction, which is the probe kernel's precondition.
+
+    Folding reduced chunks is one probe/accumulate launch for any number
     of stores (:meth:`merge_many` →
     :func:`repro_torch.kernels.store_probe.store_probe_grouped` — the
     hand-written CUDA kernel on a card, its plain PyTorch version on the
-    CPU; both columns of each merge in the same launch).  A sorted
-    host int64 key mirror keeps membership checks, sizing and ``items``
-    ordering off-device; inserting unseen keys rebuilds the device table
-    around them (the open-addressing slow path — rare once the key set is
-    warm).  The table is strictly ascending by construction, which is the
-    probe kernel's precondition.
+    CPU; both columns of each merge in the same launch).  A store that
+    gets a new table — its first keys, or keys it has not seen, around
+    which the table is rebuilt — moves to that sync's slab.
 
-    Accumulation is generational: the device tensors are an int32 *young
+    Accumulation is generational: the device columns are an int32 *young
     generation* — the kernel's probe/accumulate domain, with inputs
-    range-checked per merge — and a host int64 *lifetime base*
-    (``_base_v``/``_base_c``) carries totals beyond int32.  A conservative
-    running bound on the young generation's magnitude (the sum of per-merge
-    chunk bounds) triggers a spill — read the young columns back, add into
-    the base, zero the device tensors — strictly before any element could
-    reach 2³¹−1, so lifetime aggregates stay exact at 10⁸-tuple scale.
-    ``items``/``take`` return base + young.
-
-    The stores a sync meets empty go on one slab (:class:`_Slab`): their
-    columns are rows of the sync's upload and of one host key array, made
-    into the attributes ``_host_keys``, ``_keys``, ``_v``, ``_c``,
-    ``_base_v``, ``_base_c`` only when first read (:meth:`__getattr__`),
-    and :func:`read_stores` reads a slab's young columns back in one copy.
+    range-checked per merge — and the lifetime base carries totals beyond
+    int32.  A conservative running bound on the young generation's
+    magnitude (the sum of per-merge chunk bounds) triggers a spill — read
+    the young rows back, add them into the base, zero them in place —
+    strictly before any element could reach 2³¹−1, so lifetime aggregates
+    stay exact at 10⁸-tuple scale.  ``items``/``take``/:func:`read_stores`
+    return base + young.
 
     ``device``: ``None`` means ``"cuda"`` (raises without a card); pass
     ``"cpu"`` to run the plain versions."""
 
     backend = "device"
+    __slots__ = ("device", "_slab", "_lo", "_hi", "_base_v", "_base_c",
+                 "_young_bound")
 
     def __init__(self, device=None) -> None:
-        self.device = resolve_device(device)
-        self._slab = None  # the _Slab this store's columns are rows of
+        # a torch.device is taken as resolved (a manager resolves its
+        # device once for all its stores)
+        self.device = (device if isinstance(device, torch.device)
+                       else resolve_device(device))
+        self._slab = None  # the _Slab its rows are in; None: it holds none
         self._lo = self._hi = 0  # those rows
+        self._base_v = self._base_c = None  # lifetime base, None: zero
         self._young_bound = 0  # ≥ max |young element|, per-merge accumulated
 
-    @classmethod
-    def many(cls, n: int, device=None) -> List["DeviceStateStore"]:
-        """``n`` fresh stores on one device, resolved once."""
-        dev = resolve_device(device)
-        stores = [cls.__new__(cls) for _ in range(n)]
-        for st in stores:
-            st.device, st._slab, st._lo, st._hi = dev, None, 0, 0
-            st._young_bound = 0
-        return stores
+    def _rows(self):
+        """The store's rows of its slab: (host keys, table, young values,
+        young counts), views."""
+        slab, lo, hi = self._slab, self._lo, self._hi
+        n, buf = slab.keys.shape[0], slab.buf
+        return (slab.keys[lo:hi], buf[lo:hi], buf[n + lo:n + hi],
+                buf[2 * n + lo:2 * n + hi])
 
-    def __getattr__(self, name: str):
-        # a column not made yet: empty for a store that holds nothing, else
-        # views of its slab rows (and a zero base)
-        if name not in _COLUMNS:
-            raise AttributeError(name)
-        d = self.__dict__
-        slab = d.get("_slab")
-        if slab is None:
-            d.update(_host_keys=np.empty(0, dtype=np.int64), _keys=None,
-                     _v=None, _c=None, _base_v=np.empty(0, dtype=np.int64),
-                     _base_c=np.empty(0, dtype=np.int64))
-        else:
-            lo, hi, w, buf = d["_lo"], d["_hi"], slab.width, slab.buf
-            d.update(_host_keys=slab.keys[lo:hi], _keys=buf[lo:hi],
-                     _v=buf[w + lo:w + hi], _c=buf[2 * w + lo:2 * w + hi],
-                     _base_v=np.zeros(hi - lo, dtype=np.int64),
-                     _base_c=np.zeros(hi - lo, dtype=np.int64))
-        return d[name]
-
-    def _own_columns(self) -> None:
-        """Take the store off its slab before its columns change (a spill,
-        a rebuild, ``take``): its attributes stay views of the slab rows
-        until replaced, and the slab's readback no longer serves it."""
-        if self._slab is not None:
-            if "_keys" not in self.__dict__:
-                self.__getattr__("_keys")
-            self._slab = None
+    def _with_base(self, v: np.ndarray, c: np.ndarray):
+        """Young (values, counts) read back, plus the lifetime base."""
+        if self._base_v is None:
+            return v, c
+        return self._base_v + v, self._base_c + c
 
     # -- interface ------------------------------------------------------------
     @property
     def num_entries(self) -> int:
-        if self._slab is not None:
-            return self._hi - self._lo
-        hk = self.__dict__.get("_host_keys")
-        return 0 if hk is None else int(hk.shape[0])
+        return self._hi - self._lo
 
     def size_bytes(self) -> int:
         return self.num_entries * ENTRY_BYTES
 
-    @staticmethod
-    def reduce_chunk(keys: np.ndarray, values: np.ndarray):
-        """Per-key (sorted unique keys, Σ value, tuple count) of a raw
-        chunk, int64 — what :meth:`merge_many` folds."""
-        uniq, inv = np.unique(np.asarray(keys, dtype=np.int64),
-                              return_inverse=True)
-        vsum = np.zeros(uniq.shape[0], dtype=np.int64)
-        np.add.at(vsum, inv, np.asarray(values, dtype=np.int64))
-        csum = np.bincount(inv, minlength=uniq.shape[0]).astype(np.int64)
-        return uniq, vsum, csum
-
     def update_batch(self, keys: np.ndarray, values: np.ndarray) -> None:
-        DeviceStateStore.merge_many([self], [self.reduce_chunk(keys, values)])
+        self.merge_entries(*_reduce(keys, values))
 
     def merge_entries(self, keys: np.ndarray, values: np.ndarray,
                       counts: np.ndarray, own: bool = False) -> None:
-        DeviceStateStore.merge_many([self], [(keys, values, counts)])
-
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host int column → device int32 (the caller range-checked it)."""
-        return torch.from_numpy(arr.astype(np.int32)).to(self.device)
+        cols = [np.asarray(a, dtype=np.int64) for a in (keys, values, counts)]
+        DeviceStateStore.merge_many([self], ChunkColumns(
+            *cols, np.array([0, cols[0].shape[0]], dtype=np.int64)))
 
     @staticmethod
-    def merge_many(stores, chunks, tracer=NULL_TRACER) -> None:
+    def merge_many(stores, chunks: ChunkColumns,
+                   tracer=NULL_TRACER) -> None:
         """Fold one reduced chunk into each of ``stores`` — a whole pane
         sync — with one packed upload and one probe launch.
 
-        ``chunks`` is a :class:`ChunkColumns`, or a sequence whose ``g``-th
-        item is ``(keys, values, counts)`` for ``stores[g]``: int columns,
-        keys sorted unique (every caller guarantees it); each store appears
-        at most once.  The range checks and chunk bounds run on the whole
-        columns.  A store that holds keys already (warm) then runs its own
-        bookkeeping: the young generation's spill guard, the sorted mirror
-        and the rebuild around unseen keys.  The stores that hold none
-        (fresh) take no call each: their tables are their chunks' keys,
-        already sorted, and they go on one :class:`_Slab`.  One copy moves
-        every new table with its zeroed young columns — ``[fresh tables |
-        rebuilt tables | their young values | their young counts]`` — then
-        the chunks' keys, values and counts, and the kernel's pair
-        description to the device, and one ``store_probe_grouped`` launch
-        adds both columns of every merge into the young generation.
-        ``tracer`` times the call (span ``state.merge_many``, args
-        ``stores`` and ``slab``: the stores placed on the slab) and the
-        packed upload (``state.merge_many.upload``)."""
+        ``chunks`` holds chunk ``g`` for ``stores[g]``: int columns, keys
+        sorted unique (every caller guarantees it); each store appears at
+        most once.  The range checks and chunk bounds run on the whole
+        columns.  A store that holds keys (warm) runs its young
+        generation's spill guard and checks its chunk against its key
+        mirror.  Every store that gets a new table goes on this sync's
+        :class:`_Slab`: a fresh one (its table is its chunk's keys,
+        already sorted; no call a store) and a warm one meeting unseen
+        keys (the union; its young columns are carried over on the device
+        and its base re-indexed).  A warm store that meets no new key
+        stays on its slab.  One copy moves the new tables with their
+        zeroed young columns — ``[fresh tables | rebuilt tables | young
+        values | young counts]`` — then the chunks' keys, values and
+        counts, and the kernel's pair description to the device, and one
+        ``store_probe_grouped`` launch adds both columns of every merge
+        into the young generation.  ``tracer`` times the call (span
+        ``state.merge_many``, args ``stores`` and ``slab``: the stores
+        placed on the slab) and the packed upload
+        (``state.merge_many.upload``)."""
         from ..kernels.store_probe import (meta_from_pointers,
                                            store_probe_grouped)
 
         span = tracer.span("state.merge_many", cat="state", stores=len(stores))
-        if not isinstance(chunks, ChunkColumns):
-            chunks = ChunkColumns.of(chunks)
         keys, vals, cnts, starts = chunks
         lens = np.diff(starts)
         if not lens.all():  # an empty chunk folds nothing
@@ -568,167 +528,161 @@ class DeviceStateStore:
         fresh = np.array([not st.num_entries for st in stores], dtype=bool)
 
         sl, bl = starts.tolist(), bounds.tolist()
-        rebuilt = []  # (index, union): warm stores meeting unseen keys
+        kept, rebuilt = [], []  # warm stores; rebuilt: (index, union)
         for i in np.flatnonzero(~fresh).tolist():
-            st, uniq = stores[i], keys[sl[i]:sl[i + 1]]
+            st = stores[i]
             # spill young → base before this chunk could push any young
             # element past int32 (each merge adds ≤ its bound per element)
             if st._young_bound + bl[i] > _LIM:
                 st._spill()
             st._young_bound += bl[i]
-            hk = st._host_keys
-            pos = np.searchsorted(hk, uniq)
-            present = (pos < hk.shape[0]) & (
-                hk[np.minimum(pos, hk.shape[0] - 1)] == uniq)
-            if not present.all():
-                rebuilt.append(
-                    (i, np.sort(np.concatenate([hk, uniq[~present]]))))
+            union = np.union1d(st._rows()[0], keys[sl[i]:sl[i + 1]])
+            if union.shape[0] == st.num_entries:
+                kept.append(i)
+            else:
+                rebuilt.append((i, union))
 
+        # the stores that get a new table, fresh ones first, and their
+        # rows of this sync's slab
         f_idx = np.flatnonzero(fresh)
-        f_len = lens[f_idx]
-        f_lo = np.cumsum(f_len) - f_len
-        n_f, n_tok = int(f_len.sum()), keys.shape[0]
-        f_keys = keys if n_f == n_tok else keys[np.repeat(fresh, lens)]
-        width = n_f + sum(u.shape[0] for _, u in rebuilt)
+        on_slab = np.concatenate(
+            [f_idx, np.array([i for i, _ in rebuilt], dtype=np.int64)])
+        t_len = np.concatenate([lens[f_idx], np.array(
+            [u.shape[0] for _, u in rebuilt], dtype=np.int64)])
+        t_hi = np.cumsum(t_len)
+        t_lo = t_hi - t_len
+        n_tok = keys.shape[0]
+        tables = keys if fresh.all() else keys[np.repeat(fresh, lens)]
+        if rebuilt:
+            tables = np.concatenate([tables] + [u for _, u in rebuilt])
+        width = tables.shape[0]
         at_keys = 3 * width
         at_meta = at_keys + 3 * n_tok
         at_meta += at_meta % 2  # 8-byte aligned
         buf = torch.empty(at_meta + 2 * (5 * g + 1), dtype=torch.int32,
                           device=device)
         host = np.empty(buf.shape[0], dtype=np.int32)
-        host[:n_f] = f_keys
+        host[:width] = tables
         host[width:at_keys] = 0
         for j, col in enumerate((keys, vals, cnts)):
             host[at_keys + j * n_tok:at_keys + (j + 1) * n_tok] = col
         host[at_keys + 3 * n_tok:at_meta] = 0
-        ptr = buf.data_ptr()
-        tptr, vptr, cptr = (np.empty(g, dtype=np.int64) for _ in range(3))
-        tlen = np.empty(g, dtype=np.int64)
-        tptr[f_idx] = ptr + 4 * f_lo
-        vptr[f_idx] = ptr + 4 * (width + f_lo)
-        cptr[f_idx] = ptr + 4 * (2 * width + f_lo)
-        tlen[f_idx] = f_len
-        carry = []  # (new table, new v, new c, old table, old v, old c)
-        at = n_f
-        for i, union in rebuilt:
-            st, kn = stores[i], union.shape[0]
-            st._own_columns()
-            host[at:at + kn] = union
-            tab, nv, nc = (buf[j * width + at:j * width + at + kn]
-                           for j in range(3))
-            old_pos = np.searchsorted(union, st._host_keys)
-            nbv = np.zeros(kn, dtype=np.int64)
-            nbc = np.zeros(kn, dtype=np.int64)
-            nbv[old_pos] = st._base_v
-            nbc[old_pos] = st._base_c
-            carry.append((tab, nv, nc, st._keys, st._v, st._c))
-            st._host_keys = union
-            st._keys, st._v, st._c = tab, nv, nc
-            st._base_v, st._base_c = nbv, nbc
-            at += kn
-        for i in np.flatnonzero(~fresh).tolist():
+        # every store's rows: its slab's address and height, lo, hi
+        addr, height, lo, hi = (np.empty(g, dtype=np.int64) for _ in range(4))
+        addr[on_slab], height[on_slab] = buf.data_ptr(), width
+        lo[on_slab], hi[on_slab] = t_lo, t_hi
+        for i in kept:
             st = stores[i]
-            tptr[i], vptr[i], cptr[i] = (st._keys.data_ptr(),
-                                         st._v.data_ptr(), st._c.data_ptr())
-            tlen[i] = st._host_keys.shape[0]
-        host[at_meta:] = meta_from_pointers(tptr, tlen, starts, vptr,
-                                            cptr).view(np.int32)
+            addr[i] = st._slab.buf.data_ptr()
+            height[i] = st._slab.keys.shape[0]
+            lo[i], hi[i] = st._lo, st._hi
+        host[at_meta:] = meta_from_pointers(
+            addr + 4 * lo, hi - lo, starts, addr + 4 * (height + lo),
+            addr + 4 * (2 * height + lo)).view(np.int32)
         with tracer.span("state.merge_many.upload", cat="state",
                          bytes=host.nbytes):
             buf.copy_(torch.from_numpy(host))
-        # a warm store that met unseen keys carries its young columns over
-        for tab, nv, nc, old_tab, old_v, old_c in carry:
-            idx = torch.searchsorted(tab, old_tab)
-            nv[idx] = old_v
-            nc[idx] = old_c
-        if n_f:
-            slab = _Slab(buf, width, f_keys)
-            for st, lo, hi, b in zip(
-                    (stores[i] for i in f_idx.tolist()), f_lo.tolist(),
-                    (f_lo + f_len).tolist(), bounds[f_idx].tolist()):
-                d = st.__dict__
-                if "_keys" in d:  # columns it was given while empty
-                    for name in _COLUMNS:
-                        del d[name]
-                d["_slab"], d["_lo"], d["_hi"] = slab, lo, hi
-                d["_young_bound"] = b
+        slab = _Slab(buf, tables)
+        n_f = f_idx.shape[0]
+        for i, a, b in zip(f_idx.tolist(), t_lo.tolist(), t_hi.tolist()):
+            st = stores[i]
+            st._slab, st._lo, st._hi, st._young_bound = slab, a, b, bl[i]
+            st._base_v = st._base_c = None
+        for (i, _), a, b in zip(rebuilt, t_lo[n_f:].tolist(),
+                                t_hi[n_f:].tolist()):
+            stores[i]._move(slab, a, b)
         store_probe_grouped(
-            _StoreColumns(stores, "_keys"), buf[at_keys:at_keys + n_tok],
+            _StoreColumns(stores, 1), buf[at_keys:at_keys + n_tok],
             buf[at_keys + n_tok:at_keys + 2 * n_tok],
             buf[at_keys + 2 * n_tok:at_keys + 3 * n_tok], starts,
-            _StoreColumns(stores, "_v"), _StoreColumns(stores, "_c"),
+            _StoreColumns(stores, 2), _StoreColumns(stores, 3),
             meta=buf[at_meta:].view(torch.int64), slab=buf)
-        span.set(slab=int(f_idx.shape[0])).done()
+        span.set(slab=int(on_slab.shape[0])).done()
+
+    def _move(self, slab: _Slab, lo: int, hi: int) -> None:
+        """Make rows ``[lo, hi)`` of ``slab`` — a table of every key the
+        store holds and more, young columns zeroed — the store's: its
+        young columns are carried over on the device, its base
+        re-indexed."""
+        keys, tab, v, c = self._rows()
+        self._slab, self._lo, self._hi = slab, lo, hi
+        new_keys, new_tab, new_v, new_c = self._rows()
+        idx = torch.searchsorted(new_tab, tab)
+        new_v[idx] = v
+        new_c[idx] = c
+        if self._base_v is not None:
+            pos = np.searchsorted(new_keys, keys)
+            bv, bc = np.zeros((2, hi - lo), dtype=np.int64)
+            bv[pos], bc[pos] = self._base_v, self._base_c
+            self._base_v, self._base_c = bv, bc
 
     def _young(self):
         """The young generation read back as host int64 columns."""
+        _, _, v, c = self._rows()
         READBACKS["store"] += 2
-        return (self._v.cpu().numpy().astype(np.int64),
-                self._c.cpu().numpy().astype(np.int64))
+        return (v.cpu().numpy().astype(np.int64),
+                c.cpu().numpy().astype(np.int64))
 
     def _spill(self) -> None:
-        """Fold the int32 young generation into the int64 lifetime base
-        and zero the device accumulators (one readback; amortized over
+        """Add the int32 young generation into the int64 lifetime base and
+        zero its rows in place (two readbacks; amortized over
         ~2³¹/chunk_bound merges)."""
-        self._own_columns()
-        if self._v is not None and self._host_keys.shape[0]:
-            v, c = self._young()
-            self._base_v = self._base_v + v
-            self._base_c = self._base_c + c
-            self._v.zero_()
-            self._c.zero_()
+        self._base_v, self._base_c = self._with_base(*self._young())
+        _, _, v, c = self._rows()
+        v.zero_()
+        c.zero_()
         self._young_bound = 0
 
     def take(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Remove ``keys`` (all present) and return their lifetime (values,
+        counts); the rest of the store moves to a slab of its own."""
         keys = np.asarray(keys, dtype=np.int64)
         if keys.shape[0] == 0:
             return (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
-        self._own_columns()
-        k = self._host_keys.shape[0]
-        pos = np.searchsorted(self._host_keys, keys)
-        posc = np.clip(pos, 0, max(k - 1, 0))
-        ok = ((pos < k) & (self._host_keys[posc] == keys)) if k else (
-            np.zeros(keys.shape[0], dtype=bool))
+        hk = (self._rows()[0] if self.num_entries
+              else np.empty(0, dtype=np.int64))
+        ok = np.isin(keys, hk)
         if not ok.all():
             raise KeyError(
                 f"{int((~ok).sum())} keys absent from DeviceStateStore")
+        pos = np.searchsorted(hk, keys)
         v, c = self._young()
-        vals = (self._base_v[pos] + v[pos]).copy()
-        cnts = (self._base_c[pos] + c[pos]).copy()
-        keep = np.ones(k, dtype=bool)
+        bv, bc = self._with_base(v, c)
+        vals, cnts = bv[pos], bc[pos]
+        keep = np.ones(hk.shape[0], dtype=bool)
         keep[pos] = False
-        self._host_keys = self._host_keys[keep]
-        self._keys = self._upload(self._host_keys)
-        self._v = self._upload(v[keep])
-        self._c = self._upload(c[keep])
-        self._base_v = self._base_v[keep]
-        self._base_c = self._base_c[keep]
+        hk, v, c = hk[keep], v[keep], c[keep]
+        self._slab = _Slab(torch.from_numpy(np.concatenate(
+            [hk, v, c]).astype(np.int32)).to(self.device), hk)
+        self._lo, self._hi = 0, hk.shape[0]
+        if self._base_v is not None:
+            self._base_v, self._base_c = self._base_v[keep], self._base_c[keep]
         return vals, cnts
 
     def items(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         if self.num_entries == 0:
             return (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64),
                     np.empty(0, dtype=np.int64))
-        v, c = self._young()
-        return (self._host_keys.copy(), self._base_v + v, self._base_c + c)
+        return (self._rows()[0].copy(), *self._with_base(*self._young()))
 
 
 def read_stores(stores) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Each store's ``items()``, any backend: the device stores still on a
-    slab from one copy of that slab's young columns (their bases are zero),
-    every other store by its own ``items()``."""
+    """Each store's ``items()``, any backend: a device store from one copy
+    of its slab's young columns (:meth:`_Slab.read`, once for all the
+    stores read on that slab) plus its base; a host-backend store by its
+    own ``items()``."""
     reads = {}
     out = []
     for st in stores:
-        slab = getattr(st, "_slab", None)
-        if slab is None:
+        if not isinstance(st, DeviceStateStore) or not st.num_entries:
             out.append(st.items())
             continue
-        cols = reads.get(slab)
-        if cols is None:
-            cols = reads[slab] = (slab.keys,) + slab.read()
-        lo, hi = st._lo, st._hi
-        out.append((cols[0][lo:hi], cols[1][lo:hi], cols[2][lo:hi]))
+        slab, lo, hi = st._slab, st._lo, st._hi
+        young = reads.get(slab)
+        if young is None:
+            young = reads[slab] = slab.read()
+        out.append((slab.keys[lo:hi],
+                    *st._with_base(young[0][lo:hi], young[1][lo:hi])))
     return out
 
 

@@ -35,9 +35,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .._device import resolve_device
 from ..obs.trace import NULL_TRACER
 from .migration import MigrationStats, apply_membership_change
-from .store import (ENTRY_BYTES, READBACKS, STORE_BACKENDS, ChunkColumns,
+from .store import (READBACKS, STORE_BACKENDS, ChunkColumns,
                     DeviceStateStore, make_store, read_stores)
 
 __all__ = [
@@ -148,12 +149,13 @@ class WindowPartial:
 
 
 class PaneEntries(Sequence):
-    """One pane sync's entries as columns — the fused runner's hand-off to
-    :meth:`KeyedStateManager.feed_aggregated`: worker ``workers[g]``'s
-    entries are rows ``[starts[g], starts[g+1])`` (never empty) of ``keys``
-    (ascending), ``values`` and ``counts`` (int64), its last stream index
-    ``last[g]``.  It reads as the sequence of ``(worker, keys, values,
-    counts, last_index)`` that ``feed_aggregated`` takes."""
+    """One pane's entries as columns — what :meth:`KeyedStateManager.
+    feed_aggregated` takes, and what :meth:`KeyedStateManager.feed` reduces
+    a routed chunk to: worker ``workers[g]``'s entries are rows
+    ``[starts[g], starts[g+1])`` (never empty) of ``keys`` (ascending),
+    ``values`` and ``counts`` (int64), its last stream index ``last[g]``.
+    It reads as the sequence of ``(worker, keys, values, counts,
+    last_index)``."""
 
     __slots__ = ("workers", "starts", "keys", "values", "counts", "last")
 
@@ -162,13 +164,22 @@ class PaneEntries(Sequence):
         self.keys, self.values, self.counts = keys, values, counts
 
     @classmethod
-    def of(cls, entries) -> "PaneEntries":
-        """From a sequence of entries, the empty ones left out."""
-        entries = [e for e in entries if e[1].shape[0]]
-        ch = ChunkColumns.of([e[1:4] for e in entries])
-        return cls(np.array([int(e[0]) for e in entries], dtype=np.int64),
-                   ch.starts, ch.keys, ch.values, ch.counts,
-                   np.array([int(e[4]) for e in entries], dtype=np.int64))
+    def routed(cls, keys: np.ndarray, workers: np.ndarray,
+               values: np.ndarray, first: int) -> "PaneEntries":
+        """A routed chunk reduced per (worker, key) in one pass: sorted by
+        worker, then key, each run summed; tuple ``i`` has stream index
+        ``first + i``."""
+        order = np.lexsort((keys, workers))
+        ws, ks = workers[order], keys[order]
+        run = np.flatnonzero((ws[1:] != ws[:-1]) | (ks[1:] != ks[:-1])) + 1
+        run = np.concatenate(([0], run))
+        counts = np.diff(np.append(run, order.shape[0]))
+        cut = np.flatnonzero(ws[run[1:]] != ws[run[:-1]]) + 1
+        starts = np.concatenate(([0], cut, [run.shape[0]]))
+        wcut = np.concatenate(([0], np.flatnonzero(ws[1:] != ws[:-1]) + 1))
+        return cls(ws[wcut], starts, ks[run],
+                   np.add.reduceat(values[order], run), counts,
+                   first + np.maximum.reduceat(order, wcut))
 
     def chunks(self) -> ChunkColumns:
         return ChunkColumns(self.keys, self.values, self.counts, self.starts)
@@ -229,13 +240,19 @@ class _Pane:
 class KeyedStateManager:
     """Keyed operator state for one grouped edge.
 
-    Engines drive three entry points, all in stream order:
+    Engines drive four entry points, all in stream order:
 
-    * :meth:`feed` — the routed (keys, workers[, values]) of the next chunk;
+    * :meth:`feed` — the routed (keys, workers[, values]) of the next chunk
+      (the host engines);
+    * :meth:`feed_aggregated` — one pane sync's :class:`PaneEntries` (the
+      fused engine);
     * :meth:`on_event` — the membership observer hook (same signature as
       the engines' ``event_observer``), which runs the migration protocol;
     * :meth:`finalize` — stream end: close the remaining open windows.
 
+    Both inputs reach the stores through one fold (:meth:`_fold`) over a
+    pane's per-worker columns: one :meth:`DeviceStateStore.merge_many` for
+    the device backend, a ``merge_entries`` a worker for a host backend.
     Internally state lives in panes (one per slide block); a window's
     per-worker partial is composed from its ``size/slide`` panes when the
     window closes.  Windows close in start order; once the window starting
@@ -250,7 +267,9 @@ class KeyedStateManager:
 
     def __init__(self, op: WindowOp, device=None, tracer=NULL_TRACER):
         self.op = op
-        self.device = device  # where "device"-backend stores live
+        # where "device"-backend stores live, resolved once for them all
+        self.device = (resolve_device(device) if op.backend == "device"
+                       else device)
         self.tracer = tracer
         self.idx = 0  # next input tuple index
         self.partials: List[WindowPartial] = []
@@ -333,7 +352,9 @@ class KeyedStateManager:
         """Fold the next routed chunk into the live panes' stores.
         ``keys[i]`` was routed to ``workers[i]`` (carrying payload
         ``values[i]`` when the stream has a values column); tuple ``i``
-        has global input index ``self.idx + i``."""
+        has global input index ``self.idx + i``.  Each pane's share is
+        reduced to :class:`PaneEntries` (:meth:`PaneEntries.routed`) and
+        folded as a pane sync is."""
         if self._finalized:
             raise RuntimeError("KeyedStateManager already finalized")
         keys = np.asarray(keys).astype(np.int64, copy=False)
@@ -344,59 +365,27 @@ class KeyedStateManager:
         self._seen_keys.update(np.unique(keys).tolist())
         values = tuple_values(self.op, keys, payload=values)
         stride = self.op.stride
-        backend = self.op.backend
         pos = 0
         while pos < n:
             self._flush_ready()
-            block = (self.idx // stride) * stride
-            pane = self._panes.get(block)
-            if pane is None:
-                pane = self._panes[block] = _Pane(block, block + stride)
-            take = min(n - pos, block + stride - self.idx)
-            kc = keys[pos:pos + take]
-            wc = workers[pos:pos + take]
-            vc = values[pos:pos + take]
-            order = np.argsort(wc, kind="stable")
-            ws = wc[order]
-            seg = np.concatenate([[0], np.flatnonzero(ws[1:] != ws[:-1]) + 1,
-                                  [take]])
-            device_stores, device_chunks = [], []
-            for s, e in zip(seg[:-1].tolist(), seg[1:].tolist()):
-                w = int(ws[s])
-                sl = order[s:e]
-                last = self.idx + int(sl.max())
-                st = pane.stores.get(w)
-                if st is None:
-                    st = pane.stores[w] = make_store(backend, self.device)
-                if backend == "device":  # every worker's chunk in one launch
-                    device_stores.append(st)
-                    device_chunks.append(st.reduce_chunk(kc[sl], vc[sl]))
-                else:
-                    st.update_batch(kc[sl], vc[sl])
-                if last > pane.last_idx.get(w, -1):
-                    pane.last_idx[w] = last
-            if device_stores:
-                DeviceStateStore.merge_many(device_stores, device_chunks,
-                                            tracer=self.tracer)
-            self.idx += take
+            take = min(n - pos, stride - self.idx % stride)
+            self._fold(take, PaneEntries.routed(
+                keys[pos:pos + take], workers[pos:pos + take],
+                values[pos:pos + take], self.idx))
             pos += take
 
-    def feed_aggregated(self, n_tuples: int, entries) -> None:
+    def feed_aggregated(self, n_tuples: int, entries: PaneEntries) -> None:
         """Fused-engine input: the device engine aggregates one
         pane's (key, worker) contributions on device and syncs them here
         in bulk instead of streaming every routed chunk through
         :meth:`feed`.
 
         ``n_tuples`` is how many input tuples the sync covers (advances
-        ``self.idx``); ``entries`` is a sequence of ``(worker, keys int64,
-        values int64, counts int64, last_index)`` — values already folded
-        through :func:`tuple_values` by the caller — or the same as the
-        columns of a :class:`PaneEntries`.  The covered span must
-        lie within a single pane (the fused engine cuts segments at pane
-        boundaries); store merging accumulates, so one pane may be synced
-        in several calls (e.g. around membership events).  The device
-        backend folds the whole sync in one
-        :meth:`DeviceStateStore.merge_many` over the columns."""
+        ``self.idx``); ``entries`` holds the sync's values already folded
+        through :func:`tuple_values`.  The covered span must lie within a
+        single pane (the fused engine cuts segments at pane boundaries);
+        store merging accumulates, so one pane may be synced in several
+        calls (e.g. around membership events)."""
         if self._finalized:
             raise RuntimeError("KeyedStateManager already finalized")
         if n_tuples == 0:
@@ -405,52 +394,49 @@ class KeyedStateManager:
                                 n=n_tuples, entries=len(entries))
         self._flush_ready()
         stride = self.op.stride
-        block = (self.idx // stride) * stride
-        if self.idx + n_tuples > block + stride:
+        if self.idx % stride + n_tuples > stride:
+            end = self.idx - self.idx % stride + stride
             raise ValueError(
                 f"feed_aggregated span [{self.idx}, {self.idx + n_tuples})"
-                f" crosses the pane boundary at {block + stride}; the "
+                f" crosses the pane boundary at {end}; the "
                 "fused engine must flush at pane boundaries")
+        if len(entries):
+            self._seen_pending.append(entries.keys)
+        self._fold(n_tuples, entries)
+        span.done()
+
+    def _fold(self, n_tuples: int, cols: PaneEntries) -> None:
+        """Fold one pane's per-worker columns into the pane's stores and
+        advance ``idx`` by the ``n_tuples`` they cover: the one path into
+        the stores.  The device backend folds them in one
+        :meth:`DeviceStateStore.merge_many`, a host backend a
+        ``merge_entries`` a worker."""
+        stride = self.op.stride
+        block = self.idx - self.idx % stride
         pane = self._panes.get(block)
         if pane is None:
             pane = self._panes[block] = _Pane(block, block + stride)
-        if self.op.backend == "device":
-            cols = (entries if isinstance(entries, PaneEntries)
-                    else PaneEntries.of(entries))
-            if len(cols):
-                self._seen_pending.append(cols.keys)
-                DeviceStateStore.merge_many(self._pane_stores(pane, cols),
-                                            cols.chunks(), tracer=self.tracer)
-        else:
-            for w, ks, vs, cs, last in entries:
-                if ks.shape[0] == 0:
-                    continue
-                w = int(w)
-                self._seen_pending.append(ks)
-                st = pane.stores.get(w)
-                if st is None:
-                    st = pane.stores[w] = make_store(self.op.backend,
-                                                     self.device)
-                # the fused flush builds these columns fresh per sync — the
-                # store may keep them without a defensive copy
-                st.merge_entries(ks, vs, cs, own=True)
-                if last > pane.last_idx.get(w, -1):
-                    pane.last_idx[w] = int(last)
+        if len(cols):
+            stores = self._pane_stores(pane, cols)
+            if self.op.backend == "device":
+                DeviceStateStore.merge_many(stores, cols.chunks(),
+                                            tracer=self.tracer)
+            else:
+                # the columns are built fresh for this fold — the store
+                # may keep them without a defensive copy
+                for st, (_, ks, vs, cs, _) in zip(stores, cols):
+                    st.merge_entries(ks, vs, cs, own=True)
         self.idx += n_tuples
-        span.done()
 
     def _pane_stores(self, pane: _Pane, cols: PaneEntries) -> list:
-        """The pane's device store of each worker of ``cols`` (those it
-        meets first made in one go), with ``last_idx`` brought up."""
-        ws = cols.workers.tolist()
-        stores = [pane.stores.get(w) for w in ws]
-        missing = [j for j, st in enumerate(stores) if st is None]
-        if missing:
-            for j, st in zip(missing, DeviceStateStore.many(len(missing),
-                                                            self.device)):
-                stores[j] = pane.stores[ws[j]] = st
-        last_idx = pane.last_idx
-        for w, last in zip(ws, cols.last.tolist()):
+        """The pane's store of each worker of ``cols`` (made where it has
+        none), with ``last_idx`` brought up."""
+        stores, last_idx = [], pane.last_idx
+        for w, last in zip(cols.workers.tolist(), cols.last.tolist()):
+            st = pane.stores.get(w)
+            if st is None:
+                st = pane.stores[w] = make_store(self.op.backend, self.device)
+            stores.append(st)
             if last > last_idx.get(w, -1):
                 last_idx[w] = last
         return stores

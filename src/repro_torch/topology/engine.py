@@ -650,7 +650,8 @@ def _emit_partials(partials, finishes: np.ndarray, in_roots: np.ndarray,
 class SimulatorEngine:
     """Discrete-event DSPE engine over a topology (paper §6.1 at every hop).
 
-    mode="batched" is the production path;
+    mode="fused" is the port's main path, the one its benchmark measures;
+    mode="batched" (the default) is the vectorised host engine;
     mode="reference" is the per-tuple interpreter kept as the equivalence
     oracle — identical event/sampling discipline, so SG/FG/PKG topologies
     match it exactly and DC/WC/FISH stay within the DESIGN.md §6 bands.

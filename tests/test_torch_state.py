@@ -9,7 +9,7 @@ import repro.state as RS
 import repro_torch.state as PS
 from repro_torch.state.store import DeviceStateStore
 
-from torch_helpers import CPU
+from torch_helpers import CPU, chunk_columns, pane_entries
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -131,7 +131,7 @@ def test_merge_many_matches_per_store_merges():
         c = np.full(n, 3 * big // 2) if w == 4 else rng.integers(1, 9, n)
         cols[w] = (ks, v, c)
     DeviceStateStore.merge_many([ours[w] for w in chunks],
-                                [cols[w] for w in chunks])
+                                chunk_columns([cols[w] for w in chunks]))
     for w, (ks, v, c) in cols.items():
         refs[w].merge_entries(ks, v, c)
     for w in chunks:
@@ -189,7 +189,9 @@ def test_slab_pane_syncs_match_per_store_merges(case):
     keys, values, counts and last index, partial for partial.  The event
     case takes keys off slab stores (``take``) and syncs the pane again
     around it; the spill case gives a slab store a young generation past
-    2^31 in a pane's second sync."""
+    2^31 in a pane's second sync.  In a pane's second sync a store that
+    meets an unseen key takes a new table on the sync's slab, and one that
+    meets none stays on its own."""
     from repro.topology.configs import config_for as ref_config
     from repro_torch.obs import Tracer
     from repro_torch.topology.configs import config_for
@@ -205,6 +207,7 @@ def test_slab_pane_syncs_match_per_store_merges(case):
                 if cfg.get("event") else (None, None))
     rng = np.random.default_rng(W + stride)
     second = cfg.get("event") or cfg.get("spill")
+    expect_slab = None  # the second sync's stores that get a new table
     for pane in range(4):
         start = pane * stride
         cuts = [0, 400, stride] if pane == 1 and second else [0, stride]
@@ -220,9 +223,13 @@ def test_slab_pane_syncs_match_per_store_merges(case):
                    else None)
             entries = _sync_entries(rng, groupers[0], live, start + lo,
                                     hi - lo, cfg.get("empty"), big)
-            handed = (entries if cfg.get("empty") is not None
-                      else PS.window.PaneEntries.of(entries))
-            ours.feed_aggregated(hi - lo, handed)
+            if j:
+                held = ours._panes[start].stores
+                expect_slab = sum(
+                    1 for w, ks, *_ in entries if ks.shape[0] and (
+                        w not in held or not np.isin(
+                            ks, held[w].items()[0]).all()))
+            ours.feed_aggregated(hi - lo, pane_entries(entries))
             ref.feed_aggregated(hi - lo, entries)
     ours.finalize()
     ref.finalize()
@@ -238,8 +245,134 @@ def test_slab_pane_syncs_match_per_store_merges(case):
     fresh_syncs = merges if not second else merges[:2] + merges[3:]
     assert all(m["slab"] == m["stores"] > 0 for m in fresh_syncs)
     if second:  # the pane's second sync meets the first's stores warm
+        assert merges[2]["slab"] == expect_slab
+    if cfg.get("spill"):  # worker 0 meets only its key 7: it stays
         assert merges[2]["slab"] < merges[2]["stores"]
     if cfg.get("event"):
         assert ours.migration.bytes_moved > 0
     if cfg.get("spill"):
         assert max(int(p.values.max()) for p in ours.partials) > INT32_MAX
+
+
+def _held_against_reference(ours, refs, read=None):
+    """Each of ``ours`` reads as its reference store: by ``items()``, and
+    by ``read_stores`` (one copy a slab, bases added) when ``read``."""
+    for st, ref in zip(ours, refs):
+        for a, b in zip(st.items(), ref.items()):
+            np.testing.assert_array_equal(a, b)
+    if read is not None:
+        copies = PS.store.READBACKS["store"]
+        for cols, ref in zip(PS.store.read_stores(ours), refs):
+            for a, b in zip(cols, ref.items()):
+                np.testing.assert_array_equal(a, b)
+        assert PS.store.READBACKS["store"] - copies == read
+
+
+@pytest.mark.parametrize("case", ["rebuilt_beside_fresh",
+                                  "spilled_beside_slab", "taken_then_synced"])
+def test_store_paths_off_the_benchmark_match_reference(case):
+    """The device store's paths that an all-fresh pane sync never takes,
+    each against the reference package's device store fed the same merges
+    one store at a time: a warm store rebuilt around unseen keys on one
+    sync's slab beside fresh stores; a store spilled past 2^31 in place on
+    a slab it shares, read back beside slab stores with its base added;
+    stores that ``take`` moved to slabs of their own, then synced again."""
+    from repro_torch.obs import Tracer
+
+    big = 2 ** 30
+    ours = [DeviceStateStore(CPU) for _ in range(4)]
+    refs = [RS.make_store("device") for _ in range(4)]
+
+    def sync(chunks):  # {store: (keys, values, counts)}
+        tracer = Tracer()
+        DeviceStateStore.merge_many(
+            [ours[i] for i in chunks], chunk_columns(list(chunks.values())),
+            tracer=tracer)
+        for i, (ks, vs, cs) in chunks.items():
+            refs[i].merge_entries(np.asarray(ks), np.asarray(vs),
+                                  np.asarray(cs))
+        return next(s.args for s in tracer.spans
+                    if s.name == "state.merge_many")
+
+    def col(*a):
+        return np.array(a, dtype=np.int64)
+
+    sync({0: (col(3, 9), col(4, 5), col(1, 2)),
+          1: (col(2, 8), col(big, 7), col(big, 1))})
+    assert ours[0]._slab is ours[1]._slab
+    if case == "rebuilt_beside_fresh":
+        # 0 meets 1 and 50 (rebuilt), 2 and 3 are fresh: one slab of three
+        args = sync({0: (col(1, 9, 50), col(6, -2, 3), col(1, 1, 1)),
+                     2: (col(4,), col(11,), col(2,)),
+                     3: (col(0, 7), col(1, 1), col(1, 1))})
+        assert args == {"stores": 3, "slab": 3}
+        assert ours[0]._slab is ours[2]._slab is ours[3]._slab
+        _held_against_reference(ours, refs, read=2)
+    elif case == "spilled_beside_slab":
+        # 1 spills (2^30 + 1.5 * 2^30) in place on the slab it shares
+        # with 0, and stays there; 2 and 3 go on the new sync's slab
+        args = sync({1: (col(2,), col(3 * big // 2), col(3 * big // 2)),
+                     2: (col(5, 6), col(1, 2), col(1, 1)),
+                     3: (col(6,), col(9,), col(4,))})
+        assert args == {"stores": 3, "slab": 2}
+        assert ours[1]._slab is ours[0]._slab is not ours[2]._slab
+        assert ours[1]._base_v.max() > INT32_MAX // 2
+        assert ours[0]._base_v is None
+        _held_against_reference(ours, refs, read=2)
+    else:
+        for i, ks in ((0, col(9)), (1, col(2, 8))):  # 1 is left empty
+            for a, b in zip(ours[i].take(ks), refs[i].take(ks)):
+                np.testing.assert_array_equal(a, b)
+        assert ours[0]._slab is not ours[1]._slab and \
+            ours[1].num_entries == 0
+        # 0 meets only its key 3 and stays on its own slab; 1, emptied,
+        # takes a new table beside fresh 2
+        args = sync({0: (col(3,), col(1,), col(1,)),
+                     1: (col(8, 12), col(2, 3), col(1, 1)),
+                     2: (col(8,), col(5,), col(5,))})
+        assert args == {"stores": 3, "slab": 2}
+        assert ours[1]._slab is ours[2]._slab is not ours[0]._slab
+        _held_against_reference(ours, refs, read=2)
+
+
+@pytest.mark.parametrize("backend", ["dict", "array", "device"])
+def test_feed_and_feed_aggregated_flush_the_same_windows(backend):
+    """One routed stream folded into sliding windows three ways — the
+    port's ``feed`` (chunks that cross pane boundaries), the port's
+    ``feed_aggregated`` (each pane's entries reduced per worker here), and
+    the reference package's ``feed`` — flushes the same partials."""
+    from repro.topology.configs import config_for as ref_config
+
+    rng = np.random.default_rng(8)
+    n, stride = 2_400, 300
+    keys = rng.integers(0, 250, n)
+    workers = ref_config("pkg").build(6).assign_batch(keys)
+    op = dict(agg="sum", value="hashed", size=600, slide=stride,
+              backend=backend)
+    fed = PS.KeyedStateManager(PS.WindowOp(**op), device=CPU)
+    synced = PS.KeyedStateManager(PS.WindowOp(**op), device=CPU)
+    ref = RS.KeyedStateManager(RS.WindowOp(**op))
+    for lo in range(0, n, 700):
+        fed.feed(keys[lo:lo + 700], workers[lo:lo + 700])
+        ref.feed(keys[lo:lo + 700], workers[lo:lo + 700])
+    values = PS.tuple_values(synced.op, keys)
+    for lo in range(0, n, stride):
+        entries = []
+        for w in np.unique(workers[lo:lo + stride]).tolist():
+            at = lo + np.flatnonzero(workers[lo:lo + stride] == w)
+            ks, inv = np.unique(keys[at], return_inverse=True)
+            entries.append((w, ks, np.bincount(inv, values[at]).astype(
+                np.int64), np.bincount(inv).astype(np.int64),
+                int(at.max())))
+        synced.feed_aggregated(stride, pane_entries(entries))
+    reports = [m.report("agg").summary() for m in (fed, synced, ref)]
+    assert reports[0] == reports[1] == reports[2]
+    assert reports[0]["windows"] == n // stride
+    for a, b, c in zip(fed.partials, synced.partials, ref.partials):
+        assert (a.window, a.worker, a.last_index) == \
+            (b.window, b.worker, b.last_index) == \
+            (c.window, c.worker, c.last_index)
+        for x, y, z in ((a.keys, b.keys, c.keys), (a.values, b.values,
+                        c.values), (a.counts, b.counts, c.counts)):
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, z)

@@ -104,6 +104,31 @@ def overfull_pane(case, where):
     ff.pane_canonical(keys_t, vc)
 
 
+def chunk_columns(chunks):
+    """``ChunkColumns`` from a sequence of ``(keys, values, counts)``: one
+    concatenation a column."""
+    from repro_torch.state.store import ChunkColumns
+
+    cols = [[np.asarray(c[j], dtype=np.int64) for c in chunks]
+            for j in range(3)]
+    starts = np.zeros(len(chunks) + 1, dtype=np.int64)
+    np.cumsum([k.shape[0] for k in cols[0]], out=starts[1:])
+    return ChunkColumns(*(np.concatenate(c) if c else np.empty(0, np.int64)
+                          for c in cols), starts)
+
+
+def pane_entries(entries):
+    """``PaneEntries`` from a sequence of ``(worker, keys, values, counts,
+    last_index)``, the empty ones left out."""
+    from repro_torch.state.window import PaneEntries
+
+    entries = [e for e in entries if e[1].shape[0]]
+    ch = chunk_columns([e[1:4] for e in entries])
+    return PaneEntries(np.array([int(e[0]) for e in entries], dtype=np.int64),
+                       ch.starts, ch.keys, ch.values, ch.counts,
+                       np.array([int(e[4]) for e in entries], dtype=np.int64))
+
+
 def mrope_positions(text0, grid_h, grid_w, s):
     """Qwen2-VL's (3, B, S) position ids (arXiv:2409.12191 §2.1), one row
     per entry of ``text0``: a text prefix of ``text0[r]`` tokens on equal
